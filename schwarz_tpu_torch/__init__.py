@@ -1,0 +1,56 @@
+"""schwarz_tpu_torch: the PyTorch / CUDA port of ``schwarz_tpu`` for an
+NVIDIA H100.
+
+A restricted additive Schwarz (RAS) solver for sparse ``A x = b`` with every
+subdomain batched on one GPU.  Its hot path runs hand-written CUDA kernels
+for Hopper (``csrc/``); each kernel's wrapper keeps a plain PyTorch version
+that it uses for CPU tensors, so the package runs, slowly, on the CPU when
+asked to (``device="cpu"``).  It imports neither JAX nor ``schwarz_tpu``.
+
+    from schwarz_tpu_torch import Settings, laplacian_2d, generate_rhs, solve
+    A = laplacian_2d(64)
+    res = solve(A, generate_rhs(A.n), Settings(), num_subdomains=4)
+"""
+
+from schwarz_tpu_torch.config import (
+    CommSettings,
+    ConvergenceSettings,
+    GlobalConvergence,
+    HaloStrategy,
+    LocalCriterion,
+    LocalSolver,
+    Metadata,
+    Partition,
+    Precond,
+    Settings,
+)
+from schwarz_tpu_torch.exceptions import NotImplementedFeature, SchwarzError
+from schwarz_tpu_torch.models import (
+    CSRMatrix,
+    generate_rhs,
+    laplacian_2d,
+    read_mtx,
+)
+from schwarz_tpu_torch.ras import RASolver, RASResult, solve
+
+__all__ = [
+    "CommSettings",
+    "ConvergenceSettings",
+    "GlobalConvergence",
+    "HaloStrategy",
+    "LocalCriterion",
+    "LocalSolver",
+    "Metadata",
+    "Partition",
+    "Precond",
+    "Settings",
+    "NotImplementedFeature",
+    "SchwarzError",
+    "CSRMatrix",
+    "generate_rhs",
+    "laplacian_2d",
+    "read_mtx",
+    "RASolver",
+    "RASResult",
+    "solve",
+]

@@ -1,0 +1,538 @@
+"""Restricted additive Schwarz solver: the port of ``schwarz_tpu/ras.py``,
+one level, synchronous.
+
+The reference's per-rank loop {exchange_boundary -> update_boundary ->
+check_convergence -> local_solve -> local_to_global_vector}
+(schwarz_base.cpp:322-506) runs as a Python loop over a state dictionary,
+with all S subdomains batched on one device:
+
+  - exchange_boundary  -> window insert + halo-run copy (K2)   (parallel/exchange.py)
+  - update_boundary    -> interface gather/scatter             (restricted_schwarz.cpp:991-1017)
+  - check_convergence  -> local residual through the DIA SpMV (K1) + protocol round
+  - local_solve        -> batched CG, or the fused CG kernel (K3)
+  - local_to_global    -> interior-window write                (communicate.cpp:64-94)
+
+:class:`RASolver` and :func:`solve` run on the CUDA device unless the caller
+passes ``device="cpu"``, where every kernel wrapper takes its plain PyTorch
+version.  With no GPU and no explicit device they raise.  Settings whose
+path is not ported yet raise ``NotImplementedFeature``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import sys
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from schwarz_tpu_torch.config import (
+    GlobalConvergence,
+    HaloStrategy,
+    LocalCriterion,
+    LocalSolver,
+    Precond,
+    Settings,
+)
+from schwarz_tpu_torch.core.decompose import Decomposition
+from schwarz_tpu_torch.exceptions import NotImplementedFeature
+from schwarz_tpu_torch.ops.dia import dia_ell_spmv, split_dia_ell
+from schwarz_tpu_torch.ops.fused_cg import fused_cg_solve, fused_cg_supported
+from schwarz_tpu_torch.ops.spmv import ell_spmv_batched
+from schwarz_tpu_torch.parallel.convergence import conv_step, init_conv_state
+from schwarz_tpu_torch.parallel.exchange import (
+    build_run_plan,
+    exchange_halo_allgather,
+    flat_run_tables,
+)
+from schwarz_tpu_torch.solvers.cg import cg_solve
+from schwarz_tpu_torch.solvers.precond import jacobi_inverse
+
+DIVERGENCE_LIMIT = 1e12  # schwarz_base.cpp:424: abort when ||r|| exceeds this
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device a solver runs on: CUDA unless the caller names another.
+    There is no silent fall back to the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "schwarz_tpu_torch runs on a CUDA device and none is "
+                "available; pass device='cpu' to run the plain PyTorch "
+                "versions of its kernels on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def plan_from_numpy(arrays: Dict[str, np.ndarray],
+                    device) -> Dict[str, torch.Tensor]:
+    """Host plan arrays (decomposition fields, DIA split, run tables) as
+    tensors on ``device``, with their dtypes kept."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in arrays.items()}
+
+
+def _interface_contrib(plan, x_ext: torch.Tensor) -> torch.Tensor:
+    """(S, Oi) per-interface-row values of ``A_interface @ x_ext`` (the
+    row-compacted product before scattering)."""
+    cols = plan["iface_cols"]                     # (S, Oi, Wi) int64
+    gathered = torch.gather(x_ext, 1, cols.reshape(cols.shape[0], -1))
+    return torch.sum(plan["iface_vals"] * gathered.reshape(cols.shape),
+                     dim=-1)
+
+
+def _interface_scatter(plan, contrib: torch.Tensor,
+                       base: torch.Tensor) -> torch.Tensor:
+    """``base + scatter(contrib)`` onto the interface rows (unique per
+    subdomain; padding entries target the extra column R, sliced away)."""
+    R = base.shape[1]
+    return F.pad(base, (0, 1)).scatter_add(
+        1, plan["iface_rows"], contrib)[:, :R].contiguous()
+
+
+@dataclasses.dataclass
+class RASResult:
+    """Solve outcome (the reference prints these at schwarz_base.cpp:473-499)."""
+
+    solution: np.ndarray            # (N,) in the ORIGINAL row ordering
+    converged: bool
+    diverged: bool
+    iters: int                      # outer iterations to convergence
+    residual_norm: float            # true ||b - A x||_2 (solve.cpp:1024-1085)
+    relative_residual_norm: float   # / ||b||_2
+    local_resnorm_history: np.ndarray   # (iters run, S)
+    global_resnorm_history: np.ndarray  # (iters run,)
+    inner_iters_history: np.ndarray     # (iters run, S)
+    solve_time_s: float
+    comm_matrix: np.ndarray         # (S, S) per-neighbor element volumes/iter
+
+
+class RASolver:
+    """Set up once, run many times (cf. SolverRAS construct/initialize/run)."""
+
+    def __init__(self, dec: Decomposition, device=None):
+        self.device = resolve_device(device)
+        self.dec = dec
+        self.settings = dec.settings
+        self.meta = dec.meta
+        self._check_supported()
+        s = self.settings
+        self._lc_dtype = None
+        if (s.local_compute_dtype is not None
+                and s.local_compute_dtype != s.dtype):
+            self._lc_dtype = getattr(torch, s.local_compute_dtype)
+        self._plan = self._build_plan()
+
+    def _check_supported(self) -> None:
+        """Fail loudly on every setting this slice does not port (and on
+        the JAX package's own invalid combinations)."""
+        s = self.settings
+        if s.shifted_iter:
+            raise NotImplementedFeature(
+                "shifted_iter (settings.hpp:212) is read nowhere in the "
+                "reference source; unset it")
+        if s.comm.stage_through_host:
+            raise NotImplementedFeature(
+                "stage_through_host exists for non-device-aware MPI; the "
+                "port has no host-staged transport — unset it")
+        if s.comm.lock_type != "lock-all":
+            raise NotImplementedFeature(
+                f"lock_type={s.comm.lock_type!r}: only 'lock-all' exists")
+        if s.comm.flush_type not in ("flush-all", "flush-local"):
+            raise ValueError(
+                f"flush_type must be 'flush-all' or 'flush-local', got "
+                f"{s.comm.flush_type!r}")
+        if s.comm.enable_put == s.comm.enable_get:
+            raise ValueError(
+                "exactly one of comm.enable_put / comm.enable_get must be set")
+        if s.inner_operator not in ("exact", "dia_only"):
+            raise ValueError(
+                f"inner_operator must be 'exact' or 'dia_only', got "
+                f"{s.inner_operator!r}")
+        if s.oras_weight != "auto":
+            try:
+                float(s.oras_weight)
+            except (TypeError, ValueError):
+                raise ValueError(
+                    f"oras_weight must be a float or 'auto', got "
+                    f"{s.oras_weight!r}") from None
+        unported = {
+            "two_level": s.two_level,
+            "O-RAS (oras_weight != 0)": (s.oras_weight == "auto"
+                                        or float(s.oras_weight) != 0.0),
+            f"local_solver={s.local_solver.value!r}":
+                s.local_solver != LocalSolver.iterative_cg,
+            f"precond={s.precond.value!r}":
+                s.precond not in (Precond.none, Precond.jacobi),
+            f"accelerator={s.accelerator!r}": s.accelerator != "none",
+            "free_running": s.free_running,
+            f"halo strategy {s.comm.strategy.value!r}":
+                s.comm.strategy != HaloStrategy.all_gather,
+            "comm.overlap_comm": s.comm.overlap_comm,
+            "comm.overlap_split": s.comm.overlap_split,
+            "onesided staleness > 1": s.comm.onesided and s.comm.staleness > 1,
+            "a halo dtype other than the value dtype": (
+                s.halo_dtype is not None and s.halo_dtype != s.dtype),
+            f"convergence method {s.convergence.method.value!r}":
+                s.convergence.method not in (GlobalConvergence.allgather,
+                                             GlobalConvergence.allreduce),
+            "write_debug_out": s.write_debug_out,
+            "inner_operator='dia_only'": s.inner_operator == "dia_only",
+        }
+        missing = [name for name, on in unported.items() if on]
+        if missing:
+            raise NotImplementedFeature(
+                "not ported to schwarz_tpu_torch yet: " + ", ".join(missing))
+
+    # ------------------------------------------------------------------ setup --
+    def _build_plan(self) -> Dict[str, torch.Tensor]:
+        dec = self.dec
+        s = self.settings
+        meta = self.meta
+        dtype = np.dtype(s.dtype)
+        S, R_int, R_rows, R_ext = (meta.num_subdomains, meta.max_interior,
+                                   meta.max_rows, meta.max_ext)
+        _, interior_valid, _ = dec.masks()
+        off = dec.interior_offset.astype(np.int64)
+        arrays = {
+            "iface_rows": dec.iface_rows.astype(np.int64),
+            "iface_vals": dec.iface_vals.astype(dtype),
+            "iface_cols": dec.iface_cols.astype(np.int64),
+            "local_rhs": dec.local_rhs.astype(dtype),
+            "interior_off": off,
+            "interior_mask": interior_valid,
+            # column of each interior slot in the closure (0 off the mask)
+            "int_cols": np.where(interior_valid,
+                                 off[:, None] + np.arange(R_int), 0),
+            "adj_in": dec.comm_matrix > 0,
+        }
+        lc_np = None if self._lc_dtype is None else np.dtype(
+            s.local_compute_dtype)
+        # DIA + remainder local operator; "auto" picks it on the card, as the
+        # JAX package picks it on a TPU (the CPU keeps the ELL gathers)
+        self._dia_offsets = None
+        self._dia_has_remainder = True
+        on_cuda = self.device.type == "cuda"
+        if s.spmv_format == "dia" or (s.spmv_format == "auto" and on_cuda):
+            hyb = split_dia_ell(dec.lmat_vals, dec.lmat_cols, dec.rows_count,
+                                max_diags=s.dia_max_diags)
+            dia_nnz = int((hyb.dia_vals != 0).sum())
+            total_nnz = max(int((dec.lmat_vals != 0).sum()), 1)
+            if s.spmv_format == "dia" or dia_nnz >= 0.5 * total_nnz:
+                self._dia_offsets = hyb.offsets
+                self._dia_has_remainder = bool(np.count_nonzero(hyb.rem_vals))
+                arrays["dia_vals"] = hyb.dia_vals.astype(dtype)
+                arrays["rem_rows"] = hyb.rem_rows.astype(np.int64)
+                arrays["rem_vals"] = hyb.rem_vals.astype(dtype)
+                arrays["rem_cols"] = hyb.rem_cols.astype(np.int64)
+                if lc_np is not None:
+                    arrays["dia_vals_lc"] = hyb.dia_vals.astype(lc_np)
+                    arrays["rem_vals_lc"] = hyb.rem_vals.astype(lc_np)
+        if self._dia_offsets is None:
+            arrays["lmat_vals"] = dec.lmat_vals.astype(dtype)
+            arrays["lmat_cols"] = dec.lmat_cols.astype(np.int64)
+            if lc_np is not None:
+                arrays["lmat_vals_lc"] = dec.lmat_vals.astype(lc_np)
+        if s.precond == Precond.jacobi:
+            arrays["precond_dinv"] = jacobi_inverse(
+                dec.lmat_vals.astype(dtype), dec.lmat_cols).astype(
+                    lc_np or dtype)
+        # fused whole-solve CG kernel: opt-in and gated; an unsatisfiable
+        # request fails loudly with the recipe
+        self._use_fused_cg = False
+        if s.fused_local_cg:
+            if self._dia_offsets is None:
+                raise ValueError(
+                    "fused_local_cg requires the DIA operator "
+                    "(spmv_format='dia' or a banded matrix under 'auto')")
+            inner_dtype = self._lc_dtype or s.value_dtype
+            if not fused_cg_supported(
+                S, R_rows, len(self._dia_offsets), inner_dtype,
+                self._dia_has_remainder, s.precond.value,
+            ):
+                raise ValueError(
+                    "fused_local_cg requirements not met: needs f32 local "
+                    "compute (dtype='float32' or local_compute_dtype="
+                    "'float32'), a pure-DIA operator with zero ELL remainder "
+                    f"(got remainder={self._dia_has_remainder}), rows % 128 "
+                    f"== 0 (set row_pad_multiple=128; got {R_rows}), and "
+                    "precond in (none, jacobi)")
+            self._use_fused_cg = True
+        # halo runs for K2: the contiguous-run plan, or one-element runs for
+        # an irregular halo
+        rp = build_run_plan(dec.halo_src_halo, dec.halo_slots, R_ext, R_int,
+                            dec.interior_offset)
+        src, dst, lens = flat_run_tables(rp, dec.halo_src_halo,
+                                         dec.halo_slots, R_ext, S * R_int)
+        arrays.update(runs_src=src, runs_dst=dst, runs_len=lens)
+        return plan_from_numpy(arrays, self.device)
+
+    # ------------------------------------------------------------- the stages --
+    def _exchange(self, x_own: torch.Tensor) -> torch.Tensor:
+        plan = self._plan
+        return exchange_halo_allgather(
+            x_own.contiguous(), plan["interior_off"],
+            (plan["runs_src"], plan["runs_dst"], plan["runs_len"]),
+            self.meta.max_ext)
+
+    def _apply_local(self, inner: bool = False):
+        """y = A_local @ x for the whole batch: DIA (K1) + remainder when
+        extracted, ELL otherwise.  ``inner`` selects the local-compute copy
+        of the operator."""
+        plan = self._plan
+        lc = "_lc" if (inner and self._lc_dtype is not None) else ""
+        if self._dia_offsets is not None:
+            offsets = self._dia_offsets
+            dv, rr, rv, rc = (plan["dia_vals" + lc], plan["rem_rows"],
+                              plan["rem_vals" + lc], plan["rem_cols"])
+            has_rem = self._dia_has_remainder
+            return lambda x: dia_ell_spmv(offsets, dv, rr, rv, rc, x,
+                                          has_remainder=has_rem)
+        lv, lcols = plan["lmat_vals" + lc], plan["lmat_cols"]
+        return lambda x: ell_spmv_batched(lv, lcols, x)
+
+    def _extract_int(self, z: torch.Tensor) -> torch.Tensor:
+        """Interior window ``z[off : off + R_int]`` per subdomain, zero on
+        the padding (the local->global write of communicate.cpp:64-94)."""
+        plan = self._plan
+        win = torch.gather(z, 1, plan["int_cols"])
+        return torch.where(plan["interior_mask"], win, torch.zeros_like(win))
+
+    def _interface_update(self, x_ext: torch.Tensor) -> torch.Tensor:
+        """rhs_eff = local_rhs - A_interface @ x_ext (update_boundary,
+        restricted_schwarz.cpp:991-1017), in the gather form."""
+        g = _interface_contrib(self._plan, x_ext)
+        return _interface_scatter(self._plan, -g, self._plan["local_rhs"])
+
+    def _local_solve(self, rhs_eff, z_prev, outer_it: Optional[int] = None):
+        """Batched local CG (solve.cpp:666-792).  ``reset_local_crit_iter``
+        (solve.cpp:729-742): outer iterations beyond it switch the inner
+        budget from the subdomain size to ``local_max_iters``."""
+        s = self.settings
+        R = self.meta.max_rows
+        max_it = s.local_max_iters if s.local_max_iters > 0 else R
+        if (s.reset_local_crit_iter >= 0 and s.local_max_iters > 0
+                and outer_it is not None):
+            max_it = (s.local_max_iters if outer_it > s.reset_local_crit_iter
+                      else R)
+        out_dtype = rhs_eff.dtype
+        if self._lc_dtype is not None:
+            # mixed-precision inner solve (iterative refinement)
+            rhs_eff = rhs_eff.to(self._lc_dtype)
+            z_prev = z_prev.to(self._lc_dtype)
+        plan = self._plan
+        dinv = plan.get("precond_dinv")
+        if self._use_fused_cg:
+            lc = "_lc" if self._lc_dtype is not None else ""
+            res = fused_cg_solve(
+                self._dia_offsets, plan["dia_vals" + lc],
+                rhs_eff.contiguous(), z_prev.contiguous(), dinv,
+                s.local_tolerance, max_it)
+        else:
+            res = cg_solve(
+                None, None, rhs_eff, z_prev, s.local_tolerance, max_it,
+                precond=(lambda r: dinv * r) if dinv is not None else None,
+                apply_fn=self._apply_local(inner=True))
+        return (res.x.to(out_dtype), res.iters,
+                res.rel_resnorm.to(out_dtype))
+
+    # -------------------------------------------------------------- solve loop --
+    def _step(self, st: Dict[str, Any]) -> Dict[str, Any]:
+        """One outer iteration (the body of the JAX package's run loop)."""
+        s = self.settings
+        S = self.meta.num_subdomains
+        R_rows = self.meta.max_rows
+        it = st["it"]
+        residual_update = (
+            s.convergence.criterion == LocalCriterion.residual_based
+            # mixed-precision inner solves require the correction form
+            or self._lc_dtype is not None
+        )
+        x_own = st["x_own"]
+        # --- exchange_boundary -------------------------------------------
+        x_ext = self._exchange(x_own)
+        # --- update_boundary: rhs_eff = b_loc - A_interface x_ext --------
+        rhs_eff = self._interface_update(x_ext)
+        # --- local residual (solve.cpp:795-856) --------------------------
+        r = rhs_eff - self._apply_local()(x_ext[:, :R_rows])
+        local_rn = torch.sqrt(torch.sum(r * r, dim=-1))
+        rn0 = torch.where(st["local_rn0"] < 0, local_rn, st["local_rn0"])
+        locally_conv = (local_rn * local_rn) < (s.tolerance ** 2) * (rn0 * rn0)
+        # --- global convergence protocol ---------------------------------
+        conv_state, nconv, grn = conv_step(
+            s, S, st["conv"], local_rn, rn0, locally_conv, self._plan["adj_in"])
+        diverged = torch.isnan(grn) | (grn > DIVERGENCE_LIMIT)
+        st["hist_local"][it] = local_rn
+        st["hist_global"][it] = grn
+        nconv_h, div_h = torch.stack(
+            (nconv.to(torch.float64), diverged.to(torch.float64))).tolist()
+        nconv_h, div_h = int(nconv_h), bool(div_h)
+        if s.tolerance <= 0.0:
+            nconv_h = 0
+        elif s.convergence.enable_global_check_iter_offset:
+            # delay global detection past 5% of max_iters (solve.cpp:992-996)
+            if not (it > s.max_iters * 0.05 or s.max_iters < 1000):
+                nconv_h = 0
+        # --- local_solve + local_to_global (skipped on the exit pass) ----
+        z_prev = st["z"]
+        if nconv_h < S and not div_h:
+            if residual_update:
+                # solve the correction equation A_local z = r, x += z
+                z, inner, inner_rel = self._local_solve(
+                    r, torch.zeros_like(z_prev), outer_it=it)
+            else:
+                z, inner, inner_rel = self._local_solve(
+                    rhs_eff, z_prev, outer_it=it)
+            # freeze subdomains that already detected global convergence
+            frozen = conv_state.detected[:, None]
+            z = torch.where(frozen, z_prev, z)
+            z_int = self._extract_int(z)
+            x_new = x_own + z_int if residual_update else z_int
+            x_own = torch.where(frozen, x_own, x_new)
+        else:
+            # exit pass: leave the iterate exactly as it was detected
+            z = z_prev
+            inner = torch.zeros(S, dtype=torch.int32, device=self.device)
+            inner_rel = torch.zeros(S, dtype=s.value_dtype,
+                                    device=self.device)
+        st["hist_inner"][it] = inner
+        st["hist_inner_rel"][it] = inner_rel
+        st.update(x_own=x_own, z=z, local_rn0=rn0, conv=conv_state,
+                  nconv=nconv_h, grn=grn, diverged=div_h, it=it + 1)
+        return st
+
+    def init_state(self, x0=None) -> Dict[str, Any]:
+        """Fresh solver state; device tensors plus host loop counters."""
+        meta = self.meta
+        s = self.settings
+        S = meta.num_subdomains
+        dtype = s.value_dtype
+        dev = self.device
+        n_hist = s.max_iters + 1
+
+        def zeros(*shape, dt=dtype):
+            return torch.zeros(shape, dtype=dt, device=dev)
+
+        x_own = (zeros(S, meta.max_interior) if x0 is None
+                 else torch.as_tensor(np.asarray(x0), dtype=dtype,
+                                      device=dev).clone())
+        return {
+            "x_own": x_own,
+            "z": zeros(S, meta.max_rows),
+            "local_rn0": -torch.ones(S, dtype=dtype, device=dev),
+            "conv": init_conv_state(S, dtype, dev),
+            "nconv": 0,
+            "grn": zeros(),
+            "diverged": False,
+            "it": 0,
+            "it_stop": s.max_iters,
+            "hist_local": zeros(n_hist, S),
+            "hist_global": zeros(n_hist),
+            "hist_inner": zeros(n_hist, S, dt=torch.int32),
+            "hist_inner_rel": zeros(n_hist, S),
+        }
+
+    def run(self, x0: Optional[np.ndarray] = None,
+            chunk_iters: Optional[int] = None) -> RASResult:
+        """Solve; returns the solution in the original row ordering plus
+        the true-residual oracle (cf. SchwarzBase::run +
+        compute_residual_norm).  ``chunk_iters`` caps the outer iterations
+        per chunk (``it_stop``); results equal the unchunked run."""
+        S = self.meta.num_subdomains
+        max_iters = self.settings.max_iters
+        st = self.init_state(x0)
+        t0 = time.perf_counter()
+        while True:
+            if chunk_iters is not None:
+                st["it_stop"] = min(st["it"] + chunk_iters, max_iters)
+            # the reference loop bound (schwarz_base.cpp:387): at most
+            # max_iters local solves; the detecting pass does not solve
+            while (st["it"] < max_iters and st["it"] < st["it_stop"]
+                   and st["nconv"] < S and not st["diverged"]):
+                st = self._step(st)
+            if self.settings.enable_logging:
+                print(f"[schwarz_tpu_torch] it={st['it']} "
+                      f"nconv={st['nconv']}/{S} grn={float(st['grn']):.6e}",
+                      file=sys.stderr, flush=True)
+            if (chunk_iters is None or st["nconv"] >= S or st["diverged"]
+                    or st["it"] >= max_iters):
+                break
+        x_own = st["x_own"].cpu().numpy()
+        elapsed = time.perf_counter() - t0
+
+        it = st["it"]
+        converged = st["nconv"] >= S and not st["diverged"]
+        iters = it - 1 if converged else it
+        # histories hold rows 0..it-1 (the detecting pass is the last one)
+        return self._assemble_result(
+            x_own, converged, st["diverged"], iters,
+            st["hist_local"][:it].cpu().numpy(),
+            st["hist_global"][:it].cpu().numpy(),
+            st["hist_inner"][:it].cpu().numpy(),
+            elapsed,
+        )
+
+    def _assemble_result(
+        self, x_own, converged, diverged, iters, hist_l, hist_g, hist_i,
+        elapsed,
+    ) -> RASResult:
+        """Solution in the original ordering and the true residual, in
+        float64 on the host against the global matrix."""
+        dec = self.dec
+        S = self.meta.num_subdomains
+        N = self.meta.global_size
+        x_perm = np.zeros(N, dtype=x_own.dtype)
+        for p in range(S):
+            lo, hi = dec.first_row[p], dec.first_row[p + 1]
+            x_perm[lo:hi] = x_own[p, : hi - lo]
+        x_orig = np.zeros_like(x_perm)
+        x_orig[dec.perm] = x_perm
+        A = dec.global_matrix.to_scipy()
+        resid = dec.global_rhs.astype(np.float64) - A @ x_perm.astype(
+            np.float64)
+        rhs_norm = float(np.linalg.norm(dec.global_rhs.astype(np.float64)))
+        res_norm = float(np.linalg.norm(resid))
+        return RASResult(
+            solution=x_orig,
+            converged=converged,
+            diverged=diverged,
+            iters=iters,
+            residual_norm=res_norm,
+            relative_residual_norm=res_norm / max(rhs_norm, 1e-300),
+            local_resnorm_history=hist_l,
+            global_resnorm_history=hist_g,
+            inner_iters_history=hist_i,
+            solve_time_s=elapsed,
+            comm_matrix=dec.comm_matrix,
+        )
+
+
+def solve(
+    mat,
+    rhs,
+    settings: Settings = Settings(),
+    num_subdomains: Optional[int] = None,
+    device=None,
+    partition_indices: Optional[np.ndarray] = None,
+    cell_weights: Optional[np.ndarray] = None,
+) -> RASResult:
+    """One-call API: decompose + setup + run (cf. bench_ras.cpp:161-180).
+
+    ``mat`` may be a :class:`~schwarz_tpu_torch.models.CSRMatrix` or any
+    scipy-sparse-convertible matrix.  Runs on CUDA unless ``device`` names
+    another device; raises when there is no GPU and no device is given.
+    """
+    from schwarz_tpu_torch.core.decompose import decompose
+    from schwarz_tpu_torch.models import CSRMatrix
+
+    device = resolve_device(device)
+    if not isinstance(mat, CSRMatrix) and hasattr(mat, "tocsr"):
+        mat = CSRMatrix.from_scipy(mat)
+    dec = decompose(
+        mat, rhs, settings, num_subdomains or 1, partition_indices,
+        cell_weights=cell_weights,
+    )
+    return RASolver(dec, device=device).run()
