@@ -17,7 +17,18 @@
 6. runs default Settings() (float64, unfused CG: K1 float64 + K2) on a 256^2
    Laplacian, 4 subdomains, 20 iterations, on the card and on the CPU, and
    requires them to match within rtol 1e-8;
-7. prints one JSON line describing the kernels, then the fixed last line
+7. holds K8 (x * 2), K9 (the flag-order probe, 10^4 rounds) and K5 (the
+   free-running rounds, one 16-round launch at the shapes of the 1M-row
+   free-running slice) to their plain versions, timed like phase 3;
+8. runs the diagnostics path (``python -m schwarz_tpu_torch.diagnostics
+   smoke flagorder``) with K8 and K9 counted;
+9. runs the free-running slice: ``solve`` on ``laplacian_3d(100)`` (10^6
+   rows), 16 subdomains, overlap 2, staleness 1, 16 inner CG iterations,
+   float32, 64 rounds, twice (cold, warm), with K5 counted;
+10. runs a converging free-running solve, ``laplacian_2d(64)``, 8 ranks, on
+   the card and on the CPU: equal ``done_at``, true residual < 1e-3; then
+   ``fresh_read`` at staleness 3 and ``run_refined`` to 1e-8 on the card;
+11. prints one JSON line describing the kernels, then the fixed last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the last line, as does a machine
@@ -218,17 +229,95 @@ def kernel_checks(sm: Smoke, solver) -> None:
               f"library_ms={v['library_ms']}", flush=True)
 
 
+def async_kernel_checks(sm: Smoke, solver) -> None:
+    """Phase 7: K8, K9 and K5 against their plain versions; K5 at the
+    shapes of the free-running slice (one 16-round launch from zero)."""
+    import torch
+
+    from schwarz_tpu_torch import diagnostics as dg
+    from schwarz_tpu_torch.ops.async_ras_kernel import (
+        async_ras_rounds, async_ras_rounds_plain)
+
+    # --- K8: x * 2 -----------------------------------------------------------
+    x = torch.randn((256, 256), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1))
+    y = dg.smoke_x2(x)
+    torch.cuda.synchronize()
+    ok = torch.equal(y, dg.smoke_x2_plain(x))
+    sm.check(ok, "K8 smoke_x2 bit-identical to x * 2")
+    bound, by = _bound_ms(2 * x.numel() * 4, x.numel(), "float32")
+    sm.kernels["smoke_x2"] = dict(
+        max_abs_err=float((y - x * 2).abs().max()),
+        ms=sm.ms(lambda: dg.smoke_x2(x), 50),
+        plain_ms=sm.ms(lambda: dg.smoke_x2_plain(x), 50),
+        bound_ms=bound, bound_by=by,
+        library_ms=sm.ms(lambda: x * 2, 50))
+
+    # --- K9: the flag-order probe --------------------------------------------
+    n, rounds = 32768, 10000
+    res = dg.flag_order_probe(n, rounds, "cuda")
+    sm.check(res["mismatches"] == 0 and res["error"] == 0
+             and res["producer_sm"] != res["consumer_sm"],
+             f"K9 flag_order_probe: {rounds} rounds of {n} floats, {res}")
+    plain = dg.flag_order_probe_plain(n, rounds, "cuda")
+    bound, by = _bound_ms(2 * rounds * n * 4, 0, "float32")
+    sm.kernels["flag_order_probe"] = dict(
+        max_abs_err=float(abs(res["mismatches"] - plain["mismatches"])),
+        ms=sm.ms(lambda: dg.flag_order_probe(n, rounds, "cuda"), 3),
+        plain_ms=sm.ms(lambda: dg.flag_order_probe_plain(n, rounds, "cuda"),
+                       1),
+        bound_ms=bound, bound_by=by, library_ms=None)
+
+    # --- K5: one launch of the free-running slice ----------------------------
+    p, d, D = solver.plan, solver._dev, solver.D
+    x0, known, aux, hl, hr = solver.init_state()
+    args = (d["dia"], d["b"], d["dinv"], d["mask_dom"], d["mask_int"],
+            x0.reshape(D, -1), known, aux, hl, hr, d.get("boost"))
+    kw = dict(offsets=p.offsets, total=p.total, hw=p.hw,
+              rounds=solver.chunk_rounds, staleness=solver.staleness,
+              ninner=solver.ninner, tol=solver.tolerance)
+    got = async_ras_rounds(*args, **kw)
+    torch.cuda.synchronize()
+    ref = async_ras_rounds_plain(*args, **kw)
+    err = float((got[0] - ref[0]).abs().max())
+    tol = 1e-4 * float(ref[0].abs().max())
+    same = (torch.equal(got[1], ref[1]) and torch.equal(got[2][:, :3],
+                                                        ref[2][:, :3]))
+    sm.check(err <= tol and same,
+             f"K5 async_ras_rounds, {solver.chunk_rounds} rounds at the "
+             f"slice's shapes: max abs err {err:.3e} <= {tol:.3e} (float64 "
+             f"sums of the same float32 products: equal up to ties), known "
+             f"bits and done_at equal: {same}")
+    K, L = d["dia"].shape[1], d["dia"].shape[2]
+    rows = D * L
+    n_bytes = 4 * (rows * (K + 4) + 2 * p.S * p.R)
+    n_ops = solver.chunk_rounds * solver.ninner * (2 * K + 13) * rows
+    bound, by = _bound_ms(n_bytes, n_ops, "float32")
+    sm.kernels["async_ras"] = dict(
+        max_abs_err=err, ms=sm.ms(lambda: async_ras_rounds(*args, **kw), 3),
+        plain_ms=sm.ms(lambda: async_ras_rounds_plain(*args, **kw), 1),
+        bound_ms=bound, bound_by=by, library_ms=None)
+    for k in ("smoke_x2", "flag_order_probe", "async_ras"):
+        v = sm.kernels[k]
+        print(f"{k}: ms={v['ms']:.4f} plain_ms={v['plain_ms']:.4f} "
+              f"bound_ms={v['bound_ms']:.4f} ({v['bound_by']}) "
+              f"library_ms={v['library_ms']}", flush=True)
+
+
 def _counters():
+    from schwarz_tpu_torch import diagnostics as dg
+    from schwarz_tpu_torch.ops.async_ras_kernel import async_ras_rounds
     from schwarz_tpu_torch.ops.dia_kernel import dia_spmv
     from schwarz_tpu_torch.ops.fused_cg import fused_cg_solve
     from schwarz_tpu_torch.ops.halo_kernel import assemble_runs
 
     return {"dia_spmv": dia_spmv, "halo_runs": assemble_runs,
-            "fused_cg": fused_cg_solve}
+            "fused_cg": fused_cg_solve, "async_ras": async_ras_rounds,
+            "smoke_x2": dg.smoke_x2, "flag_order_probe": dg.flag_order_probe}
 
 
-def counted_run(solver):
-    """Run a solve with every launch count set to 0 just before; return the
+def counted(fn):
+    """Call ``fn`` with every launch count set to 0 just before; return its
     result and the counts read just after."""
     import torch
 
@@ -236,9 +325,116 @@ def counted_run(solver):
     for f in fns.values():
         f.launches = 0
     torch.cuda.synchronize()
-    res = solver.run()
+    res = fn()
     torch.cuda.synchronize()
     return res, {k: f.launches for k, f in fns.items()}
+
+
+def free_running_phases(sm: Smoke) -> None:
+    """Phases 7-10: the free-running kernels, the diagnostics path, the
+    1M-row free-running slice and a converging solve."""
+    import numpy as np
+    import torch
+
+    from schwarz_tpu_torch import CommSettings, Settings, diagnostics
+    from schwarz_tpu_torch.models import laplacian_2d, laplacian_3d
+    from schwarz_tpu_torch.ops.async_ras import AsyncRASolver
+    from schwarz_tpu_torch.ras import make_free_running_solver, solve
+
+    t0 = time.perf_counter()
+    A = laplacian_3d(100)
+    b = np.ones(A.n)
+    settings = Settings(free_running=True, overlap=2, tolerance=1e-4,
+                        local_max_iters=16, max_iters=64,
+                        comm=CommSettings(staleness=1))
+    solver, refine = make_free_running_solver(A, b, 16, settings)
+    torch.cuda.synchronize()
+    p = solver.plan
+    print(f"free-running setup {time.perf_counter() - t0:.1f} s: N={p.N} "
+          f"S={p.S} ranks={solver.D} R={p.R} bw={max(p.offsets)} "
+          f"ovp={p.ovp} hw={p.hw} total={p.total} K={len(p.offsets)} "
+          f"refine={refine}", flush=True)
+
+    # --- 7. K8, K9, K5 against their plain versions --------------------------
+    async_kernel_checks(sm, solver)
+
+    # --- 8. the diagnostics path ---------------------------------------------
+    rc, launches = counted(lambda: diagnostics.main(["smoke", "flagorder"]))
+    print(f"diagnostics path: exit {rc}, launches {launches}", flush=True)
+    sm.check(rc == 0, "diagnostics smoke flagorder passed")
+    for k in ("smoke_x2", "flag_order_probe"):
+        sm.check(launches[k] > 0, f"{k} launched {launches[k]} times on the "
+                 "diagnostics path")
+        sm.kernels[k]["launches"] = launches[k]
+
+    # --- 9. the 1M-row free-running slice, cold then warm --------------------
+    for tag in ("cold", "warm"):
+        t0 = time.perf_counter()
+        res, launches = counted(lambda: solve(A, b, settings, 16))
+        wall = time.perf_counter() - t0
+        n_rounds = launches["async_ras"] * solver.chunk_rounds
+        print(f"free-running slice ({tag}): {n_rounds} rounds in "
+              f"{launches['async_ras']} launches, run loop "
+              f"{res.solve_time_s:.4f} s = "
+              f"{1e3 * res.solve_time_s / max(n_rounds, 1):.3f} ms/round, "
+              f"solve() wall with setup {wall:.2f} s, converged="
+              f"{res.converged}, true relative residual "
+              f"{res.relative_residual_norm:.6e}",
+              flush=True)
+        if tag == "cold":
+            sm.check(launches["async_ras"] > 0,
+                     f"async_ras launched {launches['async_ras']} times on "
+                     "the free-running slice")
+            sm.kernels["async_ras"]["launches"] = launches["async_ras"]
+            sm.check(res.solution.shape == (A.n,) and bool(np.isfinite(
+                res.solution).all()) and np.isfinite(
+                res.relative_residual_norm)
+                and res.relative_residual_norm < 1.0,
+                f"free-running slice: finite solution, true relative "
+                f"residual {res.relative_residual_norm:.6e} < 1")
+    k5_ms = sm.kernels["async_ras"]["ms"]
+    print(f"where the time goes (warm): K5 {k5_ms:.3f} ms per "
+          f"{solver.chunk_rounds}-round launch (events, phase 7) x "
+          f"{launches['async_ras']} launches = "
+          f"{k5_ms * launches['async_ras']:.3f} ms of a "
+          f"{1e3 * res.solve_time_s:.3f} ms run loop", flush=True)
+    del solver
+
+    # --- 10. a converging free-running solve: card against CPU ---------------
+    A2 = laplacian_2d(64)
+    b2 = np.ones(A2.n)
+    kw = dict(overlap=2, tolerance=1e-4, staleness=1, ninner=20,
+              chunk_rounds=16, num_ranks=8)
+    x_c, i_c = AsyncRASolver(A2, b2, 8, **kw).run(max_rounds=800)
+    x_h, i_h = AsyncRASolver(A2, b2, 8, device="cpu", **kw).run(
+        max_rounds=800)
+    print(f"64^2 free-running, 8 ranks: card done_at {i_c['done_at'].tolist()} "
+          f"in {i_c['rounds']} rounds, {i_c['time_s']:.4f} s, true rel "
+          f"{i_c['relative_residual_norm']:.6e}; CPU done_at "
+          f"{i_h['done_at'].tolist()}, true rel "
+          f"{i_h['relative_residual_norm']:.6e}; max |x_card - x_cpu| "
+          f"{np.abs(x_c - x_h).max():.3e}", flush=True)
+    sm.check(i_c["converged"] and len(np.unique(i_c["done_at"])) > 1
+             and np.array_equal(i_c["done_at"], i_h["done_at"])
+             and i_c["relative_residual_norm"] < 1e-3,
+             "64^2 free-running converges on the card with unequal done_at "
+             "equal to the CPU run's, true residual < 1e-3")
+    fr = AsyncRASolver(A2, b2, 8, **{**kw, "staleness": 3},
+                       fresh_read=True)
+    _, i_f = fr.run(max_rounds=800)
+    print(f"fresh_read, staleness 3: done_at {i_f['done_at'].tolist()}, "
+          f"hits {i_f['fresh_read_hits']}, true rel "
+          f"{i_f['relative_residual_norm']:.6e}", flush=True)
+    sm.check(i_f["converged"] and i_f["fresh_read_hits"] > 0
+             and i_f["relative_residual_norm"] < 1e-3,
+             "fresh_read at staleness 3 converges with hits > 0")
+    xr, i_r = AsyncRASolver(A2, b2, 8, **kw).run_refined(tol=1e-8,
+                                                         max_rounds=800)
+    print(f"run_refined(tol=1e-8): {i_r['restarts']} restarts, "
+          f"{i_r['rounds']} rounds, true rel "
+          f"{i_r['relative_residual_norm']:.6e}", flush=True)
+    sm.check(i_r["converged"] and i_r["relative_residual_norm"] <= 1e-8,
+             "run_refined reaches a true relative residual <= 1e-8")
 
 
 def main() -> int:
@@ -292,7 +488,7 @@ def main() -> int:
     kernel_checks(sm, solver)
 
     # --- 4. the 1M-row slice on the card -------------------------------------
-    res, launches = counted_run(solver)
+    res, launches = counted(solver.run)
     n_it = len(res.global_resnorm_history)
     print(f"slice: {n_it} outer iterations, converged={res.converged}, "
           f"wall {res.solve_time_s:.3f} s "
@@ -302,8 +498,9 @@ def main() -> int:
     print("global residual history: " + " ".join(
         f"{v:.6e}" for v in res.global_resnorm_history), flush=True)
     print(f"launches in the slice: {launches}", flush=True)
-    for k, n in launches.items():
-        sm.check(n > 0, f"{k} launched {n} times on the main path")
+    for k in ("dia_spmv", "halo_runs", "fused_cg"):
+        sm.check(launches[k] > 0,
+                 f"{k} launched {launches[k]} times on the main path")
     hist = res.global_resnorm_history
     sm.check(res.solution.shape == (A.n,) and bool(np.isfinite(
         res.solution).all()) and bool(np.isfinite(hist).all()),
@@ -360,7 +557,7 @@ def main() -> int:
     A2 = laplacian_2d(256)
     b2 = generate_rhs(A2.n, random=False)
     dec2 = decompose(A2, b2, Settings(max_iters=20), 4)
-    res2, launches2 = counted_run(RASolver(dec2))
+    res2, launches2 = counted(RASolver(dec2).run)
     print(f"default f64 (256^2, S=4): {len(res2.global_resnorm_history)} "
           f"iterations, wall {res2.solve_time_s:.3f} s, launches "
           f"{launches2}", flush=True)
@@ -375,7 +572,10 @@ def main() -> int:
              f"{cpu2.iters}, max rel diff {rel2:.3e} <= 1e-8")
     sm.kernels["dia_spmv_float64"]["launches"] = launches2["dia_spmv"]
 
-    # --- 7. the kernels line and the last line -------------------------------
+    # --- 7-10. the free-running slice and the diagnostics ---------------------
+    free_running_phases(sm)
+
+    # --- 11. the kernels line and the last line ------------------------------
     meta_k = {
         "dia_spmv_float32": ("csrc/dia_spmv.cu",
                              "schwarz_tpu/ops/pallas_kernels.py:110"),
@@ -383,6 +583,11 @@ def main() -> int:
                              "schwarz_tpu/ops/pallas_kernels.py:110"),
         "halo_runs": ("csrc/halo_runs.cu", "schwarz_tpu/ops/halo_pallas.py:142"),
         "fused_cg": ("csrc/fused_cg.cu", "schwarz_tpu/ops/fused_cg.py:84"),
+        "async_ras": ("csrc/async_ras.cu",
+                      "schwarz_tpu/ops/async_ras.py:394"),
+        "smoke_x2": ("csrc/diagnostics.cu", "scripts/tpu_diagnostics.py:53"),
+        "flag_order_probe": ("csrc/diagnostics.cu",
+                             "scripts/tpu_diagnostics.py:214"),
     }
     line = []
     for name, (src, replaces) in meta_k.items():

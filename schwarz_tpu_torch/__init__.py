@@ -10,6 +10,9 @@ asked to (``device="cpu"``).  It imports neither JAX nor ``schwarz_tpu``.
     from schwarz_tpu_torch import Settings, laplacian_2d, generate_rhs, solve
     A = laplacian_2d(64)
     res = solve(A, generate_rhs(A.n), Settings(), num_subdomains=4)
+
+``Settings(free_running=True)`` takes the free-running asynchronous path
+(1-D banded tier, :class:`AsyncRASolver`).
 """
 
 from schwarz_tpu_torch.config import (
@@ -27,11 +30,19 @@ from schwarz_tpu_torch.config import (
 from schwarz_tpu_torch.exceptions import NotImplementedFeature, SchwarzError
 from schwarz_tpu_torch.models import (
     CSRMatrix,
+    advection_diffusion_2d,
     generate_rhs,
     laplacian_2d,
+    laplacian_3d,
     read_mtx,
 )
-from schwarz_tpu_torch.ras import RASolver, RASResult, solve
+from schwarz_tpu_torch.ops.async_ras import AsyncRASolver
+from schwarz_tpu_torch.ras import (
+    RASolver,
+    RASResult,
+    make_free_running_solver,
+    solve,
+)
 
 __all__ = [
     "CommSettings",
@@ -47,10 +58,14 @@ __all__ = [
     "NotImplementedFeature",
     "SchwarzError",
     "CSRMatrix",
+    "advection_diffusion_2d",
     "generate_rhs",
     "laplacian_2d",
+    "laplacian_3d",
     "read_mtx",
+    "AsyncRASolver",
     "RASolver",
     "RASResult",
+    "make_free_running_solver",
     "solve",
 ]

@@ -1,0 +1,688 @@
+// K5: free-running asynchronous RAS rounds, one launch for T rounds of all
+// ranks, with no barrier between ranks.
+//
+// Replaces schwarz_tpu/ops/async_ras.py async_ras_rounds (:394).  Per round
+// a rank packs its two edge strips and its known-converged bits into slot
+// rings, consumes its neighbours' messages of round t-B (or, in warm-up
+// rounds t < B, the halos carried from the previous launch with zero flags),
+// builds its folded extended windows, computes the masked residual, its
+// ||r||^2 over owned rows and the convergence bit, merges the gossip, runs
+// its correction solve (Jacobi-PCG, BiCGStab or GMRES(m), with the O-RAS
+// Robin diagonal when given) and freezes once it knows every rank converged.
+// After T rounds it drains the outstanding messages into its known bits and
+// its halo carries.
+//
+// Layout.  One 1024-thread block per rank, launched cooperatively so that
+// all D ranks are resident at once: a rank spins on its neighbours, so a
+// rank that is not scheduled would deadlock the others.  A rank's Sl windows
+// are one contiguous vector of Sl*total floats; the shifted reads of the
+// DIA product wrap cyclically over it, as the TPU kernel's flat shifts do,
+// and every cross-window read meets a zero coefficient (hw >= ovp + bw).
+// Work vectors live in device memory (the wrapper allocates them).  Dot
+// products are block reductions of float32 products, summed in float64 and
+// rounded to float32, and this file is built with -fmad=false: the plain
+// PyTorch version does the same, so card and CPU agree bit for bit up to
+// rare ties, and convergence is detected at the same round on both (in
+// float32 sums, the 1e-4 threshold flipped a detection round between them).
+// The correction solve shares its step sizes across the rank's windows (one
+// polynomial per rank), as on the TPU.  A rank that is frozen skips its
+// correction solve: the TPU kernel computes it and discards it.
+//
+// Messages.  Each (rank, direction) owns a ring of M = 2B+2 slots in device
+// memory: hw strip floats, the D known lanes, and a 64-bit sequence word
+// per slot.  Direction 0 carries the rank's first hw rows to its left
+// neighbour, direction 1 its last hw rows to its right neighbour; the ring
+// is cyclic (rank 0's left neighbour is rank D-1, and with D = 1 a rank is
+// its own neighbour).  Producer: all threads write the slot, __syncthreads,
+// then thread 0 fences and release-stores the sequence number t+1.
+// Consumer: thread 0 spins with acquire loads until the sequence number
+// arrives, __syncthreads, and the block reads the slot with __ldcg (L1 is
+// not coherent across SMs).  Once the block has read the slot, thread 0
+// adds one to the producer's ack counter with a release; a producer waits
+// for ack >= t-M+1 before it reuses a slot at round t >= M.
+//
+// Launch boundaries: the sequence words, ack counters and the error word
+// are reset by a stream-ordered memset before every launch (the wrapper
+// allocates them zeroed), so messages are numbered from 1 in each launch,
+// as the TPU kernel's rings start empty at each launch.
+//
+// Watchdog: every spin is bounded by clock64(); on timeout the rank sets
+// the error word and leaves the loop, every other spin sees the error word
+// and leaves too, and the wrapper raises.
+//
+// fresh_read: thread 0 also peeks the sequence words of the B-1 newer slots
+// and takes the newest message that has fully arrived.  A slot cannot be
+// overwritten before its message is acknowledged at round u+B > t, so the
+// peek is safe.
+//
+// Bound on the card: per launch, the bytes of dia, b, dinv, both masks and
+// x read once, against T * ninner * (2K+13) float32 operations per row;
+// at the 1M-row slice the operations bound it.  With one SM per rank (16 of
+// 132 at the slice) each rank streams its vectors several times per inner
+// iteration, so this first version is far from that bound by design.
+#include <cfloat>
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kLanes = 128;
+constexpr int kMaxGmres = 64;
+constexpr long long kWatchdogCycles = 8000000000LL;  // ~4 s at 1.98 GHz
+
+enum Solver { kCG = 0, kBiCGStab = 1, kGMRES = 2 };
+enum Wait { kWaitAck = 1, kWaitMessage = 2, kWaitDrain = 3 };
+
+struct Args {
+  const float* dia;    // (D, K, L)
+  const float* b;      // (D, L)
+  const float* dinv;
+  const float* md;
+  const float* mi;
+  const float* boost;  // may be null
+  const float* x_in;   // (D, Sl*R)
+  const float* known_in;
+  const float* aux_in;  // (D, 128)
+  const float* hl_in;   // (D, hw)
+  const float* hr_in;
+  float* x;
+  float* known_out;
+  float* aux_out;
+  float* hl_out;
+  float* hr_out;
+  float* work;  // (D, nwork, L)
+  float* ring;  // (D, 2, M, slot)
+  unsigned long long* seq;  // (D, 2, M)
+  unsigned int* ack;        // (D, 2)
+  int* err;
+  int D, Sl, K, total, hw, R, T, B, M, ninner, solver, fresh, slot, nwork;
+  int L;
+  Offsets offs;
+  float tol2;
+};
+
+__device__ __forceinline__ unsigned long long ld_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned int ld_acquire(const unsigned int* p) {
+  unsigned int v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ void red_release_add(unsigned int* p,
+                                                unsigned int v) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// Spins until *p >= want.  False when the watchdog fired here or elsewhere.
+template <typename T>
+__device__ bool spin_until(const T* p, T want, int* err, int code) {
+  const long long t0 = clock64();
+  while (ld_acquire(p) < want) {
+    if (*(volatile int*)err != 0) return false;
+    if (clock64() - t0 > kWatchdogCycles) {
+      atomicCAS(err, 0, code);
+      return false;
+    }
+    __nanosleep(64);
+  }
+  return true;
+}
+
+__device__ __forceinline__ double warp_sum(double v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Sums each v[n] over the block; every thread gets the totals.  The terms
+// are float32 products; the sums are float64 and are rounded to float32 by
+// the caller, so the result does not depend on the summation order (up to
+// a tie at a float32 rounding boundary) and the plain version, which sums
+// the same float32 products in float64, gets the same float32 dot.
+template <int N>
+__device__ __forceinline__ void block_sum(double (&v)[N], double* sh) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int n = 0; n < N; ++n) v[n] = warp_sum(v[n]);
+  if (lane == 0) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) sh[n * kWarps + warp] = v[n];
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const float s = warp_sum(sh[n * kWarps + lane]);
+      if (lane == 0) sh[N * kWarps + n] = s;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int n = 0; n < N; ++n) v[n] = sh[N * kWarps + n];
+  __syncthreads();  // sh is written again by the next call
+}
+
+__device__ __forceinline__ float sdiv(float a, float b) {
+  return fabsf(b) > FLT_MIN ? a / b : 0.f;
+}
+
+// Row q of the DIA product over the rank's folded vector, reads wrapping
+// cyclically: sum_k dia[k, q] * (scale ? dv * v : v)[(q + o_k) mod L].
+template <int KC, bool kScale>
+__device__ __forceinline__ float dia_row_cyc(const float* __restrict__ dia,
+                                             const float* v,
+                                             const float* __restrict__ dv,
+                                             int q, int K, int L,
+                                             const Offsets& offs) {
+  const int nk = KC > 0 ? KC : K;
+  float acc = 0.f;
+#pragma unroll
+  for (int k = 0; k < nk; ++k) {
+    int c = q + offs.v[k];
+    if (c < 0) c += L;
+    else if (c >= L) c -= L;
+    const float xv = kScale ? dv[c] * v[c] : v[c];
+    const float d = dia[(long long)k * L + q];
+    acc = k == 0 ? d * xv : acc + d * xv;
+  }
+  return acc;
+}
+
+// A_solve (dv * v if kScale) at row q: the masked product, plus the O-RAS
+// Robin diagonal when ``bo`` is given.
+template <int KC, bool kScale>
+__device__ __forceinline__ float apply_solve(
+    const float* __restrict__ dia, const float* __restrict__ dv,
+    const float* __restrict__ md, const float* __restrict__ bo,
+    const float* v, int q, int K, int L, const Offsets& offs) {
+  float s = md[q] * dia_row_cyc<KC, kScale>(dia, v, dv, q, K, L, offs);
+  if (bo != nullptr) s += bo[q] * (kScale ? dv[q] * v[q] : v[q]);
+  return s;
+}
+
+template <int KC>
+__global__ void __launch_bounds__(kThreads, 1) async_ras_kernel(const Args a) {
+  __shared__ float known[kLanes], fl_l[kLanes], fl_r[kLanes];
+  __shared__ double red[4 * kWarps + 4];
+  __shared__ float H[(kMaxGmres + 1) * kMaxGmres];
+  __shared__ float g[kMaxGmres + 1], cs[kMaxGmres], sn[kMaxGmres],
+      yv[kMaxGmres];
+  __shared__ int src_l, src_r;
+
+  const int tid = threadIdx.x;
+  const int me = blockIdx.x;
+  const int D = a.D, L = a.L, hw = a.hw, R = a.R, total = a.total;
+  const int Sl = a.Sl, T = a.T, B = a.B, M = a.M;
+  const int SlR = Sl * R;
+  const int left = (me + D - 1) % D, right = (me + 1) % D;
+  const long long vb = (long long)me * L;
+  const float* dia = a.dia + vb * a.K;
+  const float* bo = a.boost != nullptr ? a.boost + vb : nullptr;
+  const float* b = a.b + vb;
+  const float* dv = a.dinv + vb;
+  const float* md = a.md + vb;
+  const float* mi = a.mi + vb;
+  float* x = a.x + (long long)me * SlR;
+  const float* x_in = a.x_in + (long long)me * SlR;
+  float* W = a.work + (long long)me * a.nwork * L;
+  auto vec = [&](int i) { return W + (long long)i * L; };
+  auto slot = [&](int rank, int dir, int j) {
+    return a.ring + (((long long)rank * 2 + dir) * M + j) * a.slot;
+  };
+  auto seq = [&](int rank, int dir, int j) {
+    return a.seq + ((long long)rank * 2 + dir) * M + j;
+  };
+  auto ack = [&](int rank, int dir) { return a.ack + rank * 2 + dir; };
+
+  for (int l = tid; l < kLanes; l += kThreads)
+    known[l] = fmaxf(a.known_in[me * kLanes + l], l >= D ? 1.f : 0.f);
+  for (int i = tid; i < SlR; i += kThreads) x[i] = x_in[i];
+  float rn0 = a.aux_in[me * kLanes + 0];
+  float done_at = a.aux_in[me * kLanes + 1];
+  const float base_t = a.aux_in[me * kLanes + 2];
+  float hits = fmaxf(a.aux_in[me * kLanes + 4], 0.f);  // thread 0's count
+  float rn = 0.f;
+  __syncthreads();
+
+  for (int t = 0; t < T; ++t) {
+    const int j = t % M;
+    // ---- flow control: slot j is free once its last message was acked
+    if (t >= M) {
+      if (tid == 0) {
+        const unsigned int want = t - M + 1;
+        spin_until(ack(me, 0), want, a.err, kWaitAck) &&
+            spin_until(ack(me, 1), want, a.err, kWaitAck);
+      }
+      __syncthreads();
+    }
+    // ---- pack and publish the two edge strips with the known bits
+    {
+      float* s0 = slot(me, 0, j);
+      float* s1 = slot(me, 1, j);
+      for (int i = tid; i < hw; i += kThreads) {
+        s0[i] = x[i];
+        s1[i] = x[SlR - hw + i];
+      }
+      for (int l = tid; l < D; l += kThreads) {
+        s0[hw + l] = known[l];
+        s1[hw + l] = known[l];
+      }
+      __syncthreads();
+      if (tid == 0) {
+        __threadfence();
+        st_release(seq(me, 0, j), (unsigned long long)t + 1);
+        st_release(seq(me, 1, j), (unsigned long long)t + 1);
+      }
+    }
+    // ---- consume the neighbours' message of round t - B
+    const bool msg = t >= B;
+    const float* h_l;
+    const float* h_r;
+    if (msg) {
+      if (tid == 0) {
+        const int u = t - B, jc = u % M;
+        spin_until(seq(left, 1, jc), (unsigned long long)u + 1, a.err,
+                   kWaitMessage) &&
+            spin_until(seq(right, 0, jc), (unsigned long long)u + 1, a.err,
+                       kWaitMessage);
+        int cl = jc, cr = jc;
+        if (a.fresh && B > 1) {
+          for (int d = 1; d < B; ++d) {
+            const int un = u + d, jn = un % M;
+            if (ld_acquire(seq(left, 1, jn)) >= (unsigned long long)un + 1) {
+              cl = jn;
+              hits += 1.f;
+            }
+            if (ld_acquire(seq(right, 0, jn)) >= (unsigned long long)un + 1) {
+              cr = jn;
+              hits += 1.f;
+            }
+          }
+        }
+        src_l = cl;
+        src_r = cr;
+      }
+      __syncthreads();
+      h_l = slot(left, 1, src_l);
+      h_r = slot(right, 0, src_r);
+      // known bits only grow, so the newest message's flags cover the
+      // union over every slot the fresh read looked at
+      for (int l = tid; l < kLanes; l += kThreads) {
+        fl_l[l] = l < D ? __ldcg(h_l + hw + l) : 0.f;
+        fl_r[l] = l < D ? __ldcg(h_r + hw + l) : 0.f;
+      }
+    } else {
+      h_l = a.hl_in + (long long)me * hw;
+      h_r = a.hr_in + (long long)me * hw;
+      for (int l = tid; l < kLanes; l += kThreads) fl_l[l] = fl_r[l] = 0.f;
+    }
+    // ---- the folded extended windows: ring halos at the rank's edges,
+    // the current iterate between its own windows
+    float* xp = vec(0);
+    for (int s = 0; s < Sl; ++s) {
+      float* o = xp + (long long)s * total;
+      const float* xs = x + (long long)s * R;
+      for (int i = tid; i < total; i += kThreads) {
+        float v;
+        if (i < hw)
+          v = s == 0 ? __ldcg(h_l + i) : xs[i - hw];
+        else if (i < hw + R)
+          v = xs[i - hw];
+        else
+          v = s == Sl - 1 ? __ldcg(h_r + i - hw - R) : xs[i - hw];
+        o[i] = v;
+      }
+    }
+    __syncthreads();
+    if (msg && tid == 0) {
+      red_release_add(ack(left, 1), 1u);
+      red_release_add(ack(right, 0), 1u);
+    }
+    // ---- masked residual, its norm over owned rows, solver start vectors
+    float* r = vec(1);
+    double acc[2] = {0.0, 0.0};
+    for (int q = tid; q < L; q += kThreads) {
+      const float rq = md[q] * (b[q] - dia_row_cyc<KC, false>(
+                                           dia, xp, dv, q, a.K, L, a.offs));
+      r[q] = rq;
+      const float m = mi[q] * rq;
+      acc[0] += (double)(m * m);
+      if (a.solver == kCG) {
+        const float s0 = dv[q] * rq;
+        vec(2)[q] = s0;  // p
+        vec(3)[q] = 0.f;  // z
+        acc[1] += (double)(rq * s0);
+      } else {
+        acc[1] += (double)(rq * rq);
+        if (a.solver == kBiCGStab) {
+          vec(2)[q] = 0.f;  // zz
+          vec(3)[q] = rq;   // rr
+          vec(4)[q] = 0.f;  // p
+          vec(5)[q] = 0.f;  // v
+        }
+      }
+    }
+    block_sum(acc, red);
+    rn = (float)acc[0];
+    rn0 = rn0 < 0.f ? rn : rn0;
+    const float myconv = rn <= a.tol2 * rn0 ? 1.f : 0.f;
+    float kn = 0.f;
+    if (tid < kLanes) {
+      kn = fmaxf(fmaxf(known[tid], tid == me ? myconv : 0.f),
+                 fmaxf(fl_l[tid], fl_r[tid]));
+      known[tid] = kn;
+    }
+    const bool all_known =
+        __syncthreads_count(tid < kLanes && kn >= 1.f) == kLanes;
+    const bool frozen = done_at >= 0.f || all_known;
+
+    // ---- correction solve z ~= A_solve^-1 r (skipped when frozen)
+    const float* z = nullptr;
+    if (!frozen && a.solver == kCG) {
+      float* p = vec(2);
+      float* zz = vec(3);
+      float* ap = vec(4);
+      float rho = (float)acc[1];
+      for (int it = 0; it < a.ninner; ++it) {
+        double pap[1] = {0.0};
+        for (int q = tid; q < L; q += kThreads) {
+          const float v =
+              apply_solve<KC, false>(dia, dv, md, bo, p, q, a.K, L, a.offs);
+          ap[q] = v;
+          pap[0] += (double)(p[q] * v);
+        }
+        block_sum(pap, red);
+        const float pa = (float)pap[0];
+        const float alpha = pa > 0.f ? rho / fmaxf(pa, FLT_MIN) : 0.f;
+        double rho_n[1] = {0.0};
+        for (int q = tid; q < L; q += kThreads) {
+          zz[q] = zz[q] + alpha * p[q];
+          const float rq = r[q] - alpha * ap[q];
+          r[q] = rq;
+          rho_n[0] += (double)(rq * (dv[q] * rq));
+        }
+        block_sum(rho_n, red);
+        const float rn_ = (float)rho_n[0];
+        const float beta = rho > 0.f ? rn_ / fmaxf(rho, FLT_MIN) : 0.f;
+        for (int q = tid; q < L; q += kThreads)
+          p[q] = dv[q] * r[q] + beta * p[q];
+        __syncthreads();  // the next product reads neighbours' p
+        rho = rn_;
+      }
+      z = zz;
+    } else if (!frozen && a.solver == kBiCGStab) {
+      float* zz = vec(2);
+      float* rr = vec(3);
+      float* p = vec(4);
+      float* v = vec(5);
+      float* s = vec(6);
+      float* tv = vec(7);
+      float rho = 1.f, alpha = 1.f, omega = 1.f;
+      float rho_n = (float)acc[1];  // dot(r, rr) with rr = r
+      for (int it = 0; it < a.ninner; ++it) {
+        const float beta = sdiv(rho_n * alpha, rho * omega);
+        for (int q = tid; q < L; q += kThreads)
+          p[q] = rr[q] + beta * (p[q] - omega * v[q]);
+        __syncthreads();
+        double rv[1] = {0.0};
+        for (int q = tid; q < L; q += kThreads) {
+          const float vq =
+              apply_solve<KC, true>(dia, dv, md, bo, p, q, a.K, L, a.offs);
+          v[q] = vq;
+          rv[0] += (double)(r[q] * vq);
+        }
+        block_sum(rv, red);
+        alpha = sdiv(rho_n, (float)rv[0]);
+        for (int q = tid; q < L; q += kThreads) s[q] = rr[q] - alpha * v[q];
+        __syncthreads();
+        double ts[2] = {0.0, 0.0};
+        for (int q = tid; q < L; q += kThreads) {
+          const float tq =
+              apply_solve<KC, true>(dia, dv, md, bo, s, q, a.K, L, a.offs);
+          tv[q] = tq;
+          ts[0] += (double)(tq * s[q]);
+          ts[1] += (double)(tq * tq);
+        }
+        block_sum(ts, red);
+        omega = sdiv((float)ts[0], (float)ts[1]);
+        double rn_next[1] = {0.0};
+        for (int q = tid; q < L; q += kThreads) {
+          zz[q] = zz[q] + alpha * (dv[q] * p[q]) + omega * (dv[q] * s[q]);
+          const float rq = s[q] - omega * tv[q];
+          rr[q] = rq;
+          rn_next[0] += (double)(r[q] * rq);
+        }
+        block_sum(rn_next, red);
+        rho = rho_n;
+        rho_n = (float)rn_next[0];
+      }
+      z = zz;
+    } else if (!frozen) {  // GMRES(m), one Arnoldi cycle
+      const int m = a.ninner;
+      auto V = [&](int i) { return vec(2 + i); };
+      float* zz = vec(m + 3);
+      const float beta = sqrtf((float)acc[1]);
+      const float inv = sdiv(1.f, beta);
+      for (int q = tid; q < L; q += kThreads) V(0)[q] = r[q] * inv;
+      if (tid == 0) {
+        g[0] = beta;
+        for (int i = 1; i <= m; ++i) g[i] = 0.f;
+      }
+      __syncthreads();
+      for (int jj = 0; jj < m; ++jj) {
+        float* w = V(jj + 1);
+        double h[1] = {0.0};
+        for (int q = tid; q < L; q += kThreads) {
+          const float wq = apply_solve<KC, true>(dia, dv, md, bo, V(jj), q,
+                                                 a.K, L, a.offs);
+          w[q] = wq;
+          h[0] += (double)(wq * V(0)[q]);
+        }
+        block_sum(h, red);
+        // modified Gram-Schmidt: w -= h_i V_i, each h from the updated w
+        for (int i = 0; i <= jj; ++i) {
+          const float hi = (float)h[0];
+          if (tid == 0) H[i * kMaxGmres + jj] = hi;
+          const float* vi = V(i);
+          const float* vn = i < jj ? V(i + 1) : nullptr;
+          double nx[1] = {0.0};
+          for (int q = tid; q < L; q += kThreads) {
+            const float wq = w[q] - hi * vi[q];
+            w[q] = wq;
+            nx[0] += (double)(wq * (vn != nullptr ? vn[q] : wq));
+          }
+          block_sum(nx, red);
+          h[0] = nx[0];
+        }
+        const float hn = sqrtf((float)h[0]);
+        const float winv = sdiv(1.f, hn);
+        for (int q = tid; q < L; q += kThreads) w[q] = w[q] * winv;
+        if (tid == 0) {
+          H[(jj + 1) * kMaxGmres + jj] = hn;
+          for (int i = 0; i < jj; ++i) {
+            const float hij = H[i * kMaxGmres + jj];
+            const float hi1 = H[(i + 1) * kMaxGmres + jj];
+            H[(i + 1) * kMaxGmres + jj] = -sn[i] * hij + cs[i] * hi1;
+            H[i * kMaxGmres + jj] = cs[i] * hij + sn[i] * hi1;
+          }
+          const float hjj = H[jj * kMaxGmres + jj];
+          const float hj1 = H[(jj + 1) * kMaxGmres + jj];
+          const float dn = sqrtf(hjj * hjj + hj1 * hj1);
+          const float c = sdiv(hjj, dn), s_ = sdiv(hj1, dn);
+          cs[jj] = c;
+          sn[jj] = s_;
+          H[jj * kMaxGmres + jj] = c * hjj + s_ * hj1;
+          g[jj + 1] = -s_ * g[jj];
+          g[jj] = c * g[jj];
+        }
+        __syncthreads();  // the next product reads neighbours' V_{jj+1}
+      }
+      if (tid == 0) {
+        for (int i = m - 1; i >= 0; --i) {
+          float acc_i = g[i];
+          for (int k2 = i + 1; k2 < m; ++k2)
+            acc_i = acc_i - H[i * kMaxGmres + k2] * yv[k2];
+          yv[i] = sdiv(acc_i, H[i * kMaxGmres + i]);
+        }
+      }
+      __syncthreads();
+      for (int q = tid; q < L; q += kThreads) {
+        float u = yv[0] * V(0)[q];
+        for (int i = 1; i < m; ++i) u = u + yv[i] * V(i)[q];
+        zz[q] = dv[q] * u;
+      }
+      z = zz;
+    }
+    if (z != nullptr) {
+      for (int s = 0; s < Sl; ++s) {
+        float* xs = x + (long long)s * R;
+        const float* zs = z + (long long)s * total + hw;
+        for (int i = tid; i < R; i += kThreads) xs[i] = xs[i] + zs[i];
+      }
+    }
+    if (done_at < 0.f && all_known) done_at = base_t + (float)t;
+    __syncthreads();  // x and known are read by the next round's pack
+  }
+
+  // ---- drain: messages T-B .. T-1 were sent but not consumed; their flags
+  // are still gossip and the last one is the halo carried to the next launch
+  const int n0 = T - B > 0 ? T - B : 0;
+  if (tid == 0) {
+    for (int n = n0; n < T; ++n) {
+      spin_until(seq(left, 1, n % M), (unsigned long long)n + 1, a.err,
+                 kWaitDrain) &&
+          spin_until(seq(right, 0, n % M), (unsigned long long)n + 1, a.err,
+                     kWaitDrain);
+    }
+  }
+  __syncthreads();
+  for (int l = tid; l < D; l += kThreads) {
+    float k = known[l];
+    for (int n = n0; n < T; ++n) {
+      k = fmaxf(fmaxf(k, __ldcg(slot(left, 1, n % M) + hw + l)),
+                __ldcg(slot(right, 0, n % M) + hw + l));
+    }
+    known[l] = k;
+  }
+  {
+    const float* cl = slot(left, 1, (T - 1) % M);
+    const float* cr = slot(right, 0, (T - 1) % M);
+    for (int i = tid; i < hw; i += kThreads) {
+      a.hl_out[(long long)me * hw + i] = __ldcg(cl + i);
+      a.hr_out[(long long)me * hw + i] = __ldcg(cr + i);
+    }
+  }
+  __syncthreads();
+  for (int l = tid; l < kLanes; l += kThreads) {
+    a.known_out[me * kLanes + l] = known[l];
+    float v = 0.f;
+    if (l == 0) v = rn0;
+    if (l == 1) v = done_at;
+    if (l == 2) v = base_t + (float)T;
+    if (l == 3) v = rn;
+    a.aux_out[me * kLanes + l] = v;
+  }
+  if (tid == 0) a.aux_out[me * kLanes + 4] = hits;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Co-resident blocks of the kernel on this card: the largest rank count a
+// cooperative launch can hold (0 without cooperative launch support).
+int async_ras_max_ranks(int K) {
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (!coop) return 0;
+  const int e = dispatch_diags(K, [&](auto kc) {
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, async_ras_kernel<decltype(kc)::value>, kThreads, 0);
+  });
+  return e == 0 ? per_sm * sms : 0;
+}
+
+// See ops/async_ras_kernel.py for the operand layout.  ``sync`` holds the
+// (D, 2, M) sequence words, the (D, 2) ack counters and the error word,
+// zeroed by the caller before the launch.
+int async_ras_f32(const float* dia, const float* b, const float* dinv,
+                  const float* md, const float* mi, const float* boost,
+                  const float* x_in, const float* known_in,
+                  const float* aux_in, const float* hl_in, const float* hr_in,
+                  float* x, float* known, float* aux, float* hl, float* hr,
+                  float* work, float* ring, void* sync, int D, int Sl, int K,
+                  int total, int hw, int T, int B, int ninner, int solver,
+                  int fresh, const int* offs, float tol2, void* stream) {
+  if (K < 1 || K > kMaxDiags || D < 1 || D > kLanes || T < 1 || B < 1)
+    return (int)cudaErrorInvalidValue;
+  if (solver == kGMRES && (ninner < 1 || ninner > kMaxGmres))
+    return (int)cudaErrorInvalidValue;
+  Args a{};
+  a.dia = dia;
+  a.b = b;
+  a.dinv = dinv;
+  a.md = md;
+  a.mi = mi;
+  a.boost = boost;
+  a.x_in = x_in;
+  a.known_in = known_in;
+  a.aux_in = aux_in;
+  a.hl_in = hl_in;
+  a.hr_in = hr_in;
+  a.x = x;
+  a.known_out = known;
+  a.aux_out = aux;
+  a.hl_out = hl;
+  a.hr_out = hr;
+  a.work = work;
+  a.ring = ring;
+  a.D = D;
+  a.Sl = Sl;
+  a.K = K;
+  a.total = total;
+  a.hw = hw;
+  a.R = total - 2 * hw;
+  a.T = T;
+  a.B = B;
+  a.M = 2 * B + 2;
+  a.ninner = ninner;
+  a.solver = solver;
+  a.fresh = fresh;
+  a.slot = (hw + D + 3) / 4 * 4;
+  a.nwork = solver == kCG ? 5 : solver == kBiCGStab ? 8 : ninner + 4;
+  a.L = Sl * total;
+  a.offs = make_offsets(offs, K);
+  a.tol2 = tol2;
+  auto* s = static_cast<unsigned long long*>(sync);
+  a.seq = s;
+  a.ack = reinterpret_cast<unsigned int*>(s + (long long)D * 2 * a.M);
+  a.err = reinterpret_cast<int*>(s + (long long)D * 2 * a.M + D);
+  return dispatch_diags(K, [&](auto kc) {
+    void* params[] = {&a};
+    return (int)cudaLaunchCooperativeKernel(
+        (const void*)async_ras_kernel<decltype(kc)::value>, dim3(D),
+        dim3(kThreads), params, 0, (cudaStream_t)stream);
+  });
+}
+
+}  // extern "C"

@@ -24,9 +24,13 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
-KERNEL_SOURCES = ("dia_spmv", "halo_runs", "fused_cg")
+KERNEL_SOURCES = ("dia_spmv", "halo_runs", "fused_cg", "async_ras",
+                  "diagnostics")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+# K5 rounds a*b+c twice, as PyTorch's separate operations do, so that the
+# card and its plain version agree bit for bit (csrc/async_ras.cu)
+EXTRA_FLAGS = {"async_ras": ("-fmad=false",)}
 
 _libs: dict = {}
 
@@ -46,6 +50,14 @@ SIGNATURES = {
         "fused_cg_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _P, _F, _I, _P),
     },
+    "async_ras": {
+        "async_ras_max_ranks": (_I,),
+        "async_ras_f32": (_P,) * 19 + (_I,) * 10 + (_P, _F, _P),
+    },
+    "diagnostics": {
+        "smoke_x2_f32": (_P, _P, _LL, _P),
+        "flag_order_probe": (_P, _P, _P, _I, _I, _I, _P),
+    },
 }
 
 
@@ -57,8 +69,12 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def _lib_path(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
     for fn in sorted(os.listdir(CSRC)):
         if fn == f"{name}.cu" or fn.endswith(".cuh"):
             with open(os.path.join(CSRC, fn), "rb") as f:
@@ -75,7 +91,8 @@ def _start_build(name: str):
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(name), "-o", tmp,
+           os.path.join(CSRC, f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out, cmd

@@ -1,5 +1,6 @@
 """Restricted additive Schwarz solver: the port of ``schwarz_tpu/ras.py``,
-one level, synchronous.
+one level, synchronous, plus the free-running dispatch
+(:func:`make_free_running_solver`, ``Settings(free_running=True)``).
 
 The reference's per-rank loop {exchange_boundary -> update_boundary ->
 check_convergence -> local_solve -> local_to_global_vector}
@@ -21,6 +22,7 @@ path is not ported yet raise ``NotImplementedFeature``.
 from __future__ import annotations
 
 import dataclasses
+import math
 import sys
 import time
 from typing import Any, Dict, Optional
@@ -34,11 +36,17 @@ from schwarz_tpu_torch.config import (
     HaloStrategy,
     LocalCriterion,
     LocalSolver,
+    Partition,
     Precond,
     Settings,
 )
 from schwarz_tpu_torch.core.decompose import Decomposition
 from schwarz_tpu_torch.exceptions import NotImplementedFeature
+from schwarz_tpu_torch.ops.async_ras import (
+    F32_TOL_FLOOR,
+    AsyncRASolver,
+    plan_geometry,
+)
 from schwarz_tpu_torch.ops.dia import dia_ell_spmv, split_dia_ell
 from schwarz_tpu_torch.ops.fused_cg import fused_cg_solve, fused_cg_supported
 from schwarz_tpu_torch.ops.spmv import ell_spmv_batched
@@ -510,6 +518,183 @@ class RASolver:
         )
 
 
+# the 2-D block-grid tier's fixed halo tile (schwarz_tpu/ops/async_ras_2d.py
+# HX, HY): its overlap is (HX-1, HY-1) grid cells
+_HX, _HY = 64, 8
+
+
+def _device_grid(D: int, px: int, py: int):
+    """The 2-D tier's factorization of D ranks over the px x py block grid
+    (``schwarz_tpu/ops/async_ras_2d.py:610-624``), or None."""
+    best = None
+    for pdx in range(1, D + 1):
+        if D % pdx or px % pdx or py % (D // pdx):
+            continue
+        pdy = D // pdx
+        score = abs(py // pdy - px // pdx)
+        if best is None or score < best[0]:
+            best = (score, pdx, pdy)
+    return None if best is None else (best[1], best[2])
+
+
+def _tier_2d_applies(mat, px: int, py: int, overlap: int, oras_c: float,
+                     num_ranks: Optional[int]) -> bool:
+    """Whether the JAX package's 2-D tier would accept this operator: its
+    overlap bound (``async_ras_2d.py:648-654``), the structural gates of its
+    plan (square grid, 9-point sparsity, no couplings across grid rows,
+    ``:93-117``), its O-RAS range and the rank tiling (``:674-679``).  The
+    TPU's VMEM estimate (``:688-697``) is not a gate on the card."""
+    if overlap > _HY - 1:
+        return False
+    N = mat.n
+    n = int(math.isqrt(N))
+    if n * n != N:
+        return False
+    rows_of = np.repeat(np.arange(N, dtype=np.int64), np.diff(mat.row_ptrs))
+    diffs = mat.col_idxs.astype(np.int64) - rows_of
+    allowed = {0, 1, -1, n, -n, n - 1, n + 1, -(n - 1), -(n + 1)}
+    if not set(int(o) for o in np.unique(diffs)) <= allowed:
+        return False
+    if np.any(np.abs(rows_of % n - mat.col_idxs % n) > 1):
+        return False
+    if oras_c and not -1.0 <= oras_c <= 0.0:
+        return False
+    return num_ranks is None or _device_grid(num_ranks, px, py) is not None
+
+
+def free_running_tier(mat, num_subdomains: int, settings: Settings,
+                      partition_indices=None, num_ranks=None,
+                      oras_c: float = 0.0) -> str:
+    """The free-running tier the JAX package's dispatch chain picks
+    (``schwarz_tpu/ras.py:2451-2502``): "2d" (block grid, K6), "1d" (banded
+    strips, K5) or "general" (any graph, K7), tried in that order."""
+    S = num_subdomains
+    if partition_indices is None and settings.partition in (
+            Partition.regular, Partition.regular2d):
+        py = max((d for d in range(2, int(S ** 0.5) + 1) if S % d == 0),
+                 default=None)
+        if py is not None and _tier_2d_applies(
+                mat, S // py, py, settings.overlap, oras_c, num_ranks):
+            return "2d"
+        try:
+            plan_geometry(mat, S, settings.overlap)
+            return "1d"
+        except NotImplementedFeature:
+            pass
+    return "general"
+
+
+def make_free_running_solver(mat, rhs, num_subdomains, settings,
+                             partition_indices=None, num_ranks=None,
+                             ninner=None, chunk_rounds=16,
+                             fresh_read=None, device=None):
+    """Pick the free-running kernel for this matrix and partition, as the
+    JAX package's ``make_free_running_solver`` does.
+
+    Dispatch chain: the 2-D block-grid tier, the 1-D banded tier, the
+    general-graph tier.  Only the 1-D tier (K5) is ported; where the chain
+    reaches another tier this raises NotImplementedFeature naming it, and
+    never falls through to the 1-D kernel, which would compute something
+    else.  ``num_ranks`` takes the place of the JAX package's mesh: the
+    number of asynchronous ranks, one per subdomain by default.
+
+    Returns ``(solver, refine)``: ``refine`` says the caller should use
+    ``run_refined(tol=settings.tolerance)``, because the tolerance sits
+    below the f32 in-band floor or ``two_level`` is set.
+    """
+    nonsym = bool(settings.non_symmetric_matrix)
+    if settings.accelerator != "none":
+        raise NotImplementedFeature(
+            "free-running mode is the stationary asynchronous iteration; "
+            "Krylov acceleration requires the synchronous run_accelerated"
+        )
+    if settings.precond not in (Precond.none, Precond.jacobi):
+        raise NotImplementedFeature(
+            "free-running kernels run in-kernel Jacobi-preconditioned "
+            "correction solves; block_jacobi/fsai preconditioning requires "
+            "the synchronous path"
+        )
+    if settings.oras_weight == "auto":
+        oras_c = -0.6 if settings.two_level else -0.8
+    else:
+        try:
+            oras_c = float(settings.oras_weight)
+        except (TypeError, ValueError):
+            raise ValueError(
+                f"oras_weight must be a float or 'auto', got "
+                f"{settings.oras_weight!r}"
+            ) from None
+
+    S = num_subdomains
+    if ninner is None:
+        ninner = (settings.local_max_iters
+                  if settings.local_max_iters > 0 else 16)
+    if fresh_read is None:
+        fresh_read = settings.comm.fresh_read
+    # below the f32 kernels' reachable relative tolerance, iterative-
+    # refinement restarts; two_level's coarse solves live at the restarts
+    refine = settings.tolerance < F32_TOL_FLOOR or settings.two_level
+    inner_tol = 1e-4 if refine else settings.tolerance
+    if settings.two_level:
+        inner_tol = max(
+            inner_tol, 1e-1 if settings.coarse_aggregates >= 16 else 1e-2
+        )
+    staleness = max(settings.comm.staleness, 1)
+
+    tier = free_running_tier(mat, S, settings, partition_indices,
+                             num_ranks, oras_c)
+    if tier == "2d":
+        raise NotImplementedFeature(
+            "free-running: this operator and subdomain count reach the 2-D "
+            "block-grid tier (K6, schwarz_tpu/ops/async_ras_2d.py "
+            "async_ras_2d_rounds), which is not ported to schwarz_tpu_torch "
+            "yet (ROADMAP Queue 1 item 12); call AsyncRASolver directly for "
+            "the 1-D banded tier"
+        )
+    if tier == "general":
+        raise NotImplementedFeature(
+            "free-running: this matrix or partition reaches the general-"
+            "graph tier (K7, schwarz_tpu/ops/async_ras_general.py "
+            "async_general_rounds), which is not ported to schwarz_tpu_torch "
+            "yet (ROADMAP Queue 1 item 12)"
+        )
+    return AsyncRASolver(
+        mat, rhs, num_subdomains=S, overlap=settings.overlap,
+        tolerance=inner_tol, staleness=staleness, ninner=ninner,
+        chunk_rounds=chunk_rounds, num_ranks=num_ranks, device=device,
+        fresh_read=fresh_read, oras_weight=oras_c, nonsym=nonsym,
+    ), refine
+
+
+def _solve_free_running(mat, rhs, settings, S, partition_indices,
+                        device) -> RASResult:
+    """The free-running branch of :func:`solve` (``schwarz_tpu/ras.py:
+    2532-2558``): the RASResult carries no histories."""
+    fr, refine = make_free_running_solver(
+        mat, rhs, S, settings, partition_indices=partition_indices,
+        device=device)
+    if refine:
+        x, info = fr.run_refined(
+            tol=settings.tolerance, max_rounds=settings.max_iters,
+            coarse_q=(max(1, settings.coarse_aggregates)
+                      if settings.two_level else 0),
+        )
+    else:
+        x, info = fr.run(max_rounds=settings.max_iters)
+    rel = info["relative_residual_norm"]
+    rn = rel * float(np.linalg.norm(np.asarray(rhs)))
+    return RASResult(
+        solution=x, converged=info["converged"], diverged=False,
+        iters=int(max(info["done_at"].max(), 0)),
+        residual_norm=rn, relative_residual_norm=rel,
+        local_resnorm_history=np.zeros((0, S)),
+        global_resnorm_history=np.zeros(0),
+        inner_iters_history=np.zeros((0, S), np.int32),
+        solve_time_s=info["time_s"],
+        comm_matrix=np.zeros((S, S)),
+    )
+
+
 def solve(
     mat,
     rhs,
@@ -524,6 +709,8 @@ def solve(
     ``mat`` may be a :class:`~schwarz_tpu_torch.models.CSRMatrix` or any
     scipy-sparse-convertible matrix.  Runs on CUDA unless ``device`` names
     another device; raises when there is no GPU and no device is given.
+    ``settings.free_running`` takes the free-running asynchronous path
+    (:func:`make_free_running_solver`).
     """
     from schwarz_tpu_torch.core.decompose import decompose
     from schwarz_tpu_torch.models import CSRMatrix
@@ -531,6 +718,9 @@ def solve(
     device = resolve_device(device)
     if not isinstance(mat, CSRMatrix) and hasattr(mat, "tocsr"):
         mat = CSRMatrix.from_scipy(mat)
+    if settings.free_running:
+        return _solve_free_running(mat, rhs, settings, num_subdomains or 1,
+                                   partition_indices, device)
     dec = decompose(
         mat, rhs, settings, num_subdomains or 1, partition_indices,
         cell_weights=cell_weights,

@@ -11,7 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from schwarz_tpu_torch import diagnostics as dg
+from schwarz_tpu_torch.models import (advection_diffusion_2d, generate_rhs,
+                                      laplacian_2d)
 from schwarz_tpu_torch.ops import cuda_build
+from schwarz_tpu_torch.ops.async_ras import AsyncRASolver
+from schwarz_tpu_torch.ops.async_ras_kernel import (async_ras_rounds,
+                                                    async_ras_rounds_plain)
 from schwarz_tpu_torch.ops.dia_kernel import dia_spmv, dia_spmv_plain
 from schwarz_tpu_torch.ops.fused_cg import fused_cg_solve, fused_cg_solve_plain
 from schwarz_tpu_torch.ops.halo_kernel import assemble_runs, assemble_runs_plain
@@ -107,3 +113,79 @@ def test_fused_cg_matches_plain(dev, jacobi):
     assert int(got.iters[3]) == 0
     assert (got.iters - ref.iters).abs().max().item() <= 1
     torch.testing.assert_close(got.x, ref.x, rtol=0, atol=5e-4)
+
+
+def test_smoke_x2_matches_plain(dev):
+    x = torch.randn((256, 256), device=dev)
+    n0 = dg.smoke_x2.launches
+    y = dg.smoke_x2(x)
+    torch.cuda.synchronize()
+    assert dg.smoke_x2.launches == n0 + 1
+    assert torch.equal(y, dg.smoke_x2_plain(x))
+
+
+def test_flag_order_probe(dev):
+    res = dg.flag_order_probe(32768, 10000, dev)
+    assert res == dict(res, mismatches=0, error=0)
+    assert res["producer_sm"] != res["consumer_sm"]
+    assert dg.flag_order_probe_plain(1024, 100)["mismatches"] == 0
+
+
+@pytest.mark.parametrize("op,D,kw", [
+    ("lap64", 8, dict(tolerance=1e-4, ninner=20)),
+    ("lap64", 1, dict(tolerance=1e-4, ninner=20)),          # Sl = 8 windows
+    ("lap64", 2, dict(tolerance=1e-4, ninner=20, staleness=2)),
+    ("lap64", 4, dict(tolerance=1e-4, ninner=10, oras_weight=-0.8)),
+    ("adv32", 8, dict(tolerance=1e-4, ninner=10, nonsym=True)),
+    ("adv32", 8, dict(tolerance=1e-4, ninner=10, nonsym=True,
+                      nonsym_solver="gmres")),
+])
+def test_async_ras_matches_plain(dev, op, D, kw):
+    """Two 16-round launches of K5 against the lockstep emulation.  Without
+    fresh_read the rounds do not depend on timing, and both sides sum the
+    same float32 products in float64 without FMA: equal up to ties."""
+    A = laplacian_2d(64) if op == "lap64" else advection_diffusion_2d(32)
+    s = AsyncRASolver(A, generate_rhs(A.n, random=False), 8, num_ranks=D,
+                      chunk_rounds=16, device=dev, **kw)
+    p, d = s.plan, s._dev
+    x, known, aux, hl, hr = s.init_state()
+    state = (x.reshape(D, -1), known, aux, hl, hr)
+    opts = dict(offsets=p.offsets, total=p.total, hw=p.hw, rounds=16,
+                staleness=s.staleness, ninner=s.ninner, tol=s.tolerance,
+                nonsym=s.nonsym, nonsym_solver=s.nonsym_solver)
+    ops = (d["dia"], d["b"], d["dinv"], d["mask_dom"], d["mask_int"])
+    for _ in range(2):
+        n0 = async_ras_rounds.launches
+        got = async_ras_rounds(*ops, *state, d.get("boost"), **opts)
+        torch.cuda.synchronize()
+        assert async_ras_rounds.launches == n0 + 1
+        ref = async_ras_rounds_plain(*ops, *state, d.get("boost"), **opts)
+        scale = float(ref[0].abs().max())
+        torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-5 * scale)
+        assert torch.equal(got[1], ref[1])
+        assert torch.equal(got[2][:, 1:3], ref[2][:, 1:3])
+        torch.testing.assert_close(got[3], ref[3], rtol=0, atol=1e-5 * scale)
+        state = ref
+
+
+def test_async_ras_converges_like_cpu(dev):
+    A = laplacian_2d(64)
+    kw = dict(tolerance=1e-4, ninner=20, chunk_rounds=16, num_ranks=8)
+    b = np.ones(A.n)
+    x_c, i_c = AsyncRASolver(A, b, 8, device=dev, **kw).run(max_rounds=800)
+    x_h, i_h = AsyncRASolver(A, b, 8, device="cpu", **kw).run(max_rounds=800)
+    assert i_c["converged"] and i_c["relative_residual_norm"] < 1e-3
+    np.testing.assert_array_equal(i_c["done_at"], i_h["done_at"])
+    np.testing.assert_allclose(x_c, x_h, rtol=0,
+                               atol=1e-5 * np.abs(x_h).max())
+
+
+def test_async_fresh_read_after_probe(dev):
+    assert dg.flag_order_probe(4096, 1000, dev)["mismatches"] == 0
+    A = laplacian_2d(64)
+    s = AsyncRASolver(A, np.ones(A.n), 8, tolerance=1e-4, ninner=20,
+                      staleness=3, chunk_rounds=16, fresh_read=True,
+                      device=dev)
+    _, info = s.run(max_rounds=800)
+    assert info["converged"] and info["fresh_read_hits"] > 0
+    assert info["relative_residual_norm"] < 1e-3
