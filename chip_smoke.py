@@ -28,7 +28,19 @@
 10. runs a converging free-running solve, ``laplacian_2d(64)``, 8 ranks, on
    the card and on the CPU: equal ``done_at``, true residual < 1e-3; then
    ``fresh_read`` at staleness 3 and ``run_refined`` to 1e-8 on the card;
-11. prints one JSON line describing the kernels, then the fixed last line
+11. holds K6 (the 2-D block-grid rounds) to its plain version: one
+   16-round launch at the shapes of the 2-D slice (16 ranks, 272 x 384
+   tiles), timed like phase 3, then three small variants (16 blocks folded
+   onto 4 ranks, staleness 2, the 9-point anisotropic operator with O-RAS);
+12. runs the 2-D free-running slice: ``solve`` on ``laplacian_2d(1024)``
+   (10^6 rows), 16 subdomains as 4 x 4 blocks, overlap 2, staleness 1, 16
+   inner CG iterations, float32, 64 rounds, twice (cold, warm), with K6
+   counted and K5 required to stay at 0;
+13. runs a converging 2-D solve, ``laplacian_2d(256)``, 4 x 2 blocks on 8
+   ranks, on the card and on the CPU: equal ``done_at``, unequal across
+   ranks, true residual < 1e-2, error against a direct solve < 5e-3; then
+   ``fresh_read`` at staleness 3 and ``run_refined`` to 1e-8 on the card;
+14. prints one JSON line describing the kernels, then the fixed last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the last line, as does a machine
@@ -306,6 +318,7 @@ def async_kernel_checks(sm: Smoke, solver) -> None:
 
 def _counters():
     from schwarz_tpu_torch import diagnostics as dg
+    from schwarz_tpu_torch.ops.async_ras_2d_kernel import async_ras_2d_rounds
     from schwarz_tpu_torch.ops.async_ras_kernel import async_ras_rounds
     from schwarz_tpu_torch.ops.dia_kernel import dia_spmv
     from schwarz_tpu_torch.ops.fused_cg import fused_cg_solve
@@ -313,6 +326,7 @@ def _counters():
 
     return {"dia_spmv": dia_spmv, "halo_runs": assemble_runs,
             "fused_cg": fused_cg_solve, "async_ras": async_ras_rounds,
+            "async_ras_2d": async_ras_2d_rounds,
             "smoke_x2": dg.smoke_x2, "flag_order_probe": dg.flag_order_probe}
 
 
@@ -435,6 +449,173 @@ def free_running_phases(sm: Smoke) -> None:
           f"{i_r['relative_residual_norm']:.6e}", flush=True)
     sm.check(i_r["converged"] and i_r["relative_residual_norm"] <= 1e-8,
              "run_refined reaches a true relative residual <= 1e-8")
+
+
+def _k6_against_plain(sm: Smoke, solver, what: str):
+    """One K6 launch of ``solver`` from its zero state against its plain
+    version on the card; returns that state (folded) and the max abs
+    difference of the tiles."""
+    import torch
+
+    from schwarz_tpu_torch.ops.async_ras_2d_kernel import (
+        async_ras_2d_rounds_plain)
+
+    X, known, aux = solver.init_state()
+    state = (solver._fold(X), known, aux)
+    got = solver.launch(*state)
+    torch.cuda.synchronize()
+    ref = solver.launch(*state, fn=async_ras_2d_rounds_plain)
+    err = float((got[0] - ref[0]).abs().max())
+    tol = 1e-5 * float(ref[0].abs().max())
+    same = (torch.equal(got[1], ref[1]) and torch.equal(got[2][:, :3],
+                                                        ref[2][:, :3]))
+    sm.check(err <= tol and same,
+             f"K6 async_ras_2d_rounds, {what}, {solver.chunk_rounds} rounds, "
+             f"ranks {solver.pdy}x{solver.pdx} of {solver.ply}x{solver.plx} "
+             f"windows: max abs err {err:.3e} <= {tol:.3e} (float64 sums of "
+             f"the same float32 products: equal up to ties), known bits, "
+             f"rn0, done_at and round counter equal: {same}")
+    return state, err
+
+
+def block_grid_phases(sm: Smoke) -> None:
+    """Phases 11-13: K6 against its plain version, the 1M-row 2-D
+    free-running slice and a converging 2-D solve."""
+    import numpy as np
+    import scipy.sparse.linalg as spla
+    import torch
+
+    from schwarz_tpu_torch import CommSettings, Settings
+    from schwarz_tpu_torch.models import (anisotropic_diffusion_2d,
+                                          laplacian_2d)
+    from schwarz_tpu_torch.ops.async_ras_2d import AsyncRASolver2D
+    from schwarz_tpu_torch.ops.async_ras_2d_kernel import (
+        async_ras_2d_rounds_plain)
+    from schwarz_tpu_torch.ras import make_free_running_solver, solve
+
+    t0 = time.perf_counter()
+    A = laplacian_2d(1024)
+    b = np.ones(A.n)
+    settings = Settings(free_running=True, overlap=2, tolerance=1e-4,
+                        local_max_iters=16, max_iters=64,
+                        comm=CommSettings(staleness=1))
+    solver, refine = make_free_running_solver(A, b, 16, settings)
+    torch.cuda.synchronize()
+    p = solver.plan
+    sm.check(isinstance(solver, AsyncRASolver2D),
+             "the dispatch picks the 2-D block-grid tier for "
+             "laplacian_2d(1024), 16 subdomains")
+    print(f"2-D free-running setup {time.perf_counter() - t0:.1f} s: N={p.N} "
+          f"blocks {p.py}x{p.px} ranks {solver.pdy}x{solver.pdx} bx={p.bx} "
+          f"by={p.by} Bx={p.Bx} By={p.By} refine={refine}", flush=True)
+
+    # --- 11. K6 against its plain version ------------------------------------
+    state, err = _k6_against_plain(sm, solver, "the 2-D slice's shapes")
+    cells = solver.D * solver.ply * p.By * solver.plx * p.Bx
+    # every input read once (9 coefficient planes, b, dinv, both masks, the
+    # tile) and the tile written once; the operations of the planes that
+    # hold a nonzero
+    planes = int(sum(bool(p.coef[:, k].any()) for k in range(9)))
+    n_ops = solver.chunk_rounds * solver.ninner * (2 * planes + 13) * cells
+    bound, by = _bound_ms(4 * 15 * cells, n_ops, "float32")
+    sm.kernels["async_ras_2d"] = dict(
+        max_abs_err=err,
+        ms=sm.ms(lambda: solver.launch(*state), 3),
+        plain_ms=sm.ms(lambda: solver.launch(
+            *state, fn=async_ras_2d_rounds_plain), 1),
+        bound_ms=bound, bound_by=by, library_ms=None)
+    v = sm.kernels["async_ras_2d"]
+    print(f"async_ras_2d: ms={v['ms']:.4f} plain_ms={v['plain_ms']:.4f} "
+          f"bound_ms={v['bound_ms']:.4f} ({v['bound_by']}, {planes} nonzero "
+          f"planes, {cells} cells) library_ms=None", flush=True)
+    A256 = laplacian_2d(256)
+    An = anisotropic_diffusion_2d(128, eps=5.0, theta=0.4)
+    small = dict(tolerance=1e-3, ninner=8, chunk_rounds=16)
+    for what, mat, grid, extra in (
+            ("16 blocks folded onto 4 ranks", A256, (4, 4),
+             dict(num_ranks=4)),
+            ("staleness 2", A256, (2, 2), dict(staleness=2)),
+            ("9-point anisotropic operator with O-RAS", An, (4, 2),
+             dict(oras_weight=-0.8))):
+        _k6_against_plain(sm, AsyncRASolver2D(
+            mat, np.ones(mat.n), *grid, **small, **extra), what)
+
+    # --- 12. the 1M-row 2-D free-running slice, cold then warm ---------------
+    for tag in ("cold", "warm"):
+        t0 = time.perf_counter()
+        res, launches = counted(lambda: solve(A, b, settings, 16))
+        wall = time.perf_counter() - t0
+        n_l = launches["async_ras_2d"]
+        n_rounds = n_l * solver.chunk_rounds
+        print(f"2-D free-running slice ({tag}): {n_rounds} rounds in {n_l} "
+              f"launches, run loop {res.solve_time_s:.4f} s = "
+              f"{1e3 * res.solve_time_s / max(n_rounds, 1):.3f} ms/round, "
+              f"solve() wall with setup {wall:.2f} s, converged="
+              f"{res.converged}, true relative residual "
+              f"{res.relative_residual_norm:.6e}", flush=True)
+        if tag == "cold":
+            sm.check(n_l > 0 and launches["async_ras"] == 0,
+                     f"async_ras_2d launched {n_l} times on the 2-D slice, "
+                     f"async_ras {launches['async_ras']} times")
+            sm.kernels["async_ras_2d"]["launches"] = n_l
+            sm.check(res.solution.shape == (A.n,) and bool(np.isfinite(
+                res.solution).all()) and np.isfinite(
+                res.relative_residual_norm),
+                f"2-D free-running slice: finite solution, finite true "
+                f"relative residual {res.relative_residual_norm:.6e} (64 "
+                f"rounds of 16 inner iterations on 256 x 256 blocks are the "
+                f"start of the transient; phase 13 converges)")
+    k6_ms = sm.kernels["async_ras_2d"]["ms"]
+    print(f"where the time goes (warm): K6 {k6_ms:.3f} ms per "
+          f"{solver.chunk_rounds}-round launch (events, phase 11) x {n_l} "
+          f"launches = {k6_ms * n_l:.3f} ms of a "
+          f"{1e3 * res.solve_time_s:.3f} ms run loop "
+          f"({100 * k6_ms * n_l / (1e3 * res.solve_time_s):.1f}%)",
+          flush=True)
+    del solver
+
+    # --- 13. a converging 2-D solve: card against CPU ------------------------
+    b2 = np.ones(A256.n)
+    kw = dict(px=4, py=2, tolerance=2e-3, staleness=1, ninner=30,
+              chunk_rounds=20, num_ranks=8)
+    x_c, i_c = AsyncRASolver2D(A256, b2, **kw).run(max_rounds=400)
+    t0 = time.perf_counter()
+    x_h, i_h = AsyncRASolver2D(A256, b2, device="cpu", **kw).run(
+        max_rounds=400)
+    t_cpu = time.perf_counter() - t0
+    x_ref = spla.spsolve(A256.to_scipy().tocsc(), b2)
+    e_ref = float(np.linalg.norm(x_c - x_ref) / np.linalg.norm(x_ref))
+    print(f"256^2 2-D free-running, 4x2 blocks, 8 ranks: card done_at "
+          f"{i_c['done_at'].tolist()} in {i_c['rounds']} rounds, "
+          f"{i_c['time_s']:.4f} s, true rel "
+          f"{i_c['relative_residual_norm']:.6e}, error against spsolve "
+          f"{e_ref:.3e}; CPU done_at {i_h['done_at'].tolist()}, true rel "
+          f"{i_h['relative_residual_norm']:.6e}, {t_cpu:.1f} s; max "
+          f"|x_card - x_cpu| {np.abs(x_c - x_h).max():.3e}.  (The JAX "
+          f"package, float32 sums, on an 8-device CPU mesh: done_at "
+          f"[266, 266, 268, 268, 268, 266, 268, 270] in 280 rounds, true "
+          f"rel 2.13e-3; equality with it is not required.)", flush=True)
+    sm.check(i_c["converged"] and len(np.unique(i_c["done_at"])) > 1
+             and np.array_equal(i_c["done_at"], i_h["done_at"])
+             and i_c["relative_residual_norm"] < 1e-2 and e_ref < 5e-3,
+             "256^2 2-D free-running converges on the card with unequal "
+             "done_at equal to the CPU run's, true residual < 1e-2, error "
+             "against spsolve < 5e-3")
+    _, i_f = AsyncRASolver2D(A256, b2, **{**kw, "staleness": 3},
+                             fresh_read=True).run(max_rounds=800)
+    print(f"2-D fresh_read, staleness 3: done_at {i_f['done_at'].tolist()}, "
+          f"hits {i_f['fresh_read_hits']}, true rel "
+          f"{i_f['relative_residual_norm']:.6e}", flush=True)
+    sm.check(i_f["converged"] and i_f["fresh_read_hits"] > 0
+             and i_f["relative_residual_norm"] < 1e-2,
+             "2-D fresh_read at staleness 3 converges with hits > 0")
+    _, i_r = AsyncRASolver2D(A256, b2, **kw).run_refined(tol=1e-8,
+                                                         max_rounds=400)
+    print(f"2-D run_refined(tol=1e-8): {i_r['restarts']} restarts, "
+          f"{i_r['rounds']} rounds, true rel "
+          f"{i_r['relative_residual_norm']:.6e}", flush=True)
+    sm.check(i_r["converged"] and i_r["relative_residual_norm"] <= 1e-8,
+             "2-D run_refined reaches a true relative residual <= 1e-8")
 
 
 def main() -> int:
@@ -575,7 +756,10 @@ def main() -> int:
     # --- 7-10. the free-running slice and the diagnostics ---------------------
     free_running_phases(sm)
 
-    # --- 11. the kernels line and the last line ------------------------------
+    # --- 11-13. the 2-D block-grid tier ---------------------------------------
+    block_grid_phases(sm)
+
+    # --- 14. the kernels line and the last line ------------------------------
     meta_k = {
         "dia_spmv_float32": ("csrc/dia_spmv.cu",
                              "schwarz_tpu/ops/pallas_kernels.py:110"),
@@ -585,6 +769,8 @@ def main() -> int:
         "fused_cg": ("csrc/fused_cg.cu", "schwarz_tpu/ops/fused_cg.py:84"),
         "async_ras": ("csrc/async_ras.cu",
                       "schwarz_tpu/ops/async_ras.py:394"),
+        "async_ras_2d": ("csrc/async_ras_2d.cu",
+                         "schwarz_tpu/ops/async_ras_2d.py:232"),
         "smoke_x2": ("csrc/diagnostics.cu", "scripts/tpu_diagnostics.py:53"),
         "flag_order_probe": ("csrc/diagnostics.cu",
                              "scripts/tpu_diagnostics.py:214"),

@@ -11,8 +11,9 @@ asked to (``device="cpu"``).  It imports neither JAX nor ``schwarz_tpu``.
     A = laplacian_2d(64)
     res = solve(A, generate_rhs(A.n), Settings(), num_subdomains=4)
 
-``Settings(free_running=True)`` takes the free-running asynchronous path
-(1-D banded tier, :class:`AsyncRASolver`).
+``Settings(free_running=True)`` takes the free-running asynchronous path:
+the 2-D block-grid tier (:class:`AsyncRASolver2D`) for grid stencils and a
+composite subdomain count, else the 1-D banded tier (:class:`AsyncRASolver`).
 """
 
 from schwarz_tpu_torch.config import (
@@ -36,7 +37,11 @@ from schwarz_tpu_torch.models import (
     laplacian_3d,
     read_mtx,
 )
-from schwarz_tpu_torch.ops.async_ras import AsyncRASolver
+from schwarz_tpu_torch.ops.async_ras import AsyncRASolver, build_async_plan
+from schwarz_tpu_torch.ops.async_ras_2d import (
+    AsyncRASolver2D,
+    build_async_plan_2d,
+)
 from schwarz_tpu_torch.ras import (
     RASolver,
     RASResult,
@@ -64,6 +69,9 @@ __all__ = [
     "laplacian_3d",
     "read_mtx",
     "AsyncRASolver",
+    "AsyncRASolver2D",
+    "build_async_plan",
+    "build_async_plan_2d",
     "RASolver",
     "RASResult",
     "make_free_running_solver",

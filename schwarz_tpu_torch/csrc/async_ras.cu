@@ -60,21 +60,14 @@
 // at the 1M-row slice the operations bound it.  With one SM per rank (16 of
 // 132 at the slice) each rank streams its vectors several times per inner
 // iteration, so this first version is far from that bound by design.
-#include <cfloat>
-#include <cstdint>
-
+#include "async_common.cuh"
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
-constexpr int kLanes = 128;
 constexpr int kMaxGmres = 64;
-constexpr long long kWatchdogCycles = 8000000000LL;  // ~4 s at 1.98 GHz
 
 enum Solver { kCG = 0, kBiCGStab = 1, kGMRES = 2 };
-enum Wait { kWaitAck = 1, kWaitMessage = 2, kWaitDrain = 3 };
 
 struct Args {
   const float* dia;    // (D, K, L)
@@ -103,86 +96,6 @@ struct Args {
   Offsets offs;
   float tol2;
 };
-
-__device__ __forceinline__ unsigned long long ld_acquire(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ unsigned int ld_acquire(const unsigned int* p) {
-  unsigned int v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(unsigned long long* p,
-                                           unsigned long long v) {
-  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
-               : "memory");
-}
-
-__device__ __forceinline__ void red_release_add(unsigned int* p,
-                                                unsigned int v) {
-  asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(p), "r"(v)
-               : "memory");
-}
-
-// Spins until *p >= want.  False when the watchdog fired here or elsewhere.
-template <typename T>
-__device__ bool spin_until(const T* p, T want, int* err, int code) {
-  const long long t0 = clock64();
-  while (ld_acquire(p) < want) {
-    if (*(volatile int*)err != 0) return false;
-    if (clock64() - t0 > kWatchdogCycles) {
-      atomicCAS(err, 0, code);
-      return false;
-    }
-    __nanosleep(64);
-  }
-  return true;
-}
-
-__device__ __forceinline__ double warp_sum(double v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Sums each v[n] over the block; every thread gets the totals.  The terms
-// are float32 products; the sums are float64 and are rounded to float32 by
-// the caller, so the result does not depend on the summation order (up to
-// a tie at a float32 rounding boundary) and the plain version, which sums
-// the same float32 products in float64, gets the same float32 dot.
-template <int N>
-__device__ __forceinline__ void block_sum(double (&v)[N], double* sh) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int n = 0; n < N; ++n) v[n] = warp_sum(v[n]);
-  if (lane == 0) {
-#pragma unroll
-    for (int n = 0; n < N; ++n) sh[n * kWarps + warp] = v[n];
-  }
-  __syncthreads();
-  if (warp == 0) {
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      const float s = warp_sum(sh[n * kWarps + lane]);
-      if (lane == 0) sh[N * kWarps + n] = s;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int n = 0; n < N; ++n) v[n] = sh[N * kWarps + n];
-  __syncthreads();  // sh is written again by the next call
-}
-
-__device__ __forceinline__ float sdiv(float a, float b) {
-  return fabsf(b) > FLT_MIN ? a / b : 0.f;
-}
 
 // Row q of the DIA product over the rank's folded vector, reads wrapping
 // cyclically: sum_k dia[k, q] * (scale ? dv * v : v)[(q + o_k) mod L].
@@ -261,6 +174,11 @@ __global__ void __launch_bounds__(kThreads, 1) async_ras_kernel(const Args a) {
   float hits = fmaxf(a.aux_in[me * kLanes + 4], 0.f);  // thread 0's count
   float rn = 0.f;
   __syncthreads();
+
+  auto A_solve = [&](auto scaled, const float* v, int q) {
+    return apply_solve<KC, decltype(scaled)::value>(dia, dv, md, bo, v, q, a.K,
+                                                    L, a.offs);
+  };
 
   for (int t = 0; t < T; ++t) {
     const int j = t % M;
@@ -397,83 +315,15 @@ __global__ void __launch_bounds__(kThreads, 1) async_ras_kernel(const Args a) {
     // ---- correction solve z ~= A_solve^-1 r (skipped when frozen)
     const float* z = nullptr;
     if (!frozen && a.solver == kCG) {
-      float* p = vec(2);
       float* zz = vec(3);
-      float* ap = vec(4);
-      float rho = (float)acc[1];
-      for (int it = 0; it < a.ninner; ++it) {
-        double pap[1] = {0.0};
-        for (int q = tid; q < L; q += kThreads) {
-          const float v =
-              apply_solve<KC, false>(dia, dv, md, bo, p, q, a.K, L, a.offs);
-          ap[q] = v;
-          pap[0] += (double)(p[q] * v);
-        }
-        block_sum(pap, red);
-        const float pa = (float)pap[0];
-        const float alpha = pa > 0.f ? rho / fmaxf(pa, FLT_MIN) : 0.f;
-        double rho_n[1] = {0.0};
-        for (int q = tid; q < L; q += kThreads) {
-          zz[q] = zz[q] + alpha * p[q];
-          const float rq = r[q] - alpha * ap[q];
-          r[q] = rq;
-          rho_n[0] += (double)(rq * (dv[q] * rq));
-        }
-        block_sum(rho_n, red);
-        const float rn_ = (float)rho_n[0];
-        const float beta = rho > 0.f ? rn_ / fmaxf(rho, FLT_MIN) : 0.f;
-        for (int q = tid; q < L; q += kThreads)
-          p[q] = dv[q] * r[q] + beta * p[q];
-        __syncthreads();  // the next product reads neighbours' p
-        rho = rn_;
-      }
+      jacobi_pcg(A_solve, L, a.ninner, (float)acc[1], r, vec(2), zz, vec(4),
+                 dv, red);
       z = zz;
     } else if (!frozen && a.solver == kBiCGStab) {
       float* zz = vec(2);
-      float* rr = vec(3);
-      float* p = vec(4);
-      float* v = vec(5);
-      float* s = vec(6);
-      float* tv = vec(7);
-      float rho = 1.f, alpha = 1.f, omega = 1.f;
-      float rho_n = (float)acc[1];  // dot(r, rr) with rr = r
-      for (int it = 0; it < a.ninner; ++it) {
-        const float beta = sdiv(rho_n * alpha, rho * omega);
-        for (int q = tid; q < L; q += kThreads)
-          p[q] = rr[q] + beta * (p[q] - omega * v[q]);
-        __syncthreads();
-        double rv[1] = {0.0};
-        for (int q = tid; q < L; q += kThreads) {
-          const float vq =
-              apply_solve<KC, true>(dia, dv, md, bo, p, q, a.K, L, a.offs);
-          v[q] = vq;
-          rv[0] += (double)(r[q] * vq);
-        }
-        block_sum(rv, red);
-        alpha = sdiv(rho_n, (float)rv[0]);
-        for (int q = tid; q < L; q += kThreads) s[q] = rr[q] - alpha * v[q];
-        __syncthreads();
-        double ts[2] = {0.0, 0.0};
-        for (int q = tid; q < L; q += kThreads) {
-          const float tq =
-              apply_solve<KC, true>(dia, dv, md, bo, s, q, a.K, L, a.offs);
-          tv[q] = tq;
-          ts[0] += (double)(tq * s[q]);
-          ts[1] += (double)(tq * tq);
-        }
-        block_sum(ts, red);
-        omega = sdiv((float)ts[0], (float)ts[1]);
-        double rn_next[1] = {0.0};
-        for (int q = tid; q < L; q += kThreads) {
-          zz[q] = zz[q] + alpha * (dv[q] * p[q]) + omega * (dv[q] * s[q]);
-          const float rq = s[q] - omega * tv[q];
-          rr[q] = rq;
-          rn_next[0] += (double)(r[q] * rq);
-        }
-        block_sum(rn_next, red);
-        rho = rho_n;
-        rho_n = (float)rn_next[0];
-      }
+      // acc[1] is dot(r, rr) with rr = r
+      jacobi_bicgstab(A_solve, L, a.ninner, (float)acc[1], r, zz, vec(3),
+                      vec(4), vec(5), vec(6), vec(7), dv, red);
       z = zz;
     } else if (!frozen) {  // GMRES(m), one Arnoldi cycle
       const int m = a.ninner;

@@ -59,6 +59,62 @@ def solver_kind(nonsym: bool, nonsym_solver: str) -> str:
     return nonsym_solver if nonsym else "cg"
 
 
+def dot_f64(u, v, dims):
+    """float32 products summed in float64 over ``dims`` (kept) and rounded
+    to float32: the kernels sum the same products in float64 in another
+    order, so card and plain version give the same float32 dot."""
+    return torch.sum((u * v).double(), dim=dims, keepdim=True).float()
+
+
+def jacobi_pcg_plain(apply_solve, dot, dinv, r, ninner: int):
+    """``ninner`` iterations of Jacobi-preconditioned CG on A_solve z = r
+    from z = 0, batched over ranks (``dot`` reduces each rank to one step
+    size)."""
+    tiny = torch.finfo(torch.float32).tiny
+    zero = torch.zeros((), dtype=torch.float32, device=r.device)
+    z = torch.zeros_like(r)
+    p = dinv * r
+    rho = dot(r, p)
+    for _ in range(ninner):
+        ap = apply_solve(p)
+        pap = dot(p, ap)
+        alpha = torch.where(pap > 0, rho / torch.clamp(pap, min=tiny), zero)
+        z = z + alpha * p
+        r = r - alpha * ap
+        sn = dinv * r
+        rho_n = dot(r, sn)
+        beta = torch.where(rho > 0, rho_n / torch.clamp(rho, min=tiny), zero)
+        p = sn + beta * p
+        rho = rho_n
+    return z
+
+
+def bicgstab_plain(apply_solve, dot, dinv, r, ninner: int):
+    """``ninner`` iterations of right-Jacobi-preconditioned BiCGStab on
+    A_solve z = r from z = 0, batched over ranks, with the JAX package's
+    breakdown guards."""
+    one = torch.ones((r.shape[0],) + (1,) * (r.dim() - 1),
+                     dtype=torch.float32, device=r.device)
+    zz, rr = torch.zeros_like(r), r
+    p, v = torch.zeros_like(r), torch.zeros_like(r)
+    rho, alpha, omega = one, one, one
+    for _ in range(ninner):
+        rho_n = dot(r, rr)
+        beta = _sdiv(rho_n * alpha, rho * omega)
+        p = rr + beta * (p - omega * v)
+        ph = dinv * p
+        v = apply_solve(ph)
+        alpha = _sdiv(rho_n, dot(r, v))
+        s = rr - alpha * v
+        sh = dinv * s
+        t = apply_solve(sh)
+        omega = _sdiv(dot(t, s), dot(t, t))
+        zz = zz + alpha * ph + omega * sh
+        rr = s - omega * t
+        rho = rho_n
+    return zz
+
+
 def async_ras_rounds_plain(
     dia, b, dinv, mask_dom, mask_int, x, known, aux, hl, hr, boost=None, *,
     offsets: Tuple[int, ...], total: int, hw: int, rounds: int,
@@ -93,56 +149,13 @@ def async_ras_rounds_plain(
         return acc
 
     def dot(u, v):
-        # float32 products summed in float64 and rounded to float32: the
-        # kernel sums the same products in float64 in another order, so
-        # card and plain version give the same float32 dot
-        return torch.sum((u * v).double(), dim=1, keepdim=True).float()
+        return dot_f64(u, v, 1)
 
     def apply_solve(v):
         av = mask_dom * apply_dom(v)
         if boost is not None:
             av = av + boost * v
         return av
-
-    def cg(r):
-        tiny = torch.finfo(f32).tiny
-        z = torch.zeros_like(r)
-        p = dinv * r
-        rho = dot(r, p)
-        for _ in range(ninner):
-            ap = apply_solve(p)
-            pap = dot(p, ap)
-            alpha = torch.where(pap > 0, rho / torch.clamp(pap, min=tiny), zero)
-            z = z + alpha * p
-            r = r - alpha * ap
-            sn = dinv * r
-            rho_n = dot(r, sn)
-            beta = torch.where(rho > 0, rho_n / torch.clamp(rho, min=tiny),
-                               zero)
-            p = sn + beta * p
-            rho = rho_n
-        return z
-
-    def bicgstab(r):
-        one = torch.ones((D, 1), dtype=f32, device=dev)
-        zz, rr = torch.zeros_like(r), r
-        p, v = torch.zeros_like(r), torch.zeros_like(r)
-        rho, alpha, omega = one, one, one
-        for _ in range(ninner):
-            rho_n = dot(r, rr)
-            beta = _sdiv(rho_n * alpha, rho * omega)
-            p = rr + beta * (p - omega * v)
-            ph = dinv * p
-            v = apply_solve(ph)
-            alpha = _sdiv(rho_n, dot(r, v))
-            s = rr - alpha * v
-            sh = dinv * s
-            t = apply_solve(sh)
-            omega = _sdiv(dot(t, s), dot(t, t))
-            zz = zz + alpha * ph + omega * sh
-            rr = s - omega * t
-            rho = rho_n
-        return zz
 
     def gmres(r):
         m = ninner
@@ -183,7 +196,12 @@ def async_ras_rounds_plain(
             u = u + y[i] * V[i]
         return dinv * u
 
-    correct = {"cg": cg, "bicgstab": bicgstab, "gmres": gmres}[solver]
+    correct = {
+        "cg": lambda r: jacobi_pcg_plain(apply_solve, dot, dinv, r, ninner),
+        "bicgstab": lambda r: bicgstab_plain(apply_solve, dot, dinv, r,
+                                             ninner),
+        "gmres": gmres,
+    }[solver]
     left = lambda a: torch.roll(a, 1, 0)    # noqa: E731  rank me-1's data
     right = lambda a: torch.roll(a, -1, 0)  # noqa: E731  rank me+1's data
 

@@ -25,12 +25,14 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 KERNEL_SOURCES = ("dia_spmv", "halo_runs", "fused_cg", "async_ras",
-                  "diagnostics")
+                  "async_ras_2d", "diagnostics")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-# K5 rounds a*b+c twice, as PyTorch's separate operations do, so that the
-# card and its plain version agree bit for bit (csrc/async_ras.cu)
-EXTRA_FLAGS = {"async_ras": ("-fmad=false",)}
+# K5 and K6 round a*b+c twice, as PyTorch's separate operations do, so that
+# the card and the plain versions agree bit for bit (csrc/async_ras.cu,
+# csrc/async_ras_2d.cu)
+EXTRA_FLAGS = {"async_ras": ("-fmad=false",),
+               "async_ras_2d": ("-fmad=false",)}
 
 _libs: dict = {}
 
@@ -53,6 +55,10 @@ SIGNATURES = {
     "async_ras": {
         "async_ras_max_ranks": (_I,),
         "async_ras_f32": (_P,) * 19 + (_I,) * 10 + (_P, _F, _P),
+    },
+    "async_ras_2d": {
+        "async_ras_2d_max_ranks": (_I,),
+        "async_ras_2d_f32": (_P,) * 15 + (_I,) * 14 + (_F, _P),
     },
     "diagnostics": {
         "smoke_x2_f32": (_P, _P, _LL, _P),

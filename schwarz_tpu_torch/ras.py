@@ -22,7 +22,6 @@ path is not ported yet raise ``NotImplementedFeature``.
 from __future__ import annotations
 
 import dataclasses
-import math
 import sys
 import time
 from typing import Any, Dict, Optional
@@ -42,6 +41,7 @@ from schwarz_tpu_torch.config import (
 )
 from schwarz_tpu_torch.core.decompose import Decomposition
 from schwarz_tpu_torch.exceptions import NotImplementedFeature
+from schwarz_tpu_torch.ops import async_ras_2d
 from schwarz_tpu_torch.ops.async_ras import (
     F32_TOL_FLOOR,
     AsyncRASolver,
@@ -518,48 +518,21 @@ class RASolver:
         )
 
 
-# the 2-D block-grid tier's fixed halo tile (schwarz_tpu/ops/async_ras_2d.py
-# HX, HY): its overlap is (HX-1, HY-1) grid cells
-_HX, _HY = 64, 8
-
-
-def _device_grid(D: int, px: int, py: int):
-    """The 2-D tier's factorization of D ranks over the px x py block grid
-    (``schwarz_tpu/ops/async_ras_2d.py:610-624``), or None."""
-    best = None
-    for pdx in range(1, D + 1):
-        if D % pdx or px % pdx or py % (D // pdx):
-            continue
-        pdy = D // pdx
-        score = abs(py // pdy - px // pdx)
-        if best is None or score < best[0]:
-            best = (score, pdx, pdy)
-    return None if best is None else (best[1], best[2])
-
-
 def _tier_2d_applies(mat, px: int, py: int, overlap: int, oras_c: float,
                      num_ranks: Optional[int]) -> bool:
-    """Whether the JAX package's 2-D tier would accept this operator: its
-    overlap bound (``async_ras_2d.py:648-654``), the structural gates of its
-    plan (square grid, 9-point sparsity, no couplings across grid rows,
-    ``:93-117``), its O-RAS range and the rank tiling (``:674-679``).  The
-    TPU's VMEM estimate (``:688-697``) is not a gate on the card."""
-    if overlap > _HY - 1:
+    """Whether the 2-D tier accepts this operator: the checks that
+    ``AsyncRASolver2D`` makes before it builds anything (overlap bound,
+    structural gates of the plan, O-RAS range, rank tiling)."""
+    try:
+        async_ras_2d.check_overlap(overlap)
+        async_ras_2d.grid_stencil(mat)
+        if oras_c:
+            async_ras_2d.check_oras_weight(oras_c)
+        if num_ranks is not None:
+            async_ras_2d.rank_grid(num_ranks, px, py)
+    except (NotImplementedFeature, ValueError):
         return False
-    N = mat.n
-    n = int(math.isqrt(N))
-    if n * n != N:
-        return False
-    rows_of = np.repeat(np.arange(N, dtype=np.int64), np.diff(mat.row_ptrs))
-    diffs = mat.col_idxs.astype(np.int64) - rows_of
-    allowed = {0, 1, -1, n, -n, n - 1, n + 1, -(n - 1), -(n + 1)}
-    if not set(int(o) for o in np.unique(diffs)) <= allowed:
-        return False
-    if np.any(np.abs(rows_of % n - mat.col_idxs % n) > 1):
-        return False
-    if oras_c and not -1.0 <= oras_c <= 0.0:
-        return False
-    return num_ranks is None or _device_grid(num_ranks, px, py) is not None
+    return True
 
 
 def free_running_tier(mat, num_subdomains: int, settings: Settings,
@@ -591,12 +564,12 @@ def make_free_running_solver(mat, rhs, num_subdomains, settings,
     """Pick the free-running kernel for this matrix and partition, as the
     JAX package's ``make_free_running_solver`` does.
 
-    Dispatch chain: the 2-D block-grid tier, the 1-D banded tier, the
-    general-graph tier.  Only the 1-D tier (K5) is ported; where the chain
-    reaches another tier this raises NotImplementedFeature naming it, and
-    never falls through to the 1-D kernel, which would compute something
-    else.  ``num_ranks`` takes the place of the JAX package's mesh: the
-    number of asynchronous ranks, one per subdomain by default.
+    Dispatch chain: the 2-D block-grid tier (K6), the 1-D banded tier (K5),
+    the general-graph tier (K7).  The general tier is not ported; where the
+    chain reaches it this raises NotImplementedFeature naming it, and never
+    falls through to another kernel, which would compute something else.
+    ``num_ranks`` takes the place of the JAX package's mesh: the number of
+    asynchronous ranks, one per subdomain by default.
 
     Returns ``(solver, refine)``: ``refine`` says the caller should use
     ``run_refined(tol=settings.tolerance)``, because the tolerance sits
@@ -644,19 +617,19 @@ def make_free_running_solver(mat, rhs, num_subdomains, settings,
     tier = free_running_tier(mat, S, settings, partition_indices,
                              num_ranks, oras_c)
     if tier == "2d":
-        raise NotImplementedFeature(
-            "free-running: this operator and subdomain count reach the 2-D "
-            "block-grid tier (K6, schwarz_tpu/ops/async_ras_2d.py "
-            "async_ras_2d_rounds), which is not ported to schwarz_tpu_torch "
-            "yet (ROADMAP Queue 1 item 12); call AsyncRASolver directly for "
-            "the 1-D banded tier"
-        )
+        py = max(d for d in range(2, int(S ** 0.5) + 1) if S % d == 0)
+        return async_ras_2d.AsyncRASolver2D(
+            mat, rhs, px=S // py, py=py, tolerance=inner_tol,
+            staleness=staleness, ninner=ninner, chunk_rounds=chunk_rounds,
+            num_ranks=num_ranks, device=device, fresh_read=fresh_read,
+            oras_weight=oras_c, nonsym=nonsym, overlap=settings.overlap,
+        ), refine
     if tier == "general":
         raise NotImplementedFeature(
             "free-running: this matrix or partition reaches the general-"
             "graph tier (K7, schwarz_tpu/ops/async_ras_general.py "
             "async_general_rounds), which is not ported to schwarz_tpu_torch "
-            "yet (ROADMAP Queue 1 item 12)"
+            "yet (ROADMAP Queue 2)"
         )
     return AsyncRASolver(
         mat, rhs, num_subdomains=S, overlap=settings.overlap,

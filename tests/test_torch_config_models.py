@@ -135,8 +135,9 @@ def test_solve_without_device_raises_without_gpu(monkeypatch):
     dict(local_solver=tcfg.LocalSolver.direct_cholesky),
     dict(precond=tcfg.Precond.fsai),
     dict(accelerator="fgmres"),
-    # the free-running 2-D block-grid tier (K6) is not ported yet
-    dict(free_running=True, num_subdomains=4),
+    # a free-running metis partition reaches the general-graph tier (K7)
+    dict(free_running=True, num_subdomains=4,
+         partition=tcfg.Partition.metis),
     dict(comm=tcfg.CommSettings(strategy=tcfg.HaloStrategy.neighbor)),
     dict(comm=tcfg.CommSettings(strategy=tcfg.HaloStrategy.rdma)),
     dict(comm=tcfg.CommSettings(overlap_comm=True)),

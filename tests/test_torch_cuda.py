@@ -12,10 +12,14 @@ import pytest
 import torch
 
 from schwarz_tpu_torch import diagnostics as dg
-from schwarz_tpu_torch.models import (advection_diffusion_2d, generate_rhs,
+from schwarz_tpu_torch.models import (advection_diffusion_2d,
+                                      anisotropic_diffusion_2d, generate_rhs,
                                       laplacian_2d)
 from schwarz_tpu_torch.ops import cuda_build
 from schwarz_tpu_torch.ops.async_ras import AsyncRASolver
+from schwarz_tpu_torch.ops.async_ras_2d import AsyncRASolver2D
+from schwarz_tpu_torch.ops.async_ras_2d_kernel import (
+    async_ras_2d_rounds, async_ras_2d_rounds_plain)
 from schwarz_tpu_torch.ops.async_ras_kernel import (async_ras_rounds,
                                                     async_ras_rounds_plain)
 from schwarz_tpu_torch.ops.dia_kernel import dia_spmv, dia_spmv_plain
@@ -189,3 +193,62 @@ def test_async_fresh_read_after_probe(dev):
     _, info = s.run(max_rounds=800)
     assert info["converged"] and info["fresh_read_hits"] > 0
     assert info["relative_residual_norm"] < 1e-3
+
+
+@pytest.mark.parametrize("op,px,py,D,kw", [
+    ("lap256", 2, 2, 4, dict(tolerance=1e-3, ninner=8)),
+    ("lap256", 4, 4, 4, dict(tolerance=1e-3, ninner=8)),   # 2 x 2 windows
+    ("lap256", 4, 2, 1, dict(tolerance=1e-3, ninner=8)),   # self-messages
+    ("lap256", 4, 2, 2, dict(tolerance=1e-3, ninner=8, staleness=2)),
+    ("aniso128", 4, 2, 8, dict(tolerance=1e-3, ninner=10,
+                               oras_weight=-0.8)),          # 9-point
+    ("adv128", 2, 2, 4, dict(tolerance=1e-3, ninner=8, nonsym=True)),
+])
+def test_async_ras_2d_matches_plain(dev, op, px, py, D, kw):
+    """Two 8-round launches of K6 against the lockstep emulation.  Without
+    fresh_read the rounds do not depend on timing, and both sides sum the
+    same float32 products in float64 without FMA: equal up to ties."""
+    A = {"lap256": lambda: laplacian_2d(256),
+         "aniso128": lambda: anisotropic_diffusion_2d(128, eps=5.0,
+                                                      theta=0.4),
+         "adv128": lambda: advection_diffusion_2d(128)}[op]()
+    s = AsyncRASolver2D(A, generate_rhs(A.n, random=False), px, py,
+                        num_ranks=D, chunk_rounds=8, device=dev, **kw)
+    X, known, aux = s.init_state()
+    state = (s._fold(X), known, aux)
+    for _ in range(2):
+        n0 = async_ras_2d_rounds.launches
+        got = s.launch(*state)
+        torch.cuda.synchronize()
+        assert async_ras_2d_rounds.launches == n0 + 1
+        ref = s.launch(*state, fn=async_ras_2d_rounds_plain)
+        scale = float(ref[0].abs().max())
+        torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-5 * scale)
+        assert torch.equal(got[1], ref[1])
+        assert torch.equal(got[2][:, 1:3], ref[2][:, 1:3])
+        state = ref
+
+
+def test_async_ras_2d_converges_like_cpu(dev):
+    A = laplacian_2d(256)
+    b = np.ones(A.n)
+    kw = dict(px=4, py=2, tolerance=2e-3, ninner=30, chunk_rounds=20,
+              num_ranks=8)
+    x_c, i_c = AsyncRASolver2D(A, b, device=dev, **kw).run(max_rounds=400)
+    x_h, i_h = AsyncRASolver2D(A, b, device="cpu", **kw).run(max_rounds=400)
+    assert i_c["converged"] and i_c["relative_residual_norm"] < 1e-2
+    assert len(np.unique(i_c["done_at"])) > 1
+    np.testing.assert_array_equal(i_c["done_at"], i_h["done_at"])
+    np.testing.assert_allclose(x_c, x_h, rtol=0,
+                               atol=1e-5 * np.abs(x_h).max())
+
+
+def test_async_2d_fresh_read_after_probe(dev):
+    assert dg.flag_order_probe(4096, 1000, dev)["mismatches"] == 0
+    A = laplacian_2d(256)
+    s = AsyncRASolver2D(A, np.ones(A.n), 4, 2, tolerance=2e-3, ninner=30,
+                        staleness=3, chunk_rounds=20, fresh_read=True,
+                        device=dev)
+    _, info = s.run(max_rounds=800)
+    assert info["converged"] and info["fresh_read_hits"] > 0
+    assert info["relative_residual_norm"] < 1e-2
