@@ -40,7 +40,22 @@
    ranks, on the card and on the CPU: equal ``done_at``, unequal across
    ranks, true residual < 1e-2, error against a direct solve < 5e-3; then
    ``fresh_read`` at staleness 3 and ``run_refined`` to 1e-8 on the card;
-14. prints one JSON line describing the kernels, then the fixed last line
+14. holds K7 (the general-graph rounds) to its plain version: one 16-round
+   launch at the shapes of the general slice (128 ranks, one per part of a
+   metis partition of a 129 600-row 9-point anisotropic operator), timed
+   like phase 3, then three small variants (``ani4_crop`` on 8 ranks at
+   staleness 2, a 64^2 Laplacian on 16 ranks with O-RAS, 64^2 advection on
+   8 ranks with BiCGStab), each bit for bit;
+15. runs the general free-running slice: ``solve`` on
+   ``anisotropic_diffusion_2d(360, eps=5.0, theta=0.3)``, metis partition,
+   128 subdomains, overlap 2, staleness 1, 16 inner CG iterations, float32,
+   64 rounds, twice (cold, warm), with K7 counted and K5 and K6 required to
+   stay at 0;
+16. runs a converging general solve, ``ani3_crop.mtx``, metis, 4 ranks, on
+   the card and on the CPU: equal ``done_at`` and solution, true residual
+   < 5e-3; then ``run_refined`` to 1e-8 on a 64^2 Laplacian, metis, 8
+   ranks, and ``ani4_crop.mtx``, metis, 8 ranks, in band;
+17. prints one JSON line describing the kernels, then the fixed last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the last line, as does a machine
@@ -319,6 +334,8 @@ def async_kernel_checks(sm: Smoke, solver) -> None:
 def _counters():
     from schwarz_tpu_torch import diagnostics as dg
     from schwarz_tpu_torch.ops.async_ras_2d_kernel import async_ras_2d_rounds
+    from schwarz_tpu_torch.ops.async_ras_general_kernel import (
+        async_general_rounds)
     from schwarz_tpu_torch.ops.async_ras_kernel import async_ras_rounds
     from schwarz_tpu_torch.ops.dia_kernel import dia_spmv
     from schwarz_tpu_torch.ops.fused_cg import fused_cg_solve
@@ -327,6 +344,7 @@ def _counters():
     return {"dia_spmv": dia_spmv, "halo_runs": assemble_runs,
             "fused_cg": fused_cg_solve, "async_ras": async_ras_rounds,
             "async_ras_2d": async_ras_2d_rounds,
+            "async_ras_general": async_general_rounds,
             "smoke_x2": dg.smoke_x2, "flag_order_probe": dg.flag_order_probe}
 
 
@@ -618,6 +636,192 @@ def block_grid_phases(sm: Smoke) -> None:
              "2-D run_refined reaches a true relative residual <= 1e-8")
 
 
+def _k7_against_plain(sm: Smoke, solver, what: str):
+    """One K7 launch of ``solver`` from its zero state, then one from that
+    state (which consumes the carry), against the plain version on the card;
+    returns the zero state and the max abs difference of the iterates."""
+    import torch
+
+    from schwarz_tpu_torch.ops.async_ras_general_kernel import (
+        async_general_rounds_plain)
+
+    state = solver.init_state()
+    got, ref, err, same = state, state, 0.0, True
+    for _ in range(2):
+        got = solver.launch(*got)
+        torch.cuda.synchronize()
+        ref = solver.launch(*ref, fn=async_general_rounds_plain)
+        err = max(err, float((got[0] - ref[0]).abs().max()),
+                  float((got[3] - ref[3]).abs().max()))
+        same = same and (torch.equal(got[1], ref[1])
+                         and torch.equal(got[2][:, :3], ref[2][:, :3]))
+    p = solver.plan
+    sm.check(err == 0.0 and same,
+             f"K7 async_general_rounds, {what}, 2 x {solver.chunk_rounds} "
+             f"rounds, {p.S} ranks, Rext={p.Rext} K={p.K} C={p.C} "
+             f"SEG={p.SEG}: max abs difference of iterate and carry {err:.3e} "
+             f"== 0 (the same float32 operations in the same order, float64 "
+             f"sums), known bits, rn0, done_at and round counter equal: "
+             f"{same}")
+    return state, err
+
+
+def general_graph_phases(sm: Smoke) -> None:
+    """Phases 14-16: K7 against its plain version, the 129 600-row general
+    free-running slice and a converging solve on an unstructured matrix."""
+    import numpy as np
+    import torch
+
+    from schwarz_tpu_torch import CommSettings, Partition, Settings
+    from schwarz_tpu_torch.core.partition import make_partition
+    from schwarz_tpu_torch.models import (advection_diffusion_2d,
+                                          anisotropic_diffusion_2d,
+                                          laplacian_2d, matrix_path, read_mtx)
+    from schwarz_tpu_torch.ops.async_ras_general import AsyncGeneralRASolver
+    from schwarz_tpu_torch.ops.async_ras_general_kernel import (
+        async_general_rounds_plain)
+    from schwarz_tpu_torch.ras import make_free_running_solver, solve
+
+    S = 128
+    A = anisotropic_diffusion_2d(360, eps=5.0, theta=0.3)
+    b = np.ones(A.n)
+    settings = Settings(free_running=True, partition=Partition.metis,
+                        overlap=2, tolerance=1e-4, local_max_iters=16,
+                        max_iters=64, comm=CommSettings(staleness=1))
+    t0 = time.perf_counter()
+    part = make_partition(A, S, settings)
+    t_part = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    solver, refine = make_free_running_solver(A, b, S, settings,
+                                              partition_indices=part)
+    torch.cuda.synchronize()
+    t_plan = time.perf_counter() - t0
+    p = solver.plan
+    sm.check(isinstance(solver, AsyncGeneralRASolver),
+             "the dispatch picks the general-graph tier for a metis "
+             "partition")
+    sizes = np.bincount(part, minlength=S)
+    links = (p.tgt_subd != np.arange(S)[:, None]).sum(axis=1)
+    print(f"general free-running setup on the host: metis partition "
+          f"{t_part:.1f} s, plan and upload {t_plan:.1f} s: N={p.N} S={S} "
+          f"parts of {sizes.min()}-{sizes.max()} rows, Rint={p.Rint} H={p.H} "
+          f"Rext={p.Rext} K={p.K} SEG={p.SEG} C={p.C}, at most "
+          f"{links.max()} partners a rank, refine={refine}", flush=True)
+
+    # --- 14. K7 against its plain version ------------------------------------
+    state, err = _k7_against_plain(sm, solver, "the general slice's shapes")
+    rows = S * p.Rext
+    # cols, vals, b, dinv, mask_int and x read once, x written once; per
+    # extended row a residual and ninner products of K entries with the
+    # vector updates and dots of a CG iteration
+    n_bytes = 4 * (2 * p.K * rows + 3 * rows + 2 * S * p.Rint)
+    n_ops = solver.chunk_rounds * (solver.ninner + 1) * (2 * p.K + 13) * rows
+    bound, by = _bound_ms(n_bytes, n_ops, "float32")
+    sm.kernels["async_ras_general"] = dict(
+        max_abs_err=err,
+        ms=sm.ms(lambda: solver.launch(*state), 3),
+        plain_ms=sm.ms(lambda: solver.launch(
+            *state, fn=async_general_rounds_plain), 1),
+        bound_ms=bound, bound_by=by, library_ms=None)
+    v = sm.kernels["async_ras_general"]
+    print(f"async_ras_general: ms={v['ms']:.4f} plain_ms={v['plain_ms']:.4f} "
+          f"bound_ms={v['bound_ms']:.4f} ({v['bound_by']}, {rows} extended "
+          f"rows, {n_bytes} bytes, {n_ops} operations) library_ms=None",
+          flush=True)
+    ani3 = read_mtx(matrix_path("ani3_crop.mtx"))
+    ani4 = read_mtx(matrix_path("ani4_crop.mtx"))
+    lap64 = laplacian_2d(64)
+    metis = Settings(partition=Partition.metis)
+
+    def general(mat, n_parts, **kw):
+        return AsyncGeneralRASolver(
+            mat, np.ones(mat.n), n_parts, overlap=2,
+            part=make_partition(mat, n_parts, metis), **kw)
+
+    small = dict(tolerance=1e-3, chunk_rounds=16)
+    for what, mat, n_parts, extra in (
+            ("ani4_crop at staleness 2", ani4, 8,
+             dict(ninner=24, staleness=2)),
+            ("64^2 Laplacian with O-RAS", lap64, 16,
+             dict(ninner=8, oras_weight=-0.8)),
+            ("64^2 advection with BiCGStab", advection_diffusion_2d(64), 8,
+             dict(ninner=8, nonsym=True))):
+        _k7_against_plain(sm, general(mat, n_parts, **small, **extra), what)
+
+    # --- 15. the general free-running slice, cold then warm ------------------
+    for tag in ("cold", "warm"):
+        t0 = time.perf_counter()
+        res, launches = counted(lambda: solve(A, b, settings, S))
+        wall = time.perf_counter() - t0
+        n_l = launches["async_ras_general"]
+        n_rounds = n_l * solver.chunk_rounds
+        print(f"general free-running slice ({tag}): {n_rounds} rounds in "
+              f"{n_l} launches, run loop {res.solve_time_s:.4f} s = "
+              f"{1e3 * res.solve_time_s / max(n_rounds, 1):.3f} ms/round, "
+              f"solve() wall with partition and plan {wall:.2f} s, converged="
+              f"{res.converged}, true relative residual "
+              f"{res.relative_residual_norm:.6e}", flush=True)
+        if tag == "cold":
+            sm.check(n_l > 0 and launches["async_ras"] == 0
+                     and launches["async_ras_2d"] == 0,
+                     f"async_ras_general launched {n_l} times on the general "
+                     f"slice, async_ras {launches['async_ras']} times, "
+                     f"async_ras_2d {launches['async_ras_2d']} times")
+            sm.kernels["async_ras_general"]["launches"] = n_l
+            sm.check(res.solution.shape == (A.n,) and bool(np.isfinite(
+                res.solution).all()) and np.isfinite(
+                res.relative_residual_norm),
+                f"general free-running slice: finite solution, finite true "
+                f"relative residual {res.relative_residual_norm:.6e} (64 "
+                f"rounds of 16 inner iterations from a zero start are the "
+                f"start of the transient; phase 16 converges)")
+    k7_ms = sm.kernels["async_ras_general"]["ms"]
+    print(f"where the time goes (warm): K7 {k7_ms:.3f} ms per "
+          f"{solver.chunk_rounds}-round launch (events, phase 14) x {n_l} "
+          f"launches = {k7_ms * n_l:.3f} ms of a "
+          f"{1e3 * res.solve_time_s:.3f} ms run loop "
+          f"({100 * k7_ms * n_l / (1e3 * res.solve_time_s):.1f}%); the host "
+          f"partitions for {t_part:.1f} s and plans for {t_plan:.1f} s before "
+          f"it", flush=True)
+    del solver
+
+    # --- 16. a converging general solve: card against CPU --------------------
+    kw = dict(tolerance=1e-3, staleness=1, ninner=24, chunk_rounds=8)
+    x_c, i_c = general(ani3, 4, **kw).run(max_rounds=400)
+    x_h, i_h = general(ani3, 4, device="cpu", **kw).run(max_rounds=400)
+    print(f"ani3_crop, metis, 4 ranks: card done_at {i_c['done_at'].tolist()} "
+          f"in {i_c['rounds']} rounds, {i_c['time_s']:.4f} s, true rel "
+          f"{i_c['relative_residual_norm']:.6e}; CPU done_at "
+          f"{i_h['done_at'].tolist()}, true rel "
+          f"{i_h['relative_residual_norm']:.6e}; max |x_card - x_cpu| "
+          f"{np.abs(x_c - x_h).max():.3e}.  (The JAX package, dense float32 "
+          f"products, on an 8-device CPU mesh with the partition its host "
+          f"gives: done_at [60, 60, 58, 60] in 64 rounds, true rel 8.42e-4; "
+          f"equality with it is not required.)", flush=True)
+    sm.check(i_c["converged"]
+             and np.array_equal(i_c["done_at"], i_h["done_at"])
+             and np.array_equal(x_c, x_h)
+             and i_c["relative_residual_norm"] < 5e-3,
+             "ani3_crop general free-running converges on the card with "
+             "done_at and solution equal to the CPU run's, true residual "
+             "< 5e-3")
+    _, i_r = general(lap64, 8, tolerance=1e-4, ninner=16,
+                     chunk_rounds=16).run_refined(tol=1e-8, max_rounds=800)
+    print(f"general run_refined(tol=1e-8), 64^2 Laplacian, metis, 8 ranks: "
+          f"{i_r['restarts']} restarts, {i_r['rounds']} rounds, true rel "
+          f"{i_r['relative_residual_norm']:.6e}", flush=True)
+    sm.check(i_r["converged"] and i_r["relative_residual_norm"] <= 1e-8,
+             "general run_refined reaches a true relative residual <= 1e-8")
+    x4, i4 = general(ani4, 8, **kw).run(max_rounds=400)
+    print(f"ani4_crop, metis, 8 ranks, in band: done_at "
+          f"{i4['done_at'].tolist()} in {i4['rounds']} rounds, true rel "
+          f"{i4['relative_residual_norm']:.6e}", flush=True)
+    sm.check(bool(np.isfinite(x4).all())
+             and np.isfinite(i4["relative_residual_norm"]),
+             "ani4_crop general free-running stays finite in band (its "
+             "refined solve needs the coarse space)")
+
+
 def main() -> int:
     import torch
 
@@ -759,7 +963,10 @@ def main() -> int:
     # --- 11-13. the 2-D block-grid tier ---------------------------------------
     block_grid_phases(sm)
 
-    # --- 14. the kernels line and the last line ------------------------------
+    # --- 14-16. the general-graph tier ----------------------------------------
+    general_graph_phases(sm)
+
+    # --- 17. the kernels line and the last line ------------------------------
     meta_k = {
         "dia_spmv_float32": ("csrc/dia_spmv.cu",
                              "schwarz_tpu/ops/pallas_kernels.py:110"),
@@ -771,6 +978,8 @@ def main() -> int:
                       "schwarz_tpu/ops/async_ras.py:394"),
         "async_ras_2d": ("csrc/async_ras_2d.cu",
                          "schwarz_tpu/ops/async_ras_2d.py:232"),
+        "async_ras_general": ("csrc/async_ras_general.cu",
+                              "schwarz_tpu/ops/async_ras_general.py:360"),
         "smoke_x2": ("csrc/diagnostics.cu", "scripts/tpu_diagnostics.py:53"),
         "flag_order_probe": ("csrc/diagnostics.cu",
                              "scripts/tpu_diagnostics.py:214"),

@@ -13,7 +13,9 @@ asked to (``device="cpu"``).  It imports neither JAX nor ``schwarz_tpu``.
 
 ``Settings(free_running=True)`` takes the free-running asynchronous path:
 the 2-D block-grid tier (:class:`AsyncRASolver2D`) for grid stencils and a
-composite subdomain count, else the 1-D banded tier (:class:`AsyncRASolver`).
+composite subdomain count, else the 1-D banded tier (:class:`AsyncRASolver`),
+else, for any matrix and any partition, the general-graph tier
+(:class:`AsyncGeneralRASolver`).
 """
 
 from schwarz_tpu_torch.config import (
@@ -28,6 +30,10 @@ from schwarz_tpu_torch.config import (
     Precond,
     Settings,
 )
+from schwarz_tpu_torch.core.partition import (
+    partition_metis,
+    partition_regular_2d,
+)
 from schwarz_tpu_torch.exceptions import NotImplementedFeature, SchwarzError
 from schwarz_tpu_torch.models import (
     CSRMatrix,
@@ -41,6 +47,10 @@ from schwarz_tpu_torch.ops.async_ras import AsyncRASolver, build_async_plan
 from schwarz_tpu_torch.ops.async_ras_2d import (
     AsyncRASolver2D,
     build_async_plan_2d,
+)
+from schwarz_tpu_torch.ops.async_ras_general import (
+    AsyncGeneralRASolver,
+    build_general_plan,
 )
 from schwarz_tpu_torch.ras import (
     RASolver,
@@ -70,8 +80,12 @@ __all__ = [
     "read_mtx",
     "AsyncRASolver",
     "AsyncRASolver2D",
+    "AsyncGeneralRASolver",
     "build_async_plan",
     "build_async_plan_2d",
+    "build_general_plan",
+    "partition_metis",
+    "partition_regular_2d",
     "RASolver",
     "RASResult",
     "make_free_running_solver",

@@ -25,14 +25,15 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 KERNEL_SOURCES = ("dia_spmv", "halo_runs", "fused_cg", "async_ras",
-                  "async_ras_2d", "diagnostics")
+                  "async_ras_2d", "async_ras_general", "diagnostics")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-# K5 and K6 round a*b+c twice, as PyTorch's separate operations do, so that
-# the card and the plain versions agree bit for bit (csrc/async_ras.cu,
-# csrc/async_ras_2d.cu)
+# K5, K6 and K7 round a*b+c twice, as PyTorch's separate operations do, so
+# that the card and the plain versions agree bit for bit (csrc/async_ras.cu,
+# csrc/async_ras_2d.cu, csrc/async_ras_general.cu)
 EXTRA_FLAGS = {"async_ras": ("-fmad=false",),
-               "async_ras_2d": ("-fmad=false",)}
+               "async_ras_2d": ("-fmad=false",),
+               "async_ras_general": ("-fmad=false",)}
 
 _libs: dict = {}
 
@@ -59,6 +60,10 @@ SIGNATURES = {
     "async_ras_2d": {
         "async_ras_2d_max_ranks": (_I,),
         "async_ras_2d_f32": (_P,) * 15 + (_I,) * 14 + (_F, _P),
+    },
+    "async_ras_general": {
+        "async_general_max_ranks": (),
+        "async_general_f32": (_P,) * 20 + (_I,) * 10 + (_F, _P),
     },
     "diagnostics": {
         "smoke_x2_f32": (_P, _P, _LL, _P),

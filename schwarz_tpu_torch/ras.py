@@ -40,6 +40,7 @@ from schwarz_tpu_torch.config import (
     Settings,
 )
 from schwarz_tpu_torch.core.decompose import Decomposition
+from schwarz_tpu_torch.core.partition import make_partition
 from schwarz_tpu_torch.exceptions import NotImplementedFeature
 from schwarz_tpu_torch.ops import async_ras_2d
 from schwarz_tpu_torch.ops.async_ras import (
@@ -47,6 +48,7 @@ from schwarz_tpu_torch.ops.async_ras import (
     AsyncRASolver,
     plan_geometry,
 )
+from schwarz_tpu_torch.ops.async_ras_general import AsyncGeneralRASolver
 from schwarz_tpu_torch.ops.dia import dia_ell_spmv, split_dia_ell
 from schwarz_tpu_torch.ops.fused_cg import fused_cg_solve, fused_cg_supported
 from schwarz_tpu_torch.ops.spmv import ell_spmv_batched
@@ -565,9 +567,7 @@ def make_free_running_solver(mat, rhs, num_subdomains, settings,
     JAX package's ``make_free_running_solver`` does.
 
     Dispatch chain: the 2-D block-grid tier (K6), the 1-D banded tier (K5),
-    the general-graph tier (K7).  The general tier is not ported; where the
-    chain reaches it this raises NotImplementedFeature naming it, and never
-    falls through to another kernel, which would compute something else.
+    the general-graph tier (K7), which takes any matrix and any partition.
     ``num_ranks`` takes the place of the JAX package's mesh: the number of
     asynchronous ranks, one per subdomain by default.
 
@@ -625,12 +625,23 @@ def make_free_running_solver(mat, rhs, num_subdomains, settings,
             oras_weight=oras_c, nonsym=nonsym, overlap=settings.overlap,
         ), refine
     if tier == "general":
-        raise NotImplementedFeature(
-            "free-running: this matrix or partition reaches the general-"
-            "graph tier (K7, schwarz_tpu/ops/async_ras_general.py "
-            "async_general_rounds), which is not ported to schwarz_tpu_torch "
-            "yet (ROADMAP Queue 2)"
-        )
+        if fresh_read:
+            raise NotImplementedFeature(
+                "fresh_read (freshest-arrived semaphore peeks) is "
+                "implemented in the 1-D/2-D free-running kernels only; the "
+                "general-graph kernel consumes the staleness-bound slot — "
+                "unset fresh_read for unstructured/custom-partition "
+                "free-running solves"
+            )
+        part = partition_indices
+        if part is None and settings.partition != Partition.regular:
+            part = make_partition(mat, S, settings)
+        return AsyncGeneralRASolver(
+            mat, rhs, num_subdomains=S, overlap=settings.overlap,
+            tolerance=inner_tol, staleness=staleness, ninner=ninner,
+            chunk_rounds=chunk_rounds, part=part, num_ranks=num_ranks,
+            device=device, oras_weight=oras_c, nonsym=nonsym,
+        ), refine
     return AsyncRASolver(
         mat, rhs, num_subdomains=S, overlap=settings.overlap,
         tolerance=inner_tol, staleness=staleness, ninner=ninner,

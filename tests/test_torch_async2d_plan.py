@@ -204,9 +204,13 @@ def test_dispatch_num_ranks_that_cannot_tile_falls_to_1d():
 
 
 def test_dispatch_general_tier_still_raises():
+    """A custom partition, once refused, builds the general-graph tier."""
     A = tmodels.laplacian_2d(16)
     part = (np.arange(A.n) * 4 // A.n).astype(np.int64)
-    with pytest.raises(TNIF, match="K7"):
-        make_free_running_solver(
-            A, np.ones(A.n), 4, tcfg.Settings(free_running=True),
-            partition_indices=part, device="cpu")
+    solver, refine = make_free_running_solver(
+        A, np.ones(A.n), 4, tcfg.Settings(free_running=True, tolerance=1e-4),
+        partition_indices=part, device="cpu")
+    assert type(solver).__name__ == "AsyncGeneralRASolver" and not refine
+    assert free_running_tier(A, 4, tcfg.Settings(free_running=True),
+                             partition_indices=part) == "general"
+    np.testing.assert_array_equal(np.bincount(part), solver.plan.n_int)

@@ -182,11 +182,24 @@ def test_dispatch_tier_matches(kind, S, kw):
     ("lap3:12", 8, {}),
 ])
 def test_unported_tiers_raise(kind, S, kw):
-    _, tm, b = _pair(kind)
-    with pytest.raises(TNIF, match="K7"):
-        make_free_running_solver(tm, b, S,
-                                 tcfg.Settings(free_running=True, **kw),
-                                 device="cpu")
+    """What the 2-D and 1-D tiers refuse builds the general tier, as in the
+    JAX package; ``fresh_read`` there raises with its message."""
+    jm, tm, b = _pair(kind)
+    jkw = {k: jcfg.Partition(v.value) for k, v in kw.items()}
+    js = jcfg.Settings(free_running=True, tolerance=1e-4, **jkw)
+    ts = tcfg.Settings(free_running=True, tolerance=1e-4, **kw)
+    jsolver, _ = jmake(jm, b, S, js)
+    solver, refine = make_free_running_solver(tm, b, S, ts, device="cpu")
+    assert type(solver).__name__ == type(jsolver).__name__ == \
+        "AsyncGeneralRASolver"
+    assert not refine and solver.plan.S == S
+    for f in ("Rint", "H", "SEG", "C"):
+        assert getattr(solver.plan, f) == getattr(jsolver.plan, f)
+    with pytest.raises(TNIF, match="fresh_read") as te:
+        make_free_running_solver(tm, b, S, ts, fresh_read=True, device="cpu")
+    with pytest.raises(JNIF) as je:
+        jmake(jm, b, S, js, fresh_read=True)
+    assert str(te.value) == str(je.value)
 
 
 @pytest.mark.parametrize("kw", [

@@ -135,15 +135,19 @@ def test_solve_without_device_raises_without_gpu(monkeypatch):
     dict(local_solver=tcfg.LocalSolver.direct_cholesky),
     dict(precond=tcfg.Precond.fsai),
     dict(accelerator="fgmres"),
-    # a free-running metis partition reaches the general-graph tier (K7)
+    # a free-running metis partition reaches the general-graph tier (K7),
+    # which has no fresh_read
     dict(free_running=True, num_subdomains=4,
-         partition=tcfg.Partition.metis),
+         partition=tcfg.Partition.metis,
+         comm=tcfg.CommSettings(fresh_read=True)),
     dict(comm=tcfg.CommSettings(strategy=tcfg.HaloStrategy.neighbor)),
     dict(comm=tcfg.CommSettings(strategy=tcfg.HaloStrategy.rdma)),
     dict(comm=tcfg.CommSettings(overlap_comm=True)),
     dict(convergence=tcfg.ConvergenceSettings(
         method=tcfg.GlobalConvergence.tree)),
-    dict(partition=tcfg.Partition.metis),
+    # the metis partition is ported; its free-running two-level solve needs
+    # the coarse space
+    dict(partition=tcfg.Partition.metis, free_running=True, two_level=True),
     dict(inner_operator="dia_only"),
     dict(halo_dtype="float32"),
 ])

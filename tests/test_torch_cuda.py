@@ -12,14 +12,18 @@ import pytest
 import torch
 
 from schwarz_tpu_torch import diagnostics as dg
+from schwarz_tpu_torch.core.partition import partition_metis
 from schwarz_tpu_torch.models import (advection_diffusion_2d,
                                       anisotropic_diffusion_2d, generate_rhs,
-                                      laplacian_2d)
+                                      laplacian_2d, matrix_path, read_mtx)
 from schwarz_tpu_torch.ops import cuda_build
 from schwarz_tpu_torch.ops.async_ras import AsyncRASolver
 from schwarz_tpu_torch.ops.async_ras_2d import AsyncRASolver2D
 from schwarz_tpu_torch.ops.async_ras_2d_kernel import (
     async_ras_2d_rounds, async_ras_2d_rounds_plain)
+from schwarz_tpu_torch.ops.async_ras_general import AsyncGeneralRASolver
+from schwarz_tpu_torch.ops.async_ras_general_kernel import (
+    async_general_rounds, async_general_rounds_plain)
 from schwarz_tpu_torch.ops.async_ras_kernel import (async_ras_rounds,
                                                     async_ras_rounds_plain)
 from schwarz_tpu_torch.ops.dia_kernel import dia_spmv, dia_spmv_plain
@@ -252,3 +256,70 @@ def test_async_2d_fresh_read_after_probe(dev):
     _, info = s.run(max_rounds=800)
     assert info["converged"] and info["fresh_read_hits"] > 0
     assert info["relative_residual_norm"] < 1e-2
+
+
+_GENERAL = {
+    "lap64": lambda: laplacian_2d(64),
+    "aniso64": lambda: anisotropic_diffusion_2d(64, eps=5.0, theta=0.3),
+    "adv64": lambda: advection_diffusion_2d(64),
+    "ani3": lambda: read_mtx(matrix_path("ani3_crop.mtx")),
+    "ani4": lambda: read_mtx(matrix_path("ani4_crop.mtx")),
+}
+
+
+@pytest.mark.parametrize("op,S,kw", [
+    ("lap64", 16, dict(tolerance=1e-3, ninner=8)),
+    ("lap64", 8, dict(tolerance=1e-3, ninner=8, staleness=2)),
+    ("lap64", 3, dict(tolerance=1e-3, ninner=8, staleness=3)),
+    ("aniso64", 32, dict(tolerance=1e-3, ninner=10, oras_weight=-0.8)),
+    ("adv64", 8, dict(tolerance=1e-3, ninner=8, nonsym=True)),
+    ("ani3", 4, dict(tolerance=1e-3, ninner=24)),
+    ("ani4", 8, dict(tolerance=1e-3, ninner=24, staleness=2)),
+    ("lap64", 1, dict(tolerance=1e-3, ninner=8)),   # no link at all
+])
+def test_async_general_matches_plain(dev, op, S, kw):
+    """Three 8-round launches of K7 against the lockstep emulation, the
+    later ones from a carry.  The rounds do not depend on timing, and both
+    sides do the same float32 operations in the same order, without FMA,
+    with float64 sums: bit for bit."""
+    A = _GENERAL[op]()
+    s = AsyncGeneralRASolver(A, np.ones(A.n), S, overlap=2,
+                             part=partition_metis(A, S), chunk_rounds=8,
+                             device=dev, **kw)
+    state = s.init_state()
+    for _ in range(3):
+        n0 = async_general_rounds.launches
+        got = s.launch(*state)
+        torch.cuda.synchronize()
+        assert async_general_rounds.launches == n0 + 1
+        ref = s.launch(*state, fn=async_general_rounds_plain)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+        state = ref
+
+
+def test_async_general_converges_like_cpu(dev):
+    A = _GENERAL["ani3"]()
+    b = np.ones(A.n)
+    kw = dict(overlap=2, tolerance=1e-3, ninner=24, chunk_rounds=8,
+              part=partition_metis(A, 4))
+    x_c, i_c = AsyncGeneralRASolver(A, b, 4, device=dev, **kw).run(
+        max_rounds=400)
+    x_h, i_h = AsyncGeneralRASolver(A, b, 4, device="cpu", **kw).run(
+        max_rounds=400)
+    assert i_c["converged"] and i_c["relative_residual_norm"] < 5e-3
+    np.testing.assert_array_equal(i_c["done_at"], i_h["done_at"])
+    np.testing.assert_array_equal(x_c, x_h)
+
+
+def test_async_general_refuses_what_it_cannot_take(dev):
+    A = laplacian_2d(64)
+    s = AsyncGeneralRASolver(A, np.ones(A.n), 4, part=partition_metis(A, 4),
+                             device=dev)
+    state = s.init_state()
+    with pytest.raises(ValueError, match="contiguous"):
+        s.launch(state[0].t().contiguous().t(), *state[1:])
+    with pytest.raises(TypeError, match="dtype"):
+        s.launch(state[0].double(), *state[1:])
+    with pytest.raises(ValueError, match="shapes"):
+        s.launch(state[0], state[1][:, :64].contiguous(), *state[2:])

@@ -17,7 +17,6 @@ import schwarz_tpu_torch.core.partition as tpart
 import schwarz_tpu_torch.models as tmodels
 import schwarz_tpu_torch.ops.dia as tdia
 import schwarz_tpu_torch.parallel.exchange as tex
-from schwarz_tpu_torch.exceptions import NotImplementedFeature
 
 # the modules, not the ``decompose`` functions the packages re-export
 jdec = importlib.import_module("schwarz_tpu.core.decompose")
@@ -137,7 +136,15 @@ def test_flat_run_tables_cover_the_halo():
 @pytest.mark.parametrize("part", [tcfg.Partition.regular2d,
                                   tcfg.Partition.metis])
 def test_other_partitions_not_ported(part):
-    A = tmodels.laplacian_2d(8)
-    with pytest.raises(NotImplementedFeature):
-        tdec.decompose(A, tmodels.generate_rhs(A.n),
-                       tcfg.Settings(partition=part), 4)
+    """The regular 2-D and metis partitions, once refused by the port, take
+    the generic decomposition path: bit-identical to the JAX package's."""
+    decs = []
+    for models, cfg, dec in ((jmodels, jcfg, jdec), (tmodels, tcfg, tdec)):
+        A = models.laplacian_2d(8)
+        s = cfg.Settings(partition=cfg.Partition(part.value))
+        decs.append(dec.decompose(A, models.generate_rhs(A.n), s, 4))
+    dj, dt = decs
+    assert dataclasses.asdict(dj.meta) == dataclasses.asdict(dt.meta)
+    for name in ARRAYS:
+        np.testing.assert_array_equal(getattr(dj, name), getattr(dt, name),
+                                      err_msg=name)
