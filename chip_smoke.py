@@ -55,7 +55,26 @@
    the card and on the CPU: equal ``done_at`` and solution, true residual
    < 5e-3; then ``run_refined`` to 1e-8 on a 64^2 Laplacian, metis, 8
    ranks, and ``ani4_crop.mtx``, metis, 8 ranks, in band;
-17. prints one JSON line describing the kernels, then the fixed last line
+17. holds K4 (the one-sided cyclic shift of packed halo buffers) to its
+   plain version, data bit for bit and counters equal, in its five variants
+   (put, get, put one by one with flush-all and flush-local, get one by one
+   with flush-local) at the shapes of the synchronous slice's rounds (16
+   ranks, 3072 elements, float32 and float64), then with 2 and 64 ranks and
+   a ragged small buffer; timed like phase 3 beside ``torch.roll``;
+18. runs the synchronous slice of phase 4 with the strategy switched to
+   ``rdma`` (put mode, 16 ranks), 30 outer iterations, twice (cold, warm):
+   K4 must launch once per round and outer iteration, K1 and K3 must
+   launch, K2 must stay at 0, and the global residual history must equal
+   phase 4's bit for bit;
+19. runs converging solves on a second partition, ``laplacian_2d(32)``,
+   ``regular2d``, 64 subdomains on 16 ranks, overlap 2, float64, tolerance
+   1e-6, on the card and on the CPU: ``rdma`` in get mode (equal iteration
+   counts, histories within rtol 1e-8, true residual < 1e-5, the
+   ``all_gather`` run's count), then ``overlap_comm``, onesided staleness
+   3, ``halo_dtype='float32'`` (tolerance 1e-4), and the ``tree``,
+   ``decentralized`` and accumulate convergence protocols, each with equal
+   counts on card and CPU and no fewer iterations than the plain run;
+20. prints one JSON line describing the kernels, then the fixed last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the last line, as does a machine
@@ -340,8 +359,10 @@ def _counters():
     from schwarz_tpu_torch.ops.dia_kernel import dia_spmv
     from schwarz_tpu_torch.ops.fused_cg import fused_cg_solve
     from schwarz_tpu_torch.ops.halo_kernel import assemble_runs
+    from schwarz_tpu_torch.ops.rdma_kernel import rdma_cyclic_shift
 
     return {"dia_spmv": dia_spmv, "halo_runs": assemble_runs,
+            "rdma_shift": rdma_cyclic_shift,
             "fused_cg": fused_cg_solve, "async_ras": async_ras_rounds,
             "async_ras_2d": async_ras_2d_rounds,
             "async_ras_general": async_general_rounds,
@@ -822,6 +843,168 @@ def general_graph_phases(sm: Smoke) -> None:
              "refined solve needs the coarse space)")
 
 
+def neighbor_exchange_phases(sm: Smoke, dec, settings, hist4,
+                             ms_per_it4: float) -> None:
+    """Phases 17-19: K4 against its plain version, the synchronous slice
+    through the one-sided strategy, and converging solves on a 2-D
+    partition with the stale-halo modes and the convergence protocols."""
+    import numpy as np
+    import torch
+
+    from schwarz_tpu_torch import (CommSettings, ConvergenceSettings,
+                                   GlobalConvergence, HaloStrategy,
+                                   Partition, RASolver, Settings)
+    from schwarz_tpu_torch.models import generate_rhs, laplacian_2d
+    from schwarz_tpu_torch.ops.rdma_kernel import (rdma_cyclic_shift,
+                                                   rdma_cyclic_shift_plain,
+                                                   rdma_shift_launch)
+    from schwarz_tpu_torch.ras import solve
+
+    # --- 17. K4 against its plain version ------------------------------------
+    variants = (("put", False, False), ("get", False, False),
+                ("put", True, False), ("put", True, True),
+                ("get", True, True))
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    worst = 0.0
+    for D, H, offset, dt in ((16, 3072, 1, torch.float32),
+                             (16, 3072, 15, torch.float64),
+                             (2, 5, 1, torch.float64),
+                             (64, 37, 9, torch.float32)):
+        buf = torch.randn((D, H), generator=gen, device="cuda", dtype=dt)
+        for mode, one_by_one, flush_local in variants:
+            out, counts = rdma_cyclic_shift(buf, offset, mode, one_by_one,
+                                            flush_local)
+            torch.cuda.synchronize()
+            ref, ref_counts = rdma_cyclic_shift_plain(
+                buf, offset, mode, one_by_one, flush_local)
+            err = float((out - ref).abs().max())
+            worst = max(worst, err)
+            sm.check(bool(torch.equal(out, ref))
+                     and bool(torch.equal(counts, ref_counts)),
+                     f"K4 rdma_cyclic_shift D={D} H={H} offset={offset} "
+                     f"{str(dt).split('.')[-1]} {mode}"
+                     f"{' one-by-one' if one_by_one else ''}"
+                     f"{' flush-local' if flush_local else ''}: data bit for "
+                     f"bit (max abs err {err}), signals received "
+                     f"{counts[0, 0].item()}, requests served "
+                     f"{counts[0, 1].item()}, equal to the plain version's")
+    D, H = 16, 3072
+    buf = torch.randn((D, H), generator=gen, device="cuda")
+    bound, by = _bound_ms(2 * D * H * 4, 0, "float32")
+    sm.kernels["rdma_shift"] = dict(
+        max_abs_err=worst,
+        ms=sm.ms(lambda: rdma_shift_launch(buf, 1, "put"), 50),
+        plain_ms=sm.ms(lambda: rdma_cyclic_shift_plain(buf, 1, "put"), 50),
+        bound_ms=bound, bound_by=by,
+        library_ms=sm.ms(lambda: torch.roll(buf, 1, 0), 50))
+    v = sm.kernels["rdma_shift"]
+    print(f"rdma_shift (put, gathered, D={D}, H={H}, float32): "
+          f"ms={v['ms']:.4f} plain_ms={v['plain_ms']:.4f} "
+          f"bound_ms={v['bound_ms']:.6f} ({v['bound_by']}) "
+          f"library_ms={v['library_ms']:.4f} (torch.roll)", flush=True)
+    for mode, one_by_one, flush_local in variants[1:]:
+        t = sm.ms(lambda: rdma_shift_launch(buf, 1, mode, one_by_one,
+                                            flush_local), 20)
+        print(f"  variant {mode}{' one-by-one' if one_by_one else ''}"
+              f"{' flush-local' if flush_local else ''}: {t:.4f} ms",
+              flush=True)
+    t = sm.ms(lambda: rdma_cyclic_shift(buf, 1, "put"), 20)
+    print(f"  with the wrapper's wait for the watchdog word (one host "
+          f"sync): {t:.4f} ms", flush=True)
+
+    # --- 18. the synchronous slice through the one-sided strategy ------------
+    s18 = settings.replace(comm=CommSettings(
+        strategy=HaloStrategy.rdma, enable_put=True, enable_get=False))
+    solver = RASolver(dataclasses.replace(dec, settings=s18), num_ranks=16)
+    nx = solver._neighbor_plan
+    for tag in ("cold", "warm"):
+        res, launches = counted(solver.run)
+        n_it = len(res.global_resnorm_history)
+        ms_it = 1e3 * res.solve_time_s / max(n_it, 1)
+        print(f"rdma slice ({tag}): {n_it} outer iterations, offsets "
+              f"{nx.offsets}, buffers of {[t.shape[1] for t in nx.send_idx]} "
+              f"elements, wall {res.solve_time_s:.3f} s = {ms_it:.2f} "
+              f"ms/iteration (all_gather, phase 4: {ms_per_it4:.2f}), "
+              f"launches {launches}", flush=True)
+        if tag == "cold":
+            want = len(nx.offsets) * n_it
+            sm.check(launches["rdma_shift"] == want and want > 0,
+                     f"rdma_shift launched {launches['rdma_shift']} times = "
+                     f"{len(nx.offsets)} rounds x {n_it} iterations")
+            sm.check(launches["dia_spmv"] > 0 and launches["fused_cg"] > 0
+                     and launches["halo_runs"] == 0,
+                     "the rdma slice launched K1 and K3 and never K2")
+            sm.kernels["rdma_shift"]["launches"] = launches["rdma_shift"]
+            sm.check(np.array_equal(res.global_resnorm_history, hist4),
+                     "rdma slice: global residual history equal to the "
+                     "all_gather slice's bit for bit")
+    k4_ms = sm.kernels["rdma_shift"]["ms"]
+    print(f"where the time goes (warm): K4 {k4_ms:.4f} ms per launch "
+          f"(events, phase 17) x {launches['rdma_shift']} launches = "
+          f"{k4_ms * launches['rdma_shift']:.3f} ms of a "
+          f"{1e3 * res.solve_time_s:.3f} ms run loop", flush=True)
+    del solver
+
+    # --- 19. a 2-D partition, stale halos and the protocols: card and CPU ----
+    A = laplacian_2d(32)
+    b = generate_rhs(A.n, random=False)
+
+    def both(what, comm=None, **kw):
+        s = Settings(partition=Partition.regular2d, overlap=2,
+                     max_iters=1500, comm=CommSettings(**(comm or {})),
+                     **{"tolerance": 1e-6, **kw})
+        t0 = time.perf_counter()
+        r_c, launches = counted(lambda: solve(A, b, s, 64, num_ranks=16))
+        t_c = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r_h = solve(A, b, s, 64, device="cpu", num_ranks=16)
+        t_h = time.perf_counter() - t0
+        same = r_c.iters == r_h.iters
+        rel = (np.abs(r_c.global_resnorm_history
+                      / r_h.global_resnorm_history - 1).max()
+               if same else float("inf"))
+        print(f"{what}: card {r_c.iters} iterations in {t_c:.1f} s, CPU "
+              f"{r_h.iters} in {t_h:.1f} s, histories max rel diff "
+              f"{rel:.3e}, true relative residual "
+              f"{r_c.relative_residual_norm:.3e}, K4 launches "
+              f"{launches['rdma_shift']}", flush=True)
+        sm.check(r_c.converged and same and rel <= 1e-8,
+                 f"{what}: converges on the card in the CPU run's "
+                 f"{r_h.iters} iterations, histories within rtol 1e-8")
+        return r_c, launches
+
+    rdma_get = dict(strategy=HaloStrategy.rdma)
+    r_ag, _ = both("64 subdomains on 16 ranks, all_gather")
+    r_rd, launches = both("the same, rdma in get mode", comm=rdma_get)
+    sm.check(r_rd.iters == r_ag.iters and launches["rdma_shift"] > 0
+             and r_rd.relative_residual_norm < 1e-5
+             and np.array_equal(r_rd.solution, r_ag.solution),
+             f"rdma in get mode: the all_gather run's {r_ag.iters} "
+             f"iterations and solution, true relative residual "
+             f"{r_rd.relative_residual_norm:.3e} < 1e-5")
+    for what, comm, kw in (
+            ("overlap_comm", dict(overlap_comm=True, **rdma_get), {}),
+            ("onesided staleness 3",
+             dict(onesided=True, staleness=3, **rdma_get), {}),
+            ("tree detection", rdma_get, dict(
+                convergence=ConvergenceSettings(
+                    method=GlobalConvergence.tree))),
+            ("decentralized detection (gossip)", rdma_get, dict(
+                convergence=ConvergenceSettings(
+                    method=GlobalConvergence.decentralized))),
+            ("decentralized detection (accumulate)", rdma_get, dict(
+                convergence=ConvergenceSettings(
+                    method=GlobalConvergence.decentralized,
+                    enable_accumulate=True)))):
+        r, _ = both(what, comm=comm, **kw)
+        sm.check(r.iters >= r_ag.iters,
+                 f"{what}: {r.iters} iterations >= the plain run's "
+                 f"{r_ag.iters}")
+    # float32 halos stall the local detection ratio near 1e-6: tolerance 1e-4
+    both("halo_dtype float32 under float64", comm=rdma_get,
+         halo_dtype="float32", tolerance=1e-4)
+
+
 def main() -> int:
     import torch
 
@@ -966,7 +1149,11 @@ def main() -> int:
     # --- 14-16. the general-graph tier ----------------------------------------
     general_graph_phases(sm)
 
-    # --- 17. the kernels line and the last line ------------------------------
+    # --- 17-19. the neighbour / one-sided exchange and the protocols ----------
+    neighbor_exchange_phases(sm, dec, settings, hist,
+                             1e3 * warm.solve_time_s / max(n_it, 1))
+
+    # --- 20. the kernels line and the last line ------------------------------
     meta_k = {
         "dia_spmv_float32": ("csrc/dia_spmv.cu",
                              "schwarz_tpu/ops/pallas_kernels.py:110"),
@@ -980,6 +1167,8 @@ def main() -> int:
                          "schwarz_tpu/ops/async_ras_2d.py:232"),
         "async_ras_general": ("csrc/async_ras_general.cu",
                               "schwarz_tpu/ops/async_ras_general.py:360"),
+        "rdma_shift": ("csrc/rdma_shift.cu",
+                       "schwarz_tpu/parallel/neighbor_exchange.py:167"),
         "smoke_x2": ("csrc/diagnostics.cu", "scripts/tpu_diagnostics.py:53"),
         "flag_order_probe": ("csrc/diagnostics.cu",
                              "scripts/tpu_diagnostics.py:214"),

@@ -25,7 +25,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 KERNEL_SOURCES = ("dia_spmv", "halo_runs", "fused_cg", "async_ras",
-                  "async_ras_2d", "async_ras_general", "diagnostics")
+                  "async_ras_2d", "async_ras_general", "diagnostics",
+                  "rdma_shift")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 # K5, K6 and K7 round a*b+c twice, as PyTorch's separate operations do, so
@@ -68,6 +69,10 @@ SIGNATURES = {
     "diagnostics": {
         "smoke_x2_f32": (_P, _P, _LL, _P),
         "flag_order_probe": (_P, _P, _P, _I, _I, _I, _P),
+    },
+    "rdma_shift": {
+        "rdma_shift_max_ranks": (_I,),
+        "rdma_shift": (_P, _P, _P, _P) + (_I,) * 7 + (_P,),
     },
 }
 

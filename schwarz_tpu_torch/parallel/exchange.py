@@ -1,8 +1,11 @@
 """Halo exchange: build the extended-local view ``x_ext`` of the iterate.
 
-Port of ``schwarz_tpu/parallel/exchange.py`` for the ``all_gather`` strategy
-with every subdomain on one device: the mesh ``all_gather`` of the interior
-blocks becomes the ``(S, R_int)`` interior array itself, viewed flat.  Each
+Port of ``schwarz_tpu/parallel/exchange.py``: the ``all_gather`` strategy
+with every subdomain on one device, and the window insert plus halo scatter
+(:func:`assemble_x_ext`) that the neighbour strategies
+(``parallel/neighbor_exchange.py``) end in.  For ``all_gather`` the mesh
+collective over the interior blocks becomes the ``(S, R_int)`` interior
+array itself, viewed flat.  Each
 subdomain's ``x_ext`` is its interior window plus its halo, which for
 contiguous partitions is a handful of contiguous runs of the flat interior
 array (:class:`RunPlan`).  The window insert is a torch scatter; the runs
@@ -138,6 +141,22 @@ def window_insert(x_own: torch.Tensor, interior_off: torch.Tensor,
     return buf.scatter_(1, cols, x_own)
 
 
+def assemble_x_ext(
+    x_own: torch.Tensor,        # (S, R_int)
+    interior_off: torch.Tensor,  # (S,)
+    halo_slots: torch.Tensor,   # (S, H) int64; padding entries point at r_ext
+    halo_vals: torch.Tensor,    # (S, H)
+    r_ext: int,
+) -> torch.Tensor:
+    """Interior window first, then an element-wise scatter of the halo
+    values (the form the neighbour strategies use: their values arrive in
+    compact tables, not as runs of the flat interior).  Padding entries land
+    in the spare column r_ext, which the returned (S, r_ext) view drops."""
+    buf = window_insert(x_own, interior_off, r_ext)
+    buf.scatter_(1, halo_slots, halo_vals.to(x_own.dtype))
+    return buf[:, :r_ext]
+
+
 def assemble_x_ext_runs(
     x_own: torch.Tensor,        # (S, R_int)
     x_all_flat: torch.Tensor,   # (S * R_int,) gathered interior blocks
@@ -158,8 +177,18 @@ def exchange_halo_allgather(
     interior_off: torch.Tensor,  # (S,)
     run_tables,                 # (src, dst, lens) device int32 tables
     r_ext: int,
+    halo_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """x_ext (S, r_ext) in the compute dtype.  With all subdomains on one
-    device the all_gather is the interior array itself."""
-    return assemble_x_ext_runs(x_own, x_own.reshape(-1), interior_off,
+    device the all_gather is the interior array itself.
+
+    With a ``halo_dtype`` the gathered blocks are rounded to it and cast
+    back before the run copy (K2 moves bytes of one element size, so the
+    casts sit around it; the values are those of a halo that travelled in
+    ``halo_dtype``).  The subdomain's own interior window never passes
+    through the reduced precision (restricted_schwarz.cpp:898-908)."""
+    x_all = x_own
+    if halo_dtype is not None:
+        x_all = x_own.to(halo_dtype).to(x_own.dtype)
+    return assemble_x_ext_runs(x_own, x_all.reshape(-1), interior_off,
                                run_tables, r_ext)

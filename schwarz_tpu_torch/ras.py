@@ -8,6 +8,8 @@ check_convergence -> local_solve -> local_to_global_vector}
 with all S subdomains batched on one device:
 
   - exchange_boundary  -> window insert + halo-run copy (K2)   (parallel/exchange.py)
+                          or packed neighbour rounds, one-sided through
+                          K4                        (parallel/neighbor_exchange.py)
   - update_boundary    -> interface gather/scatter             (restricted_schwarz.cpp:991-1017)
   - check_convergence  -> local residual through the DIA SpMV (K1) + protocol round
   - local_solve        -> batched CG, or the fused CG kernel (K3)
@@ -15,8 +17,11 @@ with all S subdomains batched on one device:
 
 :class:`RASolver` and :func:`solve` run on the CUDA device unless the caller
 passes ``device="cpu"``, where every kernel wrapper takes its plain PyTorch
-version.  With no GPU and no explicit device they raise.  Settings whose
-path is not ported yet raise ``NotImplementedFeature``.
+version.  With no GPU and no explicit device they raise.  ``num_ranks``
+takes the place of the JAX package's device mesh: the neighbour strategies
+pack one buffer per pair of ranks, each rank owning ``S / num_ranks``
+consecutive subdomains (one by default).  Settings whose path is not ported
+yet raise ``NotImplementedFeature``.
 """
 
 from __future__ import annotations
@@ -31,7 +36,6 @@ import torch
 import torch.nn.functional as F
 
 from schwarz_tpu_torch.config import (
-    GlobalConvergence,
     HaloStrategy,
     LocalCriterion,
     LocalSolver,
@@ -51,12 +55,17 @@ from schwarz_tpu_torch.ops.async_ras import (
 from schwarz_tpu_torch.ops.async_ras_general import AsyncGeneralRASolver
 from schwarz_tpu_torch.ops.dia import dia_ell_spmv, split_dia_ell
 from schwarz_tpu_torch.ops.fused_cg import fused_cg_solve, fused_cg_supported
+from schwarz_tpu_torch.ops.rdma_kernel import rdma_shift_finish
 from schwarz_tpu_torch.ops.spmv import ell_spmv_batched
 from schwarz_tpu_torch.parallel.convergence import conv_step, init_conv_state
 from schwarz_tpu_torch.parallel.exchange import (
     build_run_plan,
     exchange_halo_allgather,
     flat_run_tables,
+)
+from schwarz_tpu_torch.parallel.neighbor_exchange import (
+    build_neighbor_plan,
+    exchange_halo_neighbor,
 )
 from schwarz_tpu_torch.solvers.cg import cg_solve
 from schwarz_tpu_torch.solvers.precond import jacobi_inverse
@@ -123,13 +132,24 @@ class RASResult:
 class RASolver:
     """Set up once, run many times (cf. SolverRAS construct/initialize/run)."""
 
-    def __init__(self, dec: Decomposition, device=None):
+    def __init__(self, dec: Decomposition, device=None,
+                 num_ranks: Optional[int] = None):
         self.device = resolve_device(device)
         self.dec = dec
         self.settings = dec.settings
         self.meta = dec.meta
+        S = self.meta.num_subdomains
+        D = S if num_ranks is None else int(num_ranks)
+        if D < 1 or S % D != 0:
+            raise ValueError(
+                f"num_subdomains {S} must be divisible by mesh size {D}")
+        self.num_ranks = D
+        self.Sl = S // D
         self._check_supported()
         s = self.settings
+        # status words of K4 launches not yet checked (read at the outer
+        # iteration's one host sync)
+        self._pending_shifts: list = []
         self._lc_dtype = None
         if (s.local_compute_dtype is not None
                 and s.local_compute_dtype != s.dtype):
@@ -140,6 +160,21 @@ class RASolver:
         """Fail loudly on every setting this slice does not port (and on
         the JAX package's own invalid combinations)."""
         s = self.settings
+        if s.two_level and (
+            s.comm.overlap_comm or (s.comm.onesided and s.comm.staleness > 1)
+        ):
+            raise ValueError(
+                "two_level requires fresh halos each iteration; it cannot be "
+                "combined with enable_overlap / staleness > 1 (the coarse "
+                "correction computed from a stale residual diverges)"
+            )
+        if s.comm.overlap_comm and s.comm.onesided and s.comm.staleness > 1:
+            raise ValueError(
+                "enable_overlap is the one-iteration-stale halo pipeline; "
+                "with onesided staleness > 1 the staleness emulation owns "
+                "the halo age and the overlap flag would be silently inert "
+                "— drop enable_overlap (staleness >= 1 already subsumes it)"
+            )
         if s.shifted_iter:
             raise NotImplementedFeature(
                 "shifted_iter (settings.hpp:212) is read nowhere in the "
@@ -179,16 +214,7 @@ class RASolver:
                 s.precond not in (Precond.none, Precond.jacobi),
             f"accelerator={s.accelerator!r}": s.accelerator != "none",
             "free_running": s.free_running,
-            f"halo strategy {s.comm.strategy.value!r}":
-                s.comm.strategy != HaloStrategy.all_gather,
-            "comm.overlap_comm": s.comm.overlap_comm,
             "comm.overlap_split": s.comm.overlap_split,
-            "onesided staleness > 1": s.comm.onesided and s.comm.staleness > 1,
-            "a halo dtype other than the value dtype": (
-                s.halo_dtype is not None and s.halo_dtype != s.dtype),
-            f"convergence method {s.convergence.method.value!r}":
-                s.convergence.method not in (GlobalConvergence.allgather,
-                                             GlobalConvergence.allreduce),
             "write_debug_out": s.write_debug_out,
             "inner_operator='dia_only'": s.inner_operator == "dia_only",
         }
@@ -278,15 +304,50 @@ class RASolver:
         src, dst, lens = flat_run_tables(rp, dec.halo_src_halo,
                                          dec.halo_slots, R_ext, S * R_int)
         arrays.update(runs_src=src, runs_dst=dst, runs_len=lens)
+        # packed per-rank-pair tables of the neighbour strategies; every
+        # rank lives on this host, so every round is intra-host
+        self._neighbor_plan = None
+        if s.comm.strategy in (HaloStrategy.neighbor, HaloStrategy.rdma):
+            nx = build_neighbor_plan(dec, self.num_ranks,
+                                     process_of=[0] * self.num_ranks)
+            self._neighbor_plan = nx
+            arrays.update(
+                halo_slots=dec.halo_slots.astype(np.int64),
+                nx_local_src=nx.local_src.astype(np.int64),
+                nx_is_local=nx.is_local,
+                nx_recv_round=nx.recv_round.astype(np.int64),
+                nx_recv_pos=nx.recv_pos.astype(np.int64))
+            for k, tbl in enumerate(nx.send_idx):
+                arrays[f"nx_send_{k}"] = tbl.astype(np.int64)
         return plan_from_numpy(arrays, self.device)
 
     # ------------------------------------------------------------- the stages --
     def _exchange(self, x_own: torch.Tensor) -> torch.Tensor:
+        """Halo exchange (strategy dispatch): x_ext from the interiors."""
         plan = self._plan
+        s = self.settings
+        halo_dtype = (s.halo_value_dtype
+                      if s.halo_value_dtype != s.value_dtype else None)
+        nx = self._neighbor_plan
+        if nx is not None:
+            return exchange_halo_neighbor(
+                x_own.contiguous(), plan["interior_off"], plan["halo_slots"],
+                plan["nx_local_src"], plan["nx_is_local"],
+                plan["nx_recv_round"], plan["nx_recv_pos"],
+                [plan[f"nx_send_{k}"] for k in range(len(nx.offsets))],
+                nx.offsets, nx.n_devices, nx.max_h, self.meta.max_ext,
+                halo_dtype=halo_dtype,
+                transport=("rdma" if s.comm.strategy == HaloStrategy.rdma
+                           else "ppermute"),
+                rdma_mode="put" if s.comm.enable_put else "get",
+                rdma_one_by_one=s.comm.enable_one_by_one,
+                rdma_flush_local=s.comm.flush_type == "flush-local",
+                pending=self._pending_shifts,
+            )
         return exchange_halo_allgather(
             x_own.contiguous(), plan["interior_off"],
             (plan["runs_src"], plan["runs_dst"], plan["runs_len"]),
-            self.meta.max_ext)
+            self.meta.max_ext, halo_dtype=halo_dtype)
 
     def _apply_local(self, inner: bool = False):
         """y = A_local @ x for the whole batch: DIA (K1) + remainder when
@@ -363,7 +424,17 @@ class RASolver:
         )
         x_own = st["x_own"]
         # --- exchange_boundary -------------------------------------------
-        x_ext = self._exchange(x_own)
+        # stale-halo modes: enable_overlap computes with last iteration's
+        # halo and carries the fresh one (restricted_schwarz.cpp:855-973);
+        # onesided staleness > 1 refreshes the halo every stale_period
+        # iterations, the asynchronous algorithm's aged neighbour data
+        stale_period = max(1, s.comm.staleness) if s.comm.onesided else 1
+        if s.comm.overlap_comm and stale_period == 1:
+            x_ext, x_ext_carry = st["x_ext"], self._exchange(x_own)
+        elif stale_period > 1 and it % stale_period != 0:
+            x_ext = x_ext_carry = st["x_ext"]
+        else:
+            x_ext = x_ext_carry = self._exchange(x_own)
         # --- update_boundary: rhs_eff = b_loc - A_interface x_ext --------
         rhs_eff = self._interface_update(x_ext)
         # --- local residual (solve.cpp:795-856) --------------------------
@@ -380,6 +451,10 @@ class RASolver:
         nconv_h, div_h = torch.stack(
             (nconv.to(torch.float64), diverged.to(torch.float64))).tolist()
         nconv_h, div_h = int(nconv_h), bool(div_h)
+        if self._pending_shifts:
+            # the card is idle here: raise now if a K4 wait timed out
+            shifts, self._pending_shifts[:] = list(self._pending_shifts), []
+            rdma_shift_finish(shifts)
         if s.tolerance <= 0.0:
             nconv_h = 0
         elif s.convergence.enable_global_check_iter_offset:
@@ -410,7 +485,8 @@ class RASolver:
                                     device=self.device)
         st["hist_inner"][it] = inner
         st["hist_inner_rel"][it] = inner_rel
-        st.update(x_own=x_own, z=z, local_rn0=rn0, conv=conv_state,
+        st.update(x_own=x_own, x_ext=x_ext_carry, z=z, local_rn0=rn0,
+                  conv=conv_state,
                   nconv=nconv_h, grn=grn, diverged=div_h, it=it + 1)
         return st
 
@@ -431,6 +507,7 @@ class RASolver:
                                       device=dev).clone())
         return {
             "x_own": x_own,
+            "x_ext": zeros(S, meta.max_ext),
             "z": zeros(S, meta.max_rows),
             "local_rn0": -torch.ones(S, dtype=dtype, device=dev),
             "conv": init_conv_state(S, dtype, dev),
@@ -444,6 +521,13 @@ class RASolver:
             "hist_inner": zeros(n_hist, S, dt=torch.int32),
             "hist_inner_rel": zeros(n_hist, S),
         }
+
+    def neighbor_locality(self) -> np.ndarray:
+        """(S, S) bool: True where the two subdomains' ranks share a host
+        (the reference's check_subd_locality, utils.cpp:52-66).  Every rank
+        of this solver lives on one card, so all of it is True."""
+        S = self.meta.num_subdomains
+        return np.ones((S, S), dtype=bool)
 
     def run(self, x0: Optional[np.ndarray] = None,
             chunk_iters: Optional[int] = None) -> RASResult:
@@ -651,12 +735,12 @@ def make_free_running_solver(mat, rhs, num_subdomains, settings,
 
 
 def _solve_free_running(mat, rhs, settings, S, partition_indices,
-                        device) -> RASResult:
+                        num_ranks, device) -> RASResult:
     """The free-running branch of :func:`solve` (``schwarz_tpu/ras.py:
     2532-2558``): the RASResult carries no histories."""
     fr, refine = make_free_running_solver(
         mat, rhs, S, settings, partition_indices=partition_indices,
-        device=device)
+        num_ranks=num_ranks, device=device)
     if refine:
         x, info = fr.run_refined(
             tol=settings.tolerance, max_rounds=settings.max_iters,
@@ -687,6 +771,7 @@ def solve(
     device=None,
     partition_indices: Optional[np.ndarray] = None,
     cell_weights: Optional[np.ndarray] = None,
+    num_ranks: Optional[int] = None,
 ) -> RASResult:
     """One-call API: decompose + setup + run (cf. bench_ras.cpp:161-180).
 
@@ -694,7 +779,9 @@ def solve(
     scipy-sparse-convertible matrix.  Runs on CUDA unless ``device`` names
     another device; raises when there is no GPU and no device is given.
     ``settings.free_running`` takes the free-running asynchronous path
-    (:func:`make_free_running_solver`).
+    (:func:`make_free_running_solver`).  ``num_ranks`` stands where the JAX
+    package takes a device mesh: the ranks the subdomains are dealt to, one
+    per subdomain by default; it must divide ``num_subdomains``.
     """
     from schwarz_tpu_torch.core.decompose import decompose
     from schwarz_tpu_torch.models import CSRMatrix
@@ -704,9 +791,9 @@ def solve(
         mat = CSRMatrix.from_scipy(mat)
     if settings.free_running:
         return _solve_free_running(mat, rhs, settings, num_subdomains or 1,
-                                   partition_indices, device)
+                                   partition_indices, num_ranks, device)
     dec = decompose(
         mat, rhs, settings, num_subdomains or 1, partition_indices,
         cell_weights=cell_weights,
     )
-    return RASolver(dec, device=device).run()
+    return RASolver(dec, device=device, num_ranks=num_ranks).run()

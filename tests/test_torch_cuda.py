@@ -11,6 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from schwarz_tpu_torch import (CommSettings, ConvergenceSettings,
+                               GlobalConvergence, HaloStrategy, Partition,
+                               Settings, solve)
 from schwarz_tpu_torch import diagnostics as dg
 from schwarz_tpu_torch.core.partition import partition_metis
 from schwarz_tpu_torch.models import (advection_diffusion_2d,
@@ -29,6 +32,8 @@ from schwarz_tpu_torch.ops.async_ras_kernel import (async_ras_rounds,
 from schwarz_tpu_torch.ops.dia_kernel import dia_spmv, dia_spmv_plain
 from schwarz_tpu_torch.ops.fused_cg import fused_cg_solve, fused_cg_solve_plain
 from schwarz_tpu_torch.ops.halo_kernel import assemble_runs, assemble_runs_plain
+from schwarz_tpu_torch.ops.rdma_kernel import (rdma_cyclic_shift,
+                                               rdma_cyclic_shift_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -323,3 +328,74 @@ def test_async_general_refuses_what_it_cannot_take(dev):
         s.launch(state[0].double(), *state[1:])
     with pytest.raises(ValueError, match="shapes"):
         s.launch(state[0], state[1][:, :64].contiguous(), *state[2:])
+
+
+# K4's five one-sided variants: mode, one by one, flush-local
+_SHIFT_VARIANTS = [("put", False, False), ("get", False, False),
+                   ("put", True, False), ("put", True, True),
+                   ("get", True, True)]
+
+
+@pytest.mark.parametrize("mode,one_by_one,flush_local", _SHIFT_VARIANTS)
+@pytest.mark.parametrize("D,H,offset,dtype", [
+    (16, 3072, 1, torch.float32),      # the slice's rounds
+    (16, 3072, 15, torch.float64),
+    (2, 7, 1, torch.float64),          # source and target are one rank
+    (64, 333, 9, torch.float32),
+    (5, 1, 3, torch.bfloat16),
+    (132, 40, 131, torch.float16),     # a rank on every SM
+])
+def test_rdma_shift_matches_plain(dev, mode, one_by_one, flush_local, D, H,
+                                  offset, dtype):
+    rng = np.random.default_rng(D + H)
+    buf = torch.tensor(rng.standard_normal((D, H)), device=dev).to(dtype)
+    for _ in range(3):                 # fresh counters on every launch
+        n0 = rdma_cyclic_shift.launches
+        out, counts = rdma_cyclic_shift(buf, offset, mode, one_by_one,
+                                        flush_local)
+        torch.cuda.synchronize()
+        assert rdma_cyclic_shift.launches == n0 + 1
+        ref, ref_counts = rdma_cyclic_shift_plain(buf, offset, mode,
+                                                  one_by_one, flush_local)
+        assert torch.equal(out.view(torch.uint8), ref.view(torch.uint8))
+        assert torch.equal(counts, ref_counts)
+
+
+def test_rdma_shift_refuses_what_it_cannot_take(dev):
+    buf = torch.zeros((4, 8), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        rdma_cyclic_shift(buf.t().contiguous().t(), 1)
+    with pytest.raises(TypeError, match="bytes"):
+        rdma_cyclic_shift(buf.to(torch.int8), 1)
+    with pytest.raises(RuntimeError, match="co-resident"):
+        rdma_cyclic_shift(torch.zeros((100000, 1), device=dev), 1)
+
+
+@pytest.mark.parametrize("comm,kw", [
+    (dict(strategy=HaloStrategy.rdma, enable_put=True, enable_get=False),
+     dict(partition=Partition.regular2d)),
+    (dict(strategy=HaloStrategy.rdma, enable_one_by_one=True,
+          flush_type="flush-local"), dict(partition=Partition.metis)),
+    (dict(strategy=HaloStrategy.neighbor, overlap_comm=True),
+     dict(partition=Partition.regular2d)),
+    (dict(strategy=HaloStrategy.rdma, onesided=True, staleness=3),
+     dict(partition=Partition.regular2d, halo_dtype="float32",
+          tolerance=1e-4)),
+    (dict(strategy=HaloStrategy.rdma), dict(convergence=ConvergenceSettings(
+        method=GlobalConvergence.tree))),
+    (dict(strategy=HaloStrategy.rdma), dict(convergence=ConvergenceSettings(
+        method=GlobalConvergence.decentralized))),
+])
+def test_rdma_solve_on_card_like_cpu(dev, comm, kw):
+    A = laplacian_2d(32)
+    b = generate_rhs(A.n)
+    s = Settings(**{**dict(overlap=2, tolerance=1e-6, max_iters=400,
+                           comm=CommSettings(**comm)), **kw})
+    n0 = rdma_cyclic_shift.launches
+    r_c = solve(A, b, s, 16, device=dev, num_ranks=4)
+    r_h = solve(A, b, s, 16, device="cpu", num_ranks=4)
+    if comm["strategy"] == HaloStrategy.rdma:
+        assert rdma_cyclic_shift.launches > n0
+    assert r_c.converged and r_c.iters == r_h.iters
+    np.testing.assert_allclose(r_c.global_resnorm_history,
+                               r_h.global_resnorm_history, rtol=1e-8)
