@@ -19,7 +19,8 @@
    requires them to match within rtol 1e-8;
 7. holds K8 (x * 2), K9 (the flag-order probe, 10^4 rounds) and K5 (the
    free-running rounds, one 16-round launch at the shapes of the 1M-row
-   free-running slice) to their plain versions, timed like phase 3;
+   free-running slice) to their plain versions, timed like phase 3; K5 at
+   the cluster size its wrapper chooses and at one block per rank;
 8. runs the diagnostics path (``python -m schwarz_tpu_torch.diagnostics
    smoke flagorder``) with K8 and K9 counted;
 9. runs the free-running slice: ``solve`` on ``laplacian_3d(100)`` (10^6
@@ -55,15 +56,20 @@
    the card and on the CPU: equal ``done_at`` and solution, true residual
    < 5e-3; then ``run_refined`` to 1e-8 on a 64^2 Laplacian, metis, 8
    ranks, and ``ani4_crop.mtx``, metis, 8 ranks, in band;
-17. holds K4 (the one-sided cyclic shift of packed halo buffers) to its
-   plain version, data bit for bit and counters equal, in its five variants
-   (put, get, put one by one with flush-all and flush-local, get one by one
-   with flush-local) at the shapes of the synchronous slice's rounds (16
-   ranks, 3072 elements, float32 and float64), then with 2 and 64 ranks and
-   a ragged small buffer; timed like phase 3 beside ``torch.roll``;
+17. holds K4 (the one-sided neighbour exchange) to its plain version in
+   its five variants (put, get, put one by one with flush-all and
+   flush-local, get one by one with flush-local): first its one-round case,
+   the cyclic shift of a whole buffer (16 ranks, 3072 elements, float32 and
+   float64, then 2 and 64 ranks and a ragged small buffer; data bit for
+   bit, counters equal), then one whole exchange of the rdma slice (its 2
+   rounds of 16 x 3072, pack and unpack in the launch; float32 and
+   bfloat16 halos; halo values bit for bit, per-round counts equal); the
+   exchange timed like phase 3 beside two ``torch.roll``, the ``ppermute``
+   transport's exchange and the first version's path (two one-round
+   launches between the torch pack and unpack);
 18. runs the synchronous slice of phase 4 with the strategy switched to
    ``rdma`` (put mode, 16 ranks), 30 outer iterations, twice (cold, warm):
-   K4 must launch once per round and outer iteration, K1 and K3 must
+   K4 must launch once per exchange (outer iteration), K1 and K3 must
    launch, K2 must stay at 0, and the global residual history must equal
    phase 4's bit for bit;
 19. runs converging solves on a second partition, ``laplacian_2d(32)``,
@@ -73,7 +79,8 @@
    ``all_gather`` run's count), then ``overlap_comm``, onesided staleness
    3, ``halo_dtype='float32'`` (tolerance 1e-4), and the ``tree``,
    ``decentralized`` and accumulate convergence protocols, each with equal
-   counts on card and CPU and no fewer iterations than the plain run;
+   counts on card and CPU and no fewer iterations than the plain run, and
+   ``halo_dtype='bfloat16'`` (tolerance 0.25, histories within rtol 1e-2);
 20. prints one JSON line describing the kernels, then the fixed last line
    ``{"ok": true, "device": {...}}``.
 
@@ -281,8 +288,13 @@ def async_kernel_checks(sm: Smoke, solver) -> None:
     import torch
 
     from schwarz_tpu_torch import diagnostics as dg
+    from schwarz_tpu_torch.ops import cuda_build
     from schwarz_tpu_torch.ops.async_ras_kernel import (
         async_ras_rounds, async_ras_rounds_plain)
+
+    def fits(c):
+        return cuda_build.library("async_ras").async_ras_max_clusters(
+            len(solver.plan.offsets), c)
 
     # --- K8: x * 2 -----------------------------------------------------------
     x = torch.randn((256, 256), device="cuda",
@@ -322,27 +334,52 @@ def async_kernel_checks(sm: Smoke, solver) -> None:
     kw = dict(offsets=p.offsets, total=p.total, hw=p.hw,
               rounds=solver.chunk_rounds, staleness=solver.staleness,
               ninner=solver.ninner, tol=solver.tolerance)
-    got = async_ras_rounds(*args, **kw)
-    torch.cuda.synchronize()
     ref = async_ras_rounds_plain(*args, **kw)
-    err = float((got[0] - ref[0]).abs().max())
     tol = 1e-4 * float(ref[0].abs().max())
-    same = (torch.equal(got[1], ref[1]) and torch.equal(got[2][:, :3],
-                                                        ref[2][:, :3]))
-    sm.check(err <= tol and same,
-             f"K5 async_ras_rounds, {solver.chunk_rounds} rounds at the "
-             f"slice's shapes: max abs err {err:.3e} <= {tol:.3e} (float64 "
-             f"sums of the same float32 products: equal up to ties), known "
-             f"bits and done_at equal: {same}")
+    # at the cluster size the wrapper chooses, then at one block per rank
+    # (the first version's layout), each against the plain version
+    errs = {}
+    for force in (None, 1):
+        got = async_ras_rounds(*args, **kw, cluster=force)
+        torch.cuda.synchronize()
+        C = async_ras_rounds.cluster
+        err = float((got[0] - ref[0]).abs().max())
+        same = (torch.equal(got[1], ref[1]) and torch.equal(got[2][:, :3],
+                                                            ref[2][:, :3]))
+        errs[C] = err
+        sm.check(err <= tol and same,
+                 f"K5 async_ras_rounds, {solver.chunk_rounds} rounds at the "
+                 f"slice's shapes, {C} blocks per rank"
+                 f"{' (chosen)' if force is None else ''}: max abs err "
+                 f"{err:.3e} <= {tol:.3e} (float64 sums of the same float32 "
+                 f"products: equal up to ties), known bits and done_at "
+                 f"equal: {same}")
+        if force is None:
+            chosen = C
     K, L = d["dia"].shape[1], d["dia"].shape[2]
     rows = D * L
     n_bytes = 4 * (rows * (K + 4) + 2 * p.S * p.R)
     n_ops = solver.chunk_rounds * solver.ninner * (2 * K + 13) * rows
     bound, by = _bound_ms(n_bytes, n_ops, "float32")
+    ms1 = sm.ms(lambda: async_ras_rounds(*args, **kw, cluster=1), 3)
+    for c in (2, 4, 8):
+        if c != chosen and fits(c) >= D:
+            t = sm.ms(lambda: async_ras_rounds(*args, **kw, cluster=c), 3)
+            print(f"K5 at {c} blocks per rank: {t:.4f} ms per launch",
+                  flush=True)
     sm.kernels["async_ras"] = dict(
-        max_abs_err=err, ms=sm.ms(lambda: async_ras_rounds(*args, **kw), 3),
+        max_abs_err=errs[chosen], cluster=chosen,
+        ms=sm.ms(lambda: async_ras_rounds(*args, **kw), 3),
         plain_ms=sm.ms(lambda: async_ras_rounds_plain(*args, **kw), 1),
         bound_ms=bound, bound_by=by, library_ms=None)
+    ms1b = sm.ms(lambda: async_ras_rounds(*args, **kw, cluster=1), 3)
+    sm.kernels["async_ras"]["ms_one_block"] = (ms1 + ms1b) / 2
+    print(f"K5 per {solver.chunk_rounds}-round launch: "
+          f"{sm.kernels['async_ras']['ms']:.4f} ms at {chosen} blocks per "
+          f"rank ({chosen * D} of the card's SMs), {ms1:.4f} / {ms1b:.4f} ms "
+          f"at 1 block per rank (before / after); clusters the card holds "
+          f"at 8, 4, 2, 1 blocks: {[fits(c) for c in (8, 4, 2, 1)]}",
+          flush=True)
     for k in ("smoke_x2", "flag_order_probe", "async_ras"):
         v = sm.kernels[k]
         print(f"{k}: ms={v['ms']:.4f} plain_ms={v['plain_ms']:.4f} "
@@ -392,6 +429,7 @@ def free_running_phases(sm: Smoke) -> None:
     from schwarz_tpu_torch import CommSettings, Settings, diagnostics
     from schwarz_tpu_torch.models import laplacian_2d, laplacian_3d
     from schwarz_tpu_torch.ops.async_ras import AsyncRASolver
+    from schwarz_tpu_torch.ops.async_ras_kernel import async_ras_rounds
     from schwarz_tpu_torch.ras import make_free_running_solver, solve
 
     t0 = time.perf_counter()
@@ -427,7 +465,8 @@ def free_running_phases(sm: Smoke) -> None:
         wall = time.perf_counter() - t0
         n_rounds = launches["async_ras"] * solver.chunk_rounds
         print(f"free-running slice ({tag}): {n_rounds} rounds in "
-              f"{launches['async_ras']} launches, run loop "
+              f"{launches['async_ras']} launches of "
+              f"{async_ras_rounds.cluster} blocks per rank, run loop "
               f"{res.solve_time_s:.4f} s = "
               f"{1e3 * res.solve_time_s / max(n_rounds, 1):.3f} ms/round, "
               f"solve() wall with setup {wall:.2f} s, converged="
@@ -461,7 +500,8 @@ def free_running_phases(sm: Smoke) -> None:
     x_c, i_c = AsyncRASolver(A2, b2, 8, **kw).run(max_rounds=800)
     x_h, i_h = AsyncRASolver(A2, b2, 8, device="cpu", **kw).run(
         max_rounds=800)
-    print(f"64^2 free-running, 8 ranks: card done_at {i_c['done_at'].tolist()} "
+    print(f"64^2 free-running, 8 ranks of {async_ras_rounds.cluster} blocks: "
+          f"card done_at {i_c['done_at'].tolist()} "
           f"in {i_c['rounds']} rounds, {i_c['time_s']:.4f} s, true rel "
           f"{i_c['relative_residual_norm']:.6e}; CPU done_at "
           f"{i_h['done_at'].tolist()}, true rel "
@@ -843,24 +883,21 @@ def general_graph_phases(sm: Smoke) -> None:
              "refined solve needs the coarse space)")
 
 
-def neighbor_exchange_phases(sm: Smoke, dec, settings, hist4,
-                             ms_per_it4: float) -> None:
-    """Phases 17-19: K4 against its plain version, the synchronous slice
-    through the one-sided strategy, and converging solves on a 2-D
-    partition with the stale-halo modes and the convergence protocols."""
-    import numpy as np
+def exchange_kernel_checks(sm: Smoke, dec) -> None:
+    """Phase 17: K4 against its plain version, as one shift and as one whole
+    exchange of the rdma slice (``dec`` on 16 ranks), and timed."""
     import torch
 
-    from schwarz_tpu_torch import (CommSettings, ConvergenceSettings,
-                                   GlobalConvergence, HaloStrategy,
-                                   Partition, RASolver, Settings)
-    from schwarz_tpu_torch.models import generate_rhs, laplacian_2d
-    from schwarz_tpu_torch.ops.rdma_kernel import (rdma_cyclic_shift,
+    from schwarz_tpu_torch.ops.rdma_kernel import (exchange_rounds_plain,
+                                                   rdma_cyclic_shift,
                                                    rdma_cyclic_shift_plain,
+                                                   rdma_exchange,
+                                                   rdma_exchange_launch,
+                                                   rdma_exchange_plain,
                                                    rdma_shift_launch)
-    from schwarz_tpu_torch.ras import solve
+    from schwarz_tpu_torch.parallel.neighbor_exchange import (
+        build_neighbor_plan, exchange_rounds)
 
-    # --- 17. K4 against its plain version ------------------------------------
     variants = (("put", False, False), ("get", False, False),
                 ("put", True, False), ("put", True, True),
                 ("get", True, True))
@@ -888,29 +925,104 @@ def neighbor_exchange_phases(sm: Smoke, dec, settings, hist4,
                      f"bit (max abs err {err}), signals received "
                      f"{counts[0, 0].item()}, requests served "
                      f"{counts[0, 1].item()}, equal to the plain version's")
-    D, H = 16, 3072
-    buf = torch.randn((D, H), generator=gen, device="cuda")
-    bound, by = _bound_ms(2 * D * H * 4, 0, "float32")
+    # the fused exchange of the rdma slice: 2 rounds of 16 x 3072 float32,
+    # pack and unpack in the launch, on the slice's own tables
+    D = 16
+    nx = build_neighbor_plan(dec, D)
+    rounds = exchange_rounds(nx, "cuda")
+    x = torch.randn((dec.meta.num_subdomains, dec.meta.max_interior),
+                    generator=gen, device="cuda")
+    widths = [t.shape[1] for t in nx.send_idx]
+    for halo_dtype in (None, torch.bfloat16):
+        for mode, one_by_one, flush_local in variants:
+            halo, counts = rdma_exchange(x, rounds, halo_dtype, mode,
+                                         one_by_one, flush_local)
+            torch.cuda.synchronize()
+            ref, ref_counts = rdma_exchange_plain(x, rounds, halo_dtype, mode,
+                                                  one_by_one, flush_local)
+            err = float((halo - ref).abs().max())
+            worst = max(worst, err)
+            sm.check(bool(torch.equal(halo, ref))
+                     and bool(torch.equal(counts, ref_counts)),
+                     f"K4 rdma_exchange, the rdma slice's {len(widths)} "
+                     f"rounds of {widths} elements in one launch, halo "
+                     f"{str(halo_dtype or x.dtype).split('.')[-1]}, {mode}"
+                     f"{' one-by-one' if one_by_one else ''}"
+                     f"{' flush-local' if flush_local else ''}: halo values "
+                     f"bit for bit (max abs err {err}), per-round counts "
+                     f"{counts[:, 0].tolist()} equal to the plain version's")
+    # bytes the fused launch must move: the packed values read from x_own
+    # with their send indices, each window element written and read, the
+    # unpack table read, the own-block values read and halo_vals written
+    n_pack = D * sum(widths)
+    n_slots = rounds.is_local.numel()
+    n_local = int(rounds.is_local.sum())
+    bound, by = _bound_ms(n_pack * (4 + 4 + 2 * 4) + n_slots * (4 + 4)
+                          + n_local * 4, 0, "float32")
+
+    def one_round_path():
+        # the first version: the torch pack, one K4 launch per round, the
+        # torch unpack
+        return exchange_rounds_plain(
+            x, rounds, None, lambda b, r: rdma_shift_launch(b, r)[0])
+
+    def rolls():
+        return [torch.roll(b, r, 0) for b, r in zip(bufs, nx.offsets)]
+
+    bufs = [torch.randn((D, w), generator=gen, device="cuda") for w in widths]
+    roll = lambda b, r: torch.roll(b, r, 0)  # noqa: E731
+    t_old = sm.ms(one_round_path, 50)
     sm.kernels["rdma_shift"] = dict(
-        max_abs_err=worst,
-        ms=sm.ms(lambda: rdma_shift_launch(buf, 1, "put"), 50),
-        plain_ms=sm.ms(lambda: rdma_cyclic_shift_plain(buf, 1, "put"), 50),
-        bound_ms=bound, bound_by=by,
-        library_ms=sm.ms(lambda: torch.roll(buf, 1, 0), 50))
+        max_abs_err=worst, rounds_per_launch=len(widths),
+        ms=sm.ms(lambda: rdma_exchange_launch(x, rounds), 50),
+        plain_ms=sm.ms(lambda: rdma_exchange_plain(x, rounds), 50),
+        bound_ms=bound, bound_by=by, library_ms=sm.ms(rolls, 50))
+    t_pp = sm.ms(lambda: exchange_rounds_plain(x, rounds, None, roll), 50)
+    t_old2 = sm.ms(one_round_path, 50)
     v = sm.kernels["rdma_shift"]
-    print(f"rdma_shift (put, gathered, D={D}, H={H}, float32): "
-          f"ms={v['ms']:.4f} plain_ms={v['plain_ms']:.4f} "
-          f"bound_ms={v['bound_ms']:.6f} ({v['bound_by']}) "
-          f"library_ms={v['library_ms']:.4f} (torch.roll)", flush=True)
+    print(f"rdma_exchange (put, {len(widths)} rounds of D={D} x {widths} "
+          f"float32 with pack and unpack, one launch): ms={v['ms']:.4f} "
+          f"plain_ms={v['plain_ms']:.4f} bound_ms={v['bound_ms']:.6f} "
+          f"({v['bound_by']}) library_ms={v['library_ms']:.4f} "
+          f"({len(widths)} x torch.roll); the ppermute transport's whole "
+          f"exchange {t_pp:.4f}; the first version's path (torch pack, "
+          f"{len(widths)} one-round launches, torch unpack) {t_old:.4f} / "
+          f"{t_old2:.4f} (before / after)", flush=True)
     for mode, one_by_one, flush_local in variants[1:]:
-        t = sm.ms(lambda: rdma_shift_launch(buf, 1, mode, one_by_one,
-                                            flush_local), 20)
+        t = sm.ms(lambda: rdma_exchange_launch(x, rounds, None, mode,
+                                               one_by_one, flush_local), 20)
         print(f"  variant {mode}{' one-by-one' if one_by_one else ''}"
               f"{' flush-local' if flush_local else ''}: {t:.4f} ms",
               flush=True)
-    t = sm.ms(lambda: rdma_cyclic_shift(buf, 1, "put"), 20)
-    print(f"  with the wrapper's wait for the watchdog word (one host "
-          f"sync): {t:.4f} ms", flush=True)
+    t = sm.ms(lambda: rdma_exchange(x, rounds), 20)
+    print(f"  with the wrapper's wait for the error word (one host sync): "
+          f"{t:.4f} ms", flush=True)
+    # what a launch and a handoff cost with nothing to move: one round of
+    # one element a rank, beside a one-element PyTorch op (the timing's own
+    # floor: one launch between two events)
+    one = torch.zeros((D, 1), device="cuda")
+    t_handoff = sm.ms(lambda: rdma_shift_launch(one, 1), 50)
+    t_launch = sm.ms(lambda: one.add_(1), 50)
+    print(f"  floors: one K4 launch with one handoff and one element a rank "
+          f"{t_handoff:.4f} ms; one one-element torch op {t_launch:.4f} ms",
+          flush=True)
+
+
+def neighbor_exchange_phases(sm: Smoke, dec, settings, hist4,
+                             ms_per_it4: float) -> None:
+    """Phases 17-19: K4 against its plain version, the synchronous slice
+    through the one-sided strategy, and converging solves on a 2-D
+    partition with the stale-halo modes and the convergence protocols."""
+    import numpy as np
+
+    from schwarz_tpu_torch import (CommSettings, ConvergenceSettings,
+                                   GlobalConvergence, HaloStrategy,
+                                   Partition, RASolver, Settings)
+    from schwarz_tpu_torch.models import generate_rhs, laplacian_2d
+    from schwarz_tpu_torch.ras import solve
+
+    # --- 17. K4 against its plain version ------------------------------------
+    exchange_kernel_checks(sm, dec)
 
     # --- 18. the synchronous slice through the one-sided strategy ------------
     s18 = settings.replace(comm=CommSettings(
@@ -927,10 +1039,10 @@ def neighbor_exchange_phases(sm: Smoke, dec, settings, hist4,
               f"ms/iteration (all_gather, phase 4: {ms_per_it4:.2f}), "
               f"launches {launches}", flush=True)
         if tag == "cold":
-            want = len(nx.offsets) * n_it
-            sm.check(launches["rdma_shift"] == want and want > 0,
-                     f"rdma_shift launched {launches['rdma_shift']} times = "
-                     f"{len(nx.offsets)} rounds x {n_it} iterations")
+            sm.check(launches["rdma_shift"] == n_it > 0,
+                     f"rdma_shift launched {launches['rdma_shift']} times: "
+                     f"one launch for the {len(nx.offsets)} rounds of each "
+                     f"of the {n_it} exchanges")
             sm.check(launches["dia_spmv"] > 0 and launches["fused_cg"] > 0
                      and launches["halo_runs"] == 0,
                      "the rdma slice launched K1 and K3 and never K2")
@@ -939,7 +1051,7 @@ def neighbor_exchange_phases(sm: Smoke, dec, settings, hist4,
                      "rdma slice: global residual history equal to the "
                      "all_gather slice's bit for bit")
     k4_ms = sm.kernels["rdma_shift"]["ms"]
-    print(f"where the time goes (warm): K4 {k4_ms:.4f} ms per launch "
+    print(f"where the time goes (warm): K4 {k4_ms:.4f} ms per exchange "
           f"(events, phase 17) x {launches['rdma_shift']} launches = "
           f"{k4_ms * launches['rdma_shift']:.3f} ms of a "
           f"{1e3 * res.solve_time_s:.3f} ms run loop", flush=True)
@@ -949,7 +1061,7 @@ def neighbor_exchange_phases(sm: Smoke, dec, settings, hist4,
     A = laplacian_2d(32)
     b = generate_rhs(A.n, random=False)
 
-    def both(what, comm=None, **kw):
+    def both(what, comm=None, rtol=1e-8, **kw):
         s = Settings(partition=Partition.regular2d, overlap=2,
                      max_iters=1500, comm=CommSettings(**(comm or {})),
                      **{"tolerance": 1e-6, **kw})
@@ -968,9 +1080,9 @@ def neighbor_exchange_phases(sm: Smoke, dec, settings, hist4,
               f"{rel:.3e}, true relative residual "
               f"{r_c.relative_residual_norm:.3e}, K4 launches "
               f"{launches['rdma_shift']}", flush=True)
-        sm.check(r_c.converged and same and rel <= 1e-8,
+        sm.check(r_c.converged and same and rel <= rtol,
                  f"{what}: converges on the card in the CPU run's "
-                 f"{r_h.iters} iterations, histories within rtol 1e-8")
+                 f"{r_h.iters} iterations, histories within rtol {rtol:g}")
         return r_c, launches
 
     rdma_get = dict(strategy=HaloStrategy.rdma)
@@ -1003,6 +1115,12 @@ def neighbor_exchange_phases(sm: Smoke, dec, settings, hist4,
     # float32 halos stall the local detection ratio near 1e-6: tolerance 1e-4
     both("halo_dtype float32 under float64", comm=rdma_get,
          halo_dtype="float32", tolerance=1e-4)
+    # a 2-byte halo stalls the ratio near 0.15 (the CPU run's history); at
+    # 0.25 the CPU run stops after 35 iterations.  Card and CPU round the
+    # same halo values to bfloat16, but values that differ in their last
+    # float64 bits can round one bfloat16 step (2^-8) apart: rtol 1e-2
+    both("halo_dtype bfloat16 under float64", comm=rdma_get, rtol=1e-2,
+         halo_dtype="bfloat16", tolerance=0.25)
 
 
 def main() -> int:
@@ -1182,7 +1300,9 @@ def main() -> int:
             "launches": k["launches"], "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": k["library_ms"]})
+            "library_ms": k["library_ms"],
+            **{e: k[e] for e in ("cluster", "ms_one_block",
+                                 "rounds_per_launch") if e in k}})
     if sm.failures:
         print(f"chip_smoke: {len(sm.failures)} phase(s) failed: "
               + "; ".join(sm.failures), file=sys.stderr)

@@ -12,34 +12,50 @@
 // After T rounds it drains the outstanding messages into its known bits and
 // its halo carries.
 //
-// Layout.  One 1024-thread block per rank, launched cooperatively so that
-// all D ranks are resident at once: a rank spins on its neighbours, so a
-// rank that is not scheduled would deadlock the others.  A rank's Sl windows
-// are one contiguous vector of Sl*total floats; the shifted reads of the
-// DIA product wrap cyclically over it, as the TPU kernel's flat shifts do,
-// and every cross-window read meets a zero coefficient (hw >= ovp + bw).
-// Work vectors live in device memory (the wrapper allocates them).  Dot
-// products are block reductions of float32 products, summed in float64 and
-// rounded to float32, and this file is built with -fmad=false: the plain
+// Layout.  A rank is a cluster of C thread blocks of 1024 threads on C SMs
+// (C in {1, 2, 4, 8}, chosen by the wrapper), launched cooperatively with a
+// cluster dimension, so that all D ranks are resident at once: a rank spins
+// on its neighbours, so a rank that is not scheduled would deadlock the
+// others.  The card takes the cooperative attribute together with the
+// cluster dimension (checked on an H100 with CUDA 12.9), and the wrapper
+// checks cudaOccupancyMaxActiveClusters >= D before the launch.  A rank's Sl
+// windows are one contiguous vector of L = Sl*total floats; block c of the
+// cluster owns the contiguous rows [c L/C, (c+1) L/C) of every vector
+// (rounded to 32 rows, so that its reads stay coalesced).  The shifted
+// reads of the DIA product wrap cyclically over L, as the TPU kernel's flat
+// shifts do, and every cross-window read meets a zero coefficient
+// (hw >= ovp + bw); they reach into other blocks' rows, so the vectors a
+// product reads are read after a cluster barrier, with __ldcg (L1 is not
+// coherent across SMs).  Vectors read only pointwise (r, z, the products)
+// are touched by their owner block alone.  A block's loops are bound by the
+// latency of their loads, so each thread keeps the loads of four rows in
+// flight (for_rows in async_common.cuh).  Work vectors live in device
+// memory (the wrapper allocates them): the chunk of a rank of the slice
+// (122752 / C rows, five vectors) does not fit one SM's shared memory.
+// Dot products are float32 products summed in float64, per block and then
+// over the cluster in block order (ClusterTeam in async_common.cuh), and
+// rounded to float32; this file is built with -fmad=false.  The plain
 // PyTorch version does the same, so card and CPU agree bit for bit up to
-// rare ties, and convergence is detected at the same round on both (in
-// float32 sums, the 1e-4 threshold flipped a detection round between them).
-// The correction solve shares its step sizes across the rank's windows (one
-// polynomial per rank), as on the TPU.  A rank that is frozen skips its
-// correction solve: the TPU kernel computes it and discards it.
+// rare ties, and every block of a rank holds the same step sizes, known
+// bits and done_at.  The correction solve shares its step sizes across the
+// rank's windows (one polynomial per rank), as on the TPU.  A rank that is
+// frozen skips its correction solve: the TPU kernel computes it and
+// discards it.
 //
 // Messages.  Each (rank, direction) owns a ring of M = 2B+2 slots in device
 // memory: hw strip floats, the D known lanes, and a 64-bit sequence word
 // per slot.  Direction 0 carries the rank's first hw rows to its left
 // neighbour, direction 1 its last hw rows to its right neighbour; the ring
 // is cyclic (rank 0's left neighbour is rank D-1, and with D = 1 a rank is
-// its own neighbour).  Producer: all threads write the slot, __syncthreads,
-// then thread 0 fences and release-stores the sequence number t+1.
-// Consumer: thread 0 spins with acquire loads until the sequence number
-// arrives, __syncthreads, and the block reads the slot with __ldcg (L1 is
-// not coherent across SMs).  Once the block has read the slot, thread 0
-// adds one to the producer's ack counter with a release; a producer waits
-// for ack >= t-M+1 before it reuses a slot at round t >= M.
+// its own neighbour).  The protocol runs on the cluster's block 0 (the
+// leader): every block writes its share of the slot, a cluster barrier
+// orders them, then the leader's thread 0 fences and release-stores the
+// sequence number t+1.  Consumer: the leader's thread 0 spins with acquire
+// loads until the sequence number arrives, a cluster barrier follows, and
+// every block reads the slot with __ldcg.  Once every block has read the
+// slot (another cluster barrier), the leader adds one to the producer's ack
+// counter with a release; a producer waits for ack >= t-M+1 before it
+// reuses a slot at round t >= M.
 //
 // Launch boundaries: the sequence words, ack counters and the error word
 // are reset by a stream-ordered memset before every launch (the wrapper
@@ -50,22 +66,25 @@
 // the error word and leaves the loop, every other spin sees the error word
 // and leaves too, and the wrapper raises.
 //
-// fresh_read: thread 0 also peeks the sequence words of the B-1 newer slots
-// and takes the newest message that has fully arrived.  A slot cannot be
-// overwritten before its message is acknowledged at round u+B > t, so the
-// peek is safe.
+// fresh_read: the leader's thread 0 also peeks the sequence words of the
+// B-1 newer slots and takes the newest message that has fully arrived; the
+// other blocks read its choice through distributed shared memory.  A slot
+// cannot be overwritten before its message is acknowledged at round u+B > t,
+// so the peek is safe.
 //
 // Bound on the card: per launch, the bytes of dia, b, dinv, both masks and
 // x read once, against T * ninner * (2K+13) float32 operations per row;
-// at the 1M-row slice the operations bound it.  With one SM per rank (16 of
-// 132 at the slice) each rank streams its vectors several times per inner
-// iteration, so this first version is far from that bound by design.
+// at the 1M-row slice the operations bound it.  The first version ran a
+// rank on one SM (16 of 132 at the slice) and streamed each rank's vectors
+// through it several times per inner iteration; the cluster spreads a rank
+// over C SMs.  Each inner iteration still streams the rank's DIA
+// coefficients (55 MB over all ranks at the slice, more than the 50 MB L2).
 #include "async_common.cuh"
 #include "common.cuh"
 
 namespace {
 
-constexpr int kMaxGmres = 64;
+namespace cg = cooperative_groups;
 
 enum Solver { kCG = 0, kBiCGStab = 1, kGMRES = 2 };
 
@@ -92,13 +111,14 @@ struct Args {
   unsigned int* ack;        // (D, 2)
   int* err;
   int D, Sl, K, total, hw, R, T, B, M, ninner, solver, fresh, slot, nwork;
-  int L;
+  int L, C, chunk;
   Offsets offs;
   float tol2;
 };
 
 // Row q of the DIA product over the rank's folded vector, reads wrapping
-// cyclically: sum_k dia[k, q] * (scale ? dv * v : v)[(q + o_k) mod L].
+// cyclically: sum_k dia[k, q] * (scale ? dv * v : v)[(q + o_k) mod L].  The
+// reads of v reach other blocks' rows: __ldcg.
 template <int KC, bool kScale>
 __device__ __forceinline__ float dia_row_cyc(const float* __restrict__ dia,
                                              const float* v,
@@ -112,7 +132,8 @@ __device__ __forceinline__ float dia_row_cyc(const float* __restrict__ dia,
     int c = q + offs.v[k];
     if (c < 0) c += L;
     else if (c >= L) c -= L;
-    const float xv = kScale ? dv[c] * v[c] : v[c];
+    const float vc = __ldcg(v + c);
+    const float xv = kScale ? dv[c] * vc : vc;
     const float d = dia[(long long)k * L + q];
     acc = k == 0 ? d * xv : acc + d * xv;
   }
@@ -127,7 +148,10 @@ __device__ __forceinline__ float apply_solve(
     const float* __restrict__ md, const float* __restrict__ bo,
     const float* v, int q, int K, int L, const Offsets& offs) {
   float s = md[q] * dia_row_cyc<KC, kScale>(dia, v, dv, q, K, L, offs);
-  if (bo != nullptr) s += bo[q] * (kScale ? dv[q] * v[q] : v[q]);
+  if (bo != nullptr) {
+    const float vq = v[q];  // an own row
+    s += bo[q] * (kScale ? dv[q] * vq : vq);
+  }
   return s;
 }
 
@@ -135,16 +159,23 @@ template <int KC>
 __global__ void __launch_bounds__(kThreads, 1) async_ras_kernel(const Args a) {
   __shared__ float known[kLanes], fl_l[kLanes], fl_r[kLanes];
   __shared__ double red[4 * kWarps + 4];
-  __shared__ float H[(kMaxGmres + 1) * kMaxGmres];
-  __shared__ float g[kMaxGmres + 1], cs[kMaxGmres], sn[kMaxGmres],
-      yv[kMaxGmres];
+  __shared__ double part[2 * kMaxSum];
+  __shared__ GmresScratch gm;
   __shared__ int src_l, src_r;
 
+  cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x;
-  const int me = blockIdx.x;
+  const int crank = (int)cluster.block_rank();
+  const bool lead = crank == 0;   // the cluster's block 0 runs the protocol
+  const int me = blockIdx.x / a.C;
   const int D = a.D, L = a.L, hw = a.hw, R = a.R, total = a.total;
   const int Sl = a.Sl, T = a.T, B = a.B, M = a.M;
   const int SlR = Sl * R;
+  // this block's share of strided work over the whole rank
+  const int g0 = crank * kThreads + tid, gstep = a.C * kThreads;
+  ClusterTeam team{min(L, crank * a.chunk), min(L, (crank + 1) * a.chunk),
+                   part, 0};
+  const int q0 = team.q0 + tid, q1 = team.q1;
   const int left = (me + D - 1) % D, right = (me + 1) % D;
   const long long vb = (long long)me * L;
   const float* dia = a.dia + vb * a.K;
@@ -167,13 +198,13 @@ __global__ void __launch_bounds__(kThreads, 1) async_ras_kernel(const Args a) {
 
   for (int l = tid; l < kLanes; l += kThreads)
     known[l] = fmaxf(a.known_in[me * kLanes + l], l >= D ? 1.f : 0.f);
-  for (int i = tid; i < SlR; i += kThreads) x[i] = x_in[i];
+  for (int i = g0; i < SlR; i += gstep) x[i] = x_in[i];
   float rn0 = a.aux_in[me * kLanes + 0];
   float done_at = a.aux_in[me * kLanes + 1];
   const float base_t = a.aux_in[me * kLanes + 2];
-  float hits = fmaxf(a.aux_in[me * kLanes + 4], 0.f);  // thread 0's count
+  float hits = fmaxf(a.aux_in[me * kLanes + 4], 0.f);  // the leader's count
   float rn = 0.f;
-  __syncthreads();
+  cluster.sync();  // x is read across blocks from here on
 
   auto A_solve = [&](auto scaled, const float* v, int q) {
     return apply_solve<KC, decltype(scaled)::value>(dia, dv, md, bo, v, q, a.K,
@@ -184,27 +215,29 @@ __global__ void __launch_bounds__(kThreads, 1) async_ras_kernel(const Args a) {
     const int j = t % M;
     // ---- flow control: slot j is free once its last message was acked
     if (t >= M) {
-      if (tid == 0) {
+      if (lead && tid == 0) {
         const unsigned int want = t - M + 1;
         spin_until(ack(me, 0), want, a.err, kWaitAck) &&
             spin_until(ack(me, 1), want, a.err, kWaitAck);
       }
-      __syncthreads();
+      cluster.sync();
     }
     // ---- pack and publish the two edge strips with the known bits
     {
       float* s0 = slot(me, 0, j);
       float* s1 = slot(me, 1, j);
-      for (int i = tid; i < hw; i += kThreads) {
-        s0[i] = x[i];
-        s1[i] = x[SlR - hw + i];
+      for (int i = g0; i < hw; i += gstep) {
+        s0[i] = __ldcg(x + i);
+        s1[i] = __ldcg(x + SlR - hw + i);
       }
-      for (int l = tid; l < D; l += kThreads) {
-        s0[hw + l] = known[l];
-        s1[hw + l] = known[l];
+      if (lead) {
+        for (int l = tid; l < D; l += kThreads) {
+          s0[hw + l] = known[l];
+          s1[hw + l] = known[l];
+        }
       }
-      __syncthreads();
-      if (tid == 0) {
+      cluster.sync();
+      if (lead && tid == 0) {
         __threadfence();
         st_release(seq(me, 0, j), (unsigned long long)t + 1);
         st_release(seq(me, 1, j), (unsigned long long)t + 1);
@@ -215,7 +248,7 @@ __global__ void __launch_bounds__(kThreads, 1) async_ras_kernel(const Args a) {
     const float* h_l;
     const float* h_r;
     if (msg) {
-      if (tid == 0) {
+      if (lead && tid == 0) {
         const int u = t - B, jc = u % M;
         spin_until(seq(left, 1, jc), (unsigned long long)u + 1, a.err,
                    kWaitMessage) &&
@@ -238,9 +271,9 @@ __global__ void __launch_bounds__(kThreads, 1) async_ras_kernel(const Args a) {
         src_l = cl;
         src_r = cr;
       }
-      __syncthreads();
-      h_l = slot(left, 1, src_l);
-      h_r = slot(right, 0, src_r);
+      cluster.sync();
+      h_l = slot(left, 1, *cluster.map_shared_rank(&src_l, 0));
+      h_r = slot(right, 0, *cluster.map_shared_rank(&src_r, 0));
       // known bits only grow, so the newest message's flags cover the
       // union over every slot the fresh read looked at
       for (int l = tid; l < kLanes; l += kThreads) {
@@ -255,50 +288,52 @@ __global__ void __launch_bounds__(kThreads, 1) async_ras_kernel(const Args a) {
     // ---- the folded extended windows: ring halos at the rank's edges,
     // the current iterate between its own windows
     float* xp = vec(0);
-    for (int s = 0; s < Sl; ++s) {
-      float* o = xp + (long long)s * total;
-      const float* xs = x + (long long)s * R;
-      for (int i = tid; i < total; i += kThreads) {
-        float v;
-        if (i < hw)
-          v = s == 0 ? __ldcg(h_l + i) : xs[i - hw];
-        else if (i < hw + R)
-          v = xs[i - hw];
-        else
-          v = s == Sl - 1 ? __ldcg(h_r + i - hw - R) : xs[i - hw];
-        o[i] = v;
-      }
-    }
-    __syncthreads();
-    if (msg && tid == 0) {
+    for_rows(
+        team,
+        [&](int q) {
+          const int s = q / total, i = q - s * total;
+          const float* xs = x + (long long)s * R;
+          if (i < hw) return s == 0 ? __ldcg(h_l + i) : __ldcg(xs + i - hw);
+          if (i < hw + R) return __ldcg(xs + i - hw);
+          return s == Sl - 1 ? __ldcg(h_r + i - hw - R) : __ldcg(xs + i - hw);
+        },
+        [&](int q, float v) { xp[q] = v; });
+    cluster.sync();  // every block has read the slot; xp is read across
+    if (msg && lead && tid == 0) {
       red_release_add(ack(left, 1), 1u);
       red_release_add(ack(right, 0), 1u);
     }
     // ---- masked residual, its norm over owned rows, solver start vectors
     float* r = vec(1);
     double acc[2] = {0.0, 0.0};
-    for (int q = tid; q < L; q += kThreads) {
-      const float rq = md[q] * (b[q] - dia_row_cyc<KC, false>(
-                                           dia, xp, dv, q, a.K, L, a.offs));
-      r[q] = rq;
-      const float m = mi[q] * rq;
-      acc[0] += (double)(m * m);
-      if (a.solver == kCG) {
-        const float s0 = dv[q] * rq;
-        vec(2)[q] = s0;  // p
-        vec(3)[q] = 0.f;  // z
-        acc[1] += (double)(rq * s0);
-      } else {
-        acc[1] += (double)(rq * rq);
-        if (a.solver == kBiCGStab) {
-          vec(2)[q] = 0.f;  // zz
-          vec(3)[q] = rq;   // rr
-          vec(4)[q] = 0.f;  // p
-          vec(5)[q] = 0.f;  // v
-        }
-      }
-    }
-    block_sum(acc, red);
+    for_rows<kProductRowsInFlight>(
+        team,
+        [&](int q) {
+          return Vals<5>{{dia_row_cyc<KC, false>(dia, xp, dv, q, a.K, L,
+                                                 a.offs),
+                          md[q], b[q], mi[q], dv[q]}};
+        },
+        [&](int q, Vals<5> l) {
+          const float rq = l.v[1] * (l.v[2] - l.v[0]);
+          r[q] = rq;
+          const float m = l.v[3] * rq;
+          acc[0] += (double)(m * m);
+          if (a.solver == kCG) {
+            const float s0 = l.v[4] * rq;
+            vec(2)[q] = s0;   // p
+            vec(3)[q] = 0.f;  // z
+            acc[1] += (double)(rq * s0);
+          } else {
+            acc[1] += (double)(rq * rq);
+            if (a.solver == kBiCGStab) {
+              vec(2)[q] = 0.f;  // zz
+              vec(3)[q] = rq;   // rr
+              vec(4)[q] = 0.f;  // p
+              vec(5)[q] = 0.f;  // v
+            }
+          }
+        });
+    team.sum(acc, red);
     rn = (float)acc[0];
     rn0 = rn0 < 0.f ? rn : rn0;
     const float myconv = rn <= a.tol2 * rn0 ? 1.f : 0.f;
@@ -316,106 +351,38 @@ __global__ void __launch_bounds__(kThreads, 1) async_ras_kernel(const Args a) {
     const float* z = nullptr;
     if (!frozen && a.solver == kCG) {
       float* zz = vec(3);
-      jacobi_pcg(A_solve, L, a.ninner, (float)acc[1], r, vec(2), zz, vec(4),
-                 dv, red);
+      cluster_pcg(team, A_solve, a.ninner, (float)acc[1], r, vec(2), zz,
+                  vec(4), dv, red);
       z = zz;
     } else if (!frozen && a.solver == kBiCGStab) {
       float* zz = vec(2);
       // acc[1] is dot(r, rr) with rr = r
-      jacobi_bicgstab(A_solve, L, a.ninner, (float)acc[1], r, zz, vec(3),
-                      vec(4), vec(5), vec(6), vec(7), dv, red);
+      cluster_bicgstab(team, A_solve, a.ninner, (float)acc[1], r, zz,
+                       vec(3), vec(4), vec(5), vec(6), vec(7), dv, red);
       z = zz;
     } else if (!frozen) {  // GMRES(m), one Arnoldi cycle
-      const int m = a.ninner;
-      auto V = [&](int i) { return vec(2 + i); };
-      float* zz = vec(m + 3);
-      const float beta = sqrtf((float)acc[1]);
-      const float inv = sdiv(1.f, beta);
-      for (int q = tid; q < L; q += kThreads) V(0)[q] = r[q] * inv;
-      if (tid == 0) {
-        g[0] = beta;
-        for (int i = 1; i <= m; ++i) g[i] = 0.f;
-      }
-      __syncthreads();
-      for (int jj = 0; jj < m; ++jj) {
-        float* w = V(jj + 1);
-        double h[1] = {0.0};
-        for (int q = tid; q < L; q += kThreads) {
-          const float wq = apply_solve<KC, true>(dia, dv, md, bo, V(jj), q,
-                                                 a.K, L, a.offs);
-          w[q] = wq;
-          h[0] += (double)(wq * V(0)[q]);
-        }
-        block_sum(h, red);
-        // modified Gram-Schmidt: w -= h_i V_i, each h from the updated w
-        for (int i = 0; i <= jj; ++i) {
-          const float hi = (float)h[0];
-          if (tid == 0) H[i * kMaxGmres + jj] = hi;
-          const float* vi = V(i);
-          const float* vn = i < jj ? V(i + 1) : nullptr;
-          double nx[1] = {0.0};
-          for (int q = tid; q < L; q += kThreads) {
-            const float wq = w[q] - hi * vi[q];
-            w[q] = wq;
-            nx[0] += (double)(wq * (vn != nullptr ? vn[q] : wq));
-          }
-          block_sum(nx, red);
-          h[0] = nx[0];
-        }
-        const float hn = sqrtf((float)h[0]);
-        const float winv = sdiv(1.f, hn);
-        for (int q = tid; q < L; q += kThreads) w[q] = w[q] * winv;
-        if (tid == 0) {
-          H[(jj + 1) * kMaxGmres + jj] = hn;
-          for (int i = 0; i < jj; ++i) {
-            const float hij = H[i * kMaxGmres + jj];
-            const float hi1 = H[(i + 1) * kMaxGmres + jj];
-            H[(i + 1) * kMaxGmres + jj] = -sn[i] * hij + cs[i] * hi1;
-            H[i * kMaxGmres + jj] = cs[i] * hij + sn[i] * hi1;
-          }
-          const float hjj = H[jj * kMaxGmres + jj];
-          const float hj1 = H[(jj + 1) * kMaxGmres + jj];
-          const float dn = sqrtf(hjj * hjj + hj1 * hj1);
-          const float c = sdiv(hjj, dn), s_ = sdiv(hj1, dn);
-          cs[jj] = c;
-          sn[jj] = s_;
-          H[jj * kMaxGmres + jj] = c * hjj + s_ * hj1;
-          g[jj + 1] = -s_ * g[jj];
-          g[jj] = c * g[jj];
-        }
-        __syncthreads();  // the next product reads neighbours' V_{jj+1}
-      }
-      if (tid == 0) {
-        for (int i = m - 1; i >= 0; --i) {
-          float acc_i = g[i];
-          for (int k2 = i + 1; k2 < m; ++k2)
-            acc_i = acc_i - H[i * kMaxGmres + k2] * yv[k2];
-          yv[i] = sdiv(acc_i, H[i * kMaxGmres + i]);
-        }
-      }
-      __syncthreads();
-      for (int q = tid; q < L; q += kThreads) {
-        float u = yv[0] * V(0)[q];
-        for (int i = 1; i < m; ++i) u = u + yv[i] * V(i)[q];
-        zz[q] = dv[q] * u;
-      }
+      float* zz = vec(a.ninner + 3);
+      cluster_gmres(team, A_solve, [&](int i) { return vec(2 + i); },
+                    a.ninner, (float)acc[1], r, zz, dv, gm, red);
       z = zz;
     }
     if (z != nullptr) {
-      for (int s = 0; s < Sl; ++s) {
-        float* xs = x + (long long)s * R;
-        const float* zs = z + (long long)s * total + hw;
-        for (int i = tid; i < R; i += kThreads) xs[i] = xs[i] + zs[i];
+      for (int q = q0; q < q1; q += kThreads) {
+        const int s = q / total, i = q - s * total - hw;
+        if (i >= 0 && i < R) {
+          float* xq = x + (long long)s * R + i;
+          *xq = __ldcg(xq) + z[q];
+        }
       }
     }
     if (done_at < 0.f && all_known) done_at = base_t + (float)t;
-    __syncthreads();  // x and known are read by the next round's pack
+    cluster.sync();  // x and known are read by the next round's pack
   }
 
   // ---- drain: messages T-B .. T-1 were sent but not consumed; their flags
   // are still gossip and the last one is the halo carried to the next launch
   const int n0 = T - B > 0 ? T - B : 0;
-  if (tid == 0) {
+  if (lead && tid == 0) {
     for (int n = n0; n < T; ++n) {
       spin_until(seq(left, 1, n % M), (unsigned long long)n + 1, a.err,
                  kWaitDrain) &&
@@ -423,58 +390,84 @@ __global__ void __launch_bounds__(kThreads, 1) async_ras_kernel(const Args a) {
                      kWaitDrain);
     }
   }
-  __syncthreads();
-  for (int l = tid; l < D; l += kThreads) {
-    float k = known[l];
-    for (int n = n0; n < T; ++n) {
-      k = fmaxf(fmaxf(k, __ldcg(slot(left, 1, n % M) + hw + l)),
-                __ldcg(slot(right, 0, n % M) + hw + l));
-    }
-    known[l] = k;
-  }
+  cluster.sync();
   {
     const float* cl = slot(left, 1, (T - 1) % M);
     const float* cr = slot(right, 0, (T - 1) % M);
-    for (int i = tid; i < hw; i += kThreads) {
+    for (int i = g0; i < hw; i += gstep) {
       a.hl_out[(long long)me * hw + i] = __ldcg(cl + i);
       a.hr_out[(long long)me * hw + i] = __ldcg(cr + i);
     }
   }
-  __syncthreads();
-  for (int l = tid; l < kLanes; l += kThreads) {
-    a.known_out[me * kLanes + l] = known[l];
-    float v = 0.f;
-    if (l == 0) v = rn0;
-    if (l == 1) v = done_at;
-    if (l == 2) v = base_t + (float)T;
-    if (l == 3) v = rn;
-    a.aux_out[me * kLanes + l] = v;
+  if (lead) {
+    for (int l = tid; l < D; l += kThreads) {
+      float k = known[l];
+      for (int n = n0; n < T; ++n) {
+        k = fmaxf(fmaxf(k, __ldcg(slot(left, 1, n % M) + hw + l)),
+                  __ldcg(slot(right, 0, n % M) + hw + l));
+      }
+      known[l] = k;
+    }
+    __syncthreads();
+    for (int l = tid; l < kLanes; l += kThreads) {
+      a.known_out[me * kLanes + l] = known[l];
+      float v = 0.f;
+      if (l == 0) v = rn0;
+      if (l == 1) v = done_at;
+      if (l == 2) v = base_t + (float)T;
+      if (l == 3) v = rn;
+      a.aux_out[me * kLanes + l] = v;
+    }
+    if (tid == 0) a.aux_out[me * kLanes + 4] = hits;
   }
-  if (tid == 0) a.aux_out[me * kLanes + 4] = hits;
+  cluster.sync();  // no block leaves while another may read its partials
+}
+
+// D ranks of C blocks: a cooperative launch of D clusters of C blocks.
+cudaLaunchConfig_t launch_config(int D, int C, cudaLaunchAttribute* at,
+                                 cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(D * C);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = C;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  at[1].id = cudaLaunchAttributeCooperative;
+  at[1].val.cooperative = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 2;
+  return cfg;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Co-resident blocks of the kernel on this card: the largest rank count a
-// cooperative launch can hold (0 without cooperative launch support).
-int async_ras_max_ranks(int K) {
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+// Clusters of C blocks of the kernel that the card holds at once: the
+// largest rank count a launch with cluster size C can hold (0 without
+// cooperative or cluster launch support).
+int async_ras_max_clusters(int K, int C) {
+  int dev = 0, coop = 0, clus = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return 0;
+  cudaDeviceGetAttribute(&clus, cudaDevAttrClusterLaunch, dev);
+  if (!coop || !clus || C < 1 || C > 8) return 0;
+  int n = 0;
   const int e = dispatch_diags(K, [&](auto kc) {
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, async_ras_kernel<decltype(kc)::value>, kThreads, 0);
+    constexpr int KC = decltype(kc)::value;
+    cudaLaunchAttribute at[2];
+    cudaLaunchConfig_t cfg = launch_config(1, C, at, 0);
+    return (int)cudaOccupancyMaxActiveClusters(&n, async_ras_kernel<KC>, &cfg);
   });
-  return e == 0 ? per_sm * sms : 0;
+  return e == 0 ? n : 0;
 }
 
 // See ops/async_ras_kernel.py for the operand layout.  ``sync`` holds the
 // (D, 2, M) sequence words, the (D, 2) ack counters and the error word,
-// zeroed by the caller before the launch.
+// zeroed by the caller before the launch.  C: blocks per rank.
 int async_ras_f32(const float* dia, const float* b, const float* dinv,
                   const float* md, const float* mi, const float* boost,
                   const float* x_in, const float* known_in,
@@ -482,8 +475,10 @@ int async_ras_f32(const float* dia, const float* b, const float* dinv,
                   float* x, float* known, float* aux, float* hl, float* hr,
                   float* work, float* ring, void* sync, int D, int Sl, int K,
                   int total, int hw, int T, int B, int ninner, int solver,
-                  int fresh, const int* offs, float tol2, void* stream) {
-  if (K < 1 || K > kMaxDiags || D < 1 || D > kLanes || T < 1 || B < 1)
+                  int fresh, const int* offs, float tol2, int C,
+                  void* stream) {
+  if (K < 1 || K > kMaxDiags || D < 1 || D > kLanes || T < 1 || B < 1 ||
+      C < 1 || C > 8)
     return (int)cudaErrorInvalidValue;
   if (solver == kGMRES && (ninner < 1 || ninner > kMaxGmres))
     return (int)cudaErrorInvalidValue;
@@ -521,6 +516,8 @@ int async_ras_f32(const float* dia, const float* b, const float* dinv,
   a.slot = (hw + D + 3) / 4 * 4;
   a.nwork = solver == kCG ? 5 : solver == kBiCGStab ? 8 : ninner + 4;
   a.L = Sl * total;
+  a.C = C;
+  a.chunk = ((a.L + C - 1) / C + 31) / 32 * 32;
   a.offs = make_offsets(offs, K);
   a.tol2 = tol2;
   auto* s = static_cast<unsigned long long*>(sync);
@@ -528,10 +525,10 @@ int async_ras_f32(const float* dia, const float* b, const float* dinv,
   a.ack = reinterpret_cast<unsigned int*>(s + (long long)D * 2 * a.M);
   a.err = reinterpret_cast<int*>(s + (long long)D * 2 * a.M + D);
   return dispatch_diags(K, [&](auto kc) {
-    void* params[] = {&a};
-    return (int)cudaLaunchCooperativeKernel(
-        (const void*)async_ras_kernel<decltype(kc)::value>, dim3(D),
-        dim3(kThreads), params, 0, (cudaStream_t)stream);
+    constexpr int KC = decltype(kc)::value;
+    cudaLaunchAttribute at[2];
+    cudaLaunchConfig_t cfg = launch_config(D, C, at, (cudaStream_t)stream);
+    return (int)cudaLaunchKernelEx(&cfg, async_ras_kernel<KC>, a);
   });
 }
 

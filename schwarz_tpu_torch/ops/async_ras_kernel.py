@@ -7,7 +7,10 @@ bits into slot rings of M = 2B+2 messages, consumes its neighbours' messages
 of round t-B, acknowledges them for flow control, gossips convergence in
 band, runs its correction solve (Jacobi-PCG, BiCGStab or GMRES(m), with the
 optional O-RAS Robin diagonal) and freezes once it knows every rank
-converged (source: ``csrc/async_ras.cu``).
+converged (source: ``csrc/async_ras.cu``).  A rank is a cluster of C
+thread blocks on C SMs, the rank's rows split in contiguous chunks over
+them; C is the largest of 8, 4, 2, 1 for which the card holds D such
+clusters at once (:func:`choose_cluster`).
 
 Layout, for D ranks of Sl windows each (the JAX package's per-device
 operands, stacked over ranks): ``dia`` (D, K, Sl*total); ``b``, ``dinv``,
@@ -31,7 +34,7 @@ available in lockstep: one legal schedule among many.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -39,7 +42,19 @@ from schwarz_tpu_torch.ops import cuda_build
 
 LANES = 128                # known-converged bit lanes: at most 128 ranks
 MAX_GMRES_M = 64           # Hessenberg held in shared memory
+CLUSTER_SIZES = (8, 4, 2, 1)   # blocks per rank, largest first
 _SOLVERS = {"cg": 0, "bicgstab": 1, "gmres": 2}
+_max_clusters: dict = {}   # (device, K, C) -> clusters the card holds
+
+
+def choose_cluster(n_ranks: int, max_clusters: Callable[[int], int]) -> int:
+    """Blocks per rank: the largest C of :data:`CLUSTER_SIZES` for which
+    the card holds ``n_ranks`` clusters of C blocks at once
+    (``max_clusters(C)``); 0 when not even single blocks fit."""
+    for c in CLUSTER_SIZES:
+        if max_clusters(c) >= n_ranks:
+            return c
+    return 0
 
 
 def _sdiv(a, b):
@@ -264,13 +279,17 @@ def async_ras_rounds(
     offsets: Tuple[int, ...], total: int, hw: int, rounds: int,
     staleness: int, ninner: int, tol: float, fresh_read: bool = False,
     nonsym: bool = False, nonsym_solver: str = "bicgstab",
+    cluster: Optional[int] = None,
 ):
     """``rounds`` free-running rounds of all D ranks; K5 on the card.
 
-    One cooperative launch, one 1024-thread block per rank (all ranks
-    resident at once, or the waits would deadlock).  Raises when the card
-    cannot hold D blocks, when a wait times out, and for ``fresh_read``
-    before the flag-order probe (K9) has passed in this process."""
+    One cooperative launch, one cluster of C 1024-thread blocks per rank
+    (all ranks resident at once, or the waits would deadlock).  C is
+    :func:`choose_cluster`'s unless ``cluster`` forces one (the solvers
+    never do; the tests and the smoke run compare sizes).  Raises when the
+    card cannot hold D clusters, when a wait times out, and for
+    ``fresh_read`` before the flag-order probe (K9) has passed in this
+    process."""
     kw = dict(offsets=offsets, total=total, hw=hw, rounds=rounds,
               staleness=staleness, ninner=ninner, tol=tol,
               fresh_read=fresh_read, nonsym=nonsym,
@@ -309,12 +328,21 @@ def async_ras_rounds(
 
         require_flag_order(x.device)
     lib = cuda_build.library("async_ras")
-    with torch.cuda.device(x.device):
-        cap = lib.async_ras_max_ranks(K)
-    if D > cap:
+
+    def fits(c: int) -> int:
+        key = (x.device, K, c)
+        if key not in _max_clusters:
+            with torch.cuda.device(x.device):
+                _max_clusters[key] = lib.async_ras_max_clusters(K, c)
+        return _max_clusters[key]
+
+    C = choose_cluster(D, fits) if cluster is None else int(cluster)
+    if C not in CLUSTER_SIZES or fits(C) < D:
         raise RuntimeError(
-            f"async_ras_rounds: {D} ranks need {D} co-resident 1024-thread "
-            f"blocks; this card holds {cap} — use fewer ranks (num_ranks)")
+            f"async_ras_rounds: {D} ranks need {D} co-resident clusters of "
+            f"{C} 1024-thread blocks; this card holds "
+            f"{fits(C) if C in CLUSTER_SIZES else 0} — use fewer ranks "
+            "(num_ranks)")
     M = 2 * B + 2
     slot = -(-(hw + D) // 4) * 4
     nwork = {"cg": 5, "bicgstab": 8, "gmres": ninner + 4}[solver]
@@ -335,10 +363,11 @@ def async_ras_rounds(
             hr.data_ptr(), *(o.data_ptr() for o in out), work.data_ptr(),
             ring.data_ptr(), sync.data_ptr(), D, Sl, K, total, hw, rounds, B,
             ninner, _SOLVERS[solver], int(bool(fresh_read)),
-            cuda_build.int_array(offsets), float(tol) * float(tol),
+            cuda_build.int_array(offsets), float(tol) * float(tol), C,
             cuda_build.stream_ptr(dev)),
         "async_ras_rounds")
     async_ras_rounds.launches += 1
+    async_ras_rounds.cluster = C
     err = int(sync[-1].item())
     if err:
         what = {1: "an acknowledgement", 2: "a neighbour's message",
@@ -350,3 +379,4 @@ def async_ras_rounds(
 
 
 async_ras_rounds.launches = 0
+async_ras_rounds.cluster = None    # blocks per rank of the last launch

@@ -55,8 +55,8 @@ SIGNATURES = {
                          _P, _F, _I, _P),
     },
     "async_ras": {
-        "async_ras_max_ranks": (_I,),
-        "async_ras_f32": (_P,) * 19 + (_I,) * 10 + (_P, _F, _P),
+        "async_ras_max_clusters": (_I, _I),
+        "async_ras_f32": (_P,) * 19 + (_I,) * 10 + (_P, _F, _I, _P),
     },
     "async_ras_2d": {
         "async_ras_2d_max_ranks": (_I,),
@@ -71,8 +71,8 @@ SIGNATURES = {
         "flag_order_probe": (_P, _P, _P, _I, _I, _I, _P),
     },
     "rdma_shift": {
-        "rdma_shift_max_ranks": (_I,),
-        "rdma_shift": (_P, _P, _P, _P) + (_I,) * 7 + (_P,),
+        "rdma_shift_max_ranks": (_I, _I),
+        "rdma_exchange": (_P,) * 9 + (_LL,) + (_I,) * 9 + (_P,),
     },
 }
 

@@ -13,9 +13,10 @@ with the rank as a leading axis.  In round ``r`` every rank ``d`` sends one
 packed buffer to rank ``(d + r) % D``, a pure cyclic shift: ``torch.roll``
 for the two-sided ``neighbor`` strategy (a plain collective in the JAX
 package), kernel K4 (:func:`schwarz_tpu_torch.ops.rdma_kernel.
-rdma_cyclic_shift`) for the one-sided ``rdma`` strategy.  Only offsets with
-any traffic get a round: a regular 1-D partition needs 2 rounds, a 2-D grid
-partition about 8, whatever the rank count.
+rdma_cyclic_shift`) for the one-sided ``rdma`` strategy, where one K4
+launch runs every round of an exchange with its pack and unpack.  Only
+offsets with any traffic get a round: a regular 1-D partition needs 2
+rounds, a 2-D grid partition about 8, whatever the rank count.
 
 All tables are static, built on the host at setup:
 
@@ -37,8 +38,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from schwarz_tpu_torch.ops.rdma_kernel import (rdma_shift_finish,
-                                               rdma_shift_launch)
+from schwarz_tpu_torch.ops.rdma_kernel import (ExchangeRounds,
+                                               exchange_rounds_plain,
+                                               rdma_exchange_launch,
+                                               rdma_shift_finish)
 from schwarz_tpu_torch.parallel.exchange import assemble_x_ext
 
 
@@ -166,18 +169,24 @@ def build_neighbor_plan(
     )
 
 
+def exchange_rounds(nx: NeighborPlan, device) -> ExchangeRounds:
+    """The plan's round tables as tensors on ``device``, built once per
+    solver: K4 keeps its own tables and sequence words with them."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    i64 = lambda a: t(a.astype(np.int64))  # noqa: E731
+    return ExchangeRounds(
+        [i64(s) for s in nx.send_idx], nx.offsets, i64(nx.recv_round),
+        i64(nx.recv_pos), i64(nx.local_src), t(nx.is_local), nx.n_devices,
+        nx.max_h)
+
+
 def exchange_halo_neighbor(
     x_own: torch.Tensor,            # (S, R_int) every subdomain's interior
     interior_off: torch.Tensor,     # (S,) closure slot of first interior row
     halo_slots: torch.Tensor,       # (S, H) int64 ext slot (R_ext = scratch pad)
-    local_src: torch.Tensor,        # (S, H) int64
-    is_local: torch.Tensor,         # (S, H) bool
-    recv_round: torch.Tensor,       # (S, H) int64
-    recv_pos: torch.Tensor,         # (S, H) int64
-    send_idx: List[torch.Tensor],   # per round: (D, H_r) int64
-    offsets: List[int],
-    n_ranks: int,
-    max_h: int,
+    rounds: ExchangeRounds,         # the plan's round tables
     r_ext: int,
     halo_dtype: Optional[torch.dtype] = None,
     transport: str = "ppermute",    # "ppermute" (two-sided) | "rdma" (one-sided)
@@ -191,39 +200,21 @@ def exchange_halo_neighbor(
     Interior slots are a plain copy of ``x_own``; only the O(halo) compact
     tables go through gather/scatter.  Values that cross ranks travel in
     ``halo_dtype``; slots owned by the same rank are read from the rank's
-    own block, unrounded.  One K4 launch per round on the ``rdma``
-    transport; their watchdog words are read together after the last one
-    (one host sync), or, when the caller passes a ``pending`` list, left in
-    it for the caller to hand to ``rdma_shift_finish`` at its own next
-    sync, so that the host can run ahead of the card.
+    own block, unrounded.  On the ``rdma`` transport the whole exchange
+    (every round, pack and unpack) is one K4 launch; its watchdog word is
+    read at once (one host sync), or, when the caller passes a ``pending``
+    list, left in it for the caller to hand to ``rdma_shift_finish`` at its
+    own next sync, so that the host can run ahead of the card.
     """
-    compute_dtype = x_own.dtype
-    S, r_int = x_own.shape
-    D = n_ranks
-    flat = x_own.reshape(D, (S // D) * r_int)       # one row per rank
-    send = flat.to(halo_dtype) if halo_dtype is not None else flat
-
-    n_rounds = len(offsets)
-    # received buffers, padded to a common length; extra zero plane for
-    # local slots
-    bufs = torch.zeros((n_rounds + 1, D, max_h), dtype=send.dtype,
-                       device=x_own.device)
-    statuses = [] if pending is None else pending
-    for k, r in enumerate(offsets):
-        out = torch.gather(send, 1, send_idx[k])    # pack (D, H_r)
-        if transport == "rdma":
-            got, status = rdma_shift_launch(
-                out, r, mode=rdma_mode, one_by_one=rdma_one_by_one,
-                flush_local=rdma_flush_local)
-            statuses.append(status)
+    if transport == "rdma":
+        halo_vals, status = rdma_exchange_launch(
+            x_own, rounds, halo_dtype, rdma_mode, rdma_one_by_one,
+            rdma_flush_local)
+        if pending is None:
+            rdma_shift_finish([status])
         else:
-            got = torch.roll(out, r, 0)             # one cyclic shift
-        bufs[k, :, : got.shape[1]] = got
-    if pending is None and statuses:
-        rdma_shift_finish(statuses)
-
-    rank_of = (torch.arange(S, device=x_own.device) // (S // D))[:, None]
-    remote = bufs[recv_round, rank_of, recv_pos].to(compute_dtype)  # (S, H)
-    local = flat[rank_of, local_src]                                # (S, H)
-    halo_vals = torch.where(is_local, local, remote)
+            pending.append(status)
+    else:
+        halo_vals = exchange_rounds_plain(
+            x_own, rounds, halo_dtype, lambda buf, r: torch.roll(buf, r, 0))
     return assemble_x_ext(x_own, interior_off, halo_slots, halo_vals, r_ext)

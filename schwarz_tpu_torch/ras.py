@@ -66,6 +66,7 @@ from schwarz_tpu_torch.parallel.exchange import (
 from schwarz_tpu_torch.parallel.neighbor_exchange import (
     build_neighbor_plan,
     exchange_halo_neighbor,
+    exchange_rounds,
 )
 from schwarz_tpu_torch.solvers.cg import cg_solve
 from schwarz_tpu_torch.solvers.precond import jacobi_inverse
@@ -155,6 +156,9 @@ class RASolver:
                 and s.local_compute_dtype != s.dtype):
             self._lc_dtype = getattr(torch, s.local_compute_dtype)
         self._plan = self._build_plan()
+        # the neighbour strategies' round tables, kept with K4's state
+        self._rounds = (exchange_rounds(self._neighbor_plan, self.device)
+                        if self._neighbor_plan is not None else None)
 
     def _check_supported(self) -> None:
         """Fail loudly on every setting this slice does not port (and on
@@ -311,14 +315,7 @@ class RASolver:
             nx = build_neighbor_plan(dec, self.num_ranks,
                                      process_of=[0] * self.num_ranks)
             self._neighbor_plan = nx
-            arrays.update(
-                halo_slots=dec.halo_slots.astype(np.int64),
-                nx_local_src=nx.local_src.astype(np.int64),
-                nx_is_local=nx.is_local,
-                nx_recv_round=nx.recv_round.astype(np.int64),
-                nx_recv_pos=nx.recv_pos.astype(np.int64))
-            for k, tbl in enumerate(nx.send_idx):
-                arrays[f"nx_send_{k}"] = tbl.astype(np.int64)
+            arrays.update(halo_slots=dec.halo_slots.astype(np.int64))
         return plan_from_numpy(arrays, self.device)
 
     # ------------------------------------------------------------- the stages --
@@ -328,15 +325,10 @@ class RASolver:
         s = self.settings
         halo_dtype = (s.halo_value_dtype
                       if s.halo_value_dtype != s.value_dtype else None)
-        nx = self._neighbor_plan
-        if nx is not None:
+        if self._rounds is not None:
             return exchange_halo_neighbor(
                 x_own.contiguous(), plan["interior_off"], plan["halo_slots"],
-                plan["nx_local_src"], plan["nx_is_local"],
-                plan["nx_recv_round"], plan["nx_recv_pos"],
-                [plan[f"nx_send_{k}"] for k in range(len(nx.offsets))],
-                nx.offsets, nx.n_devices, nx.max_h, self.meta.max_ext,
-                halo_dtype=halo_dtype,
+                self._rounds, self.meta.max_ext, halo_dtype=halo_dtype,
                 transport=("rdma" if s.comm.strategy == HaloStrategy.rdma
                            else "ppermute"),
                 rdma_mode="put" if s.comm.enable_put else "get",

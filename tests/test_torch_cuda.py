@@ -27,13 +27,19 @@ from schwarz_tpu_torch.ops.async_ras_2d_kernel import (
 from schwarz_tpu_torch.ops.async_ras_general import AsyncGeneralRASolver
 from schwarz_tpu_torch.ops.async_ras_general_kernel import (
     async_general_rounds, async_general_rounds_plain)
-from schwarz_tpu_torch.ops.async_ras_kernel import (async_ras_rounds,
+from schwarz_tpu_torch.core.decompose import decompose
+from schwarz_tpu_torch.ops.async_ras_kernel import (CLUSTER_SIZES,
+                                                    async_ras_rounds,
                                                     async_ras_rounds_plain)
 from schwarz_tpu_torch.ops.dia_kernel import dia_spmv, dia_spmv_plain
 from schwarz_tpu_torch.ops.fused_cg import fused_cg_solve, fused_cg_solve_plain
 from schwarz_tpu_torch.ops.halo_kernel import assemble_runs, assemble_runs_plain
 from schwarz_tpu_torch.ops.rdma_kernel import (rdma_cyclic_shift,
-                                               rdma_cyclic_shift_plain)
+                                               rdma_cyclic_shift_plain,
+                                               rdma_exchange,
+                                               rdma_exchange_plain)
+from schwarz_tpu_torch.parallel.neighbor_exchange import (build_neighbor_plan,
+                                                          exchange_rounds)
 
 pytestmark = pytest.mark.cuda
 
@@ -179,6 +185,75 @@ def test_async_ras_matches_plain(dev, op, D, kw):
         assert torch.equal(got[2][:, 1:3], ref[2][:, 1:3])
         torch.testing.assert_close(got[3], ref[3], rtol=0, atol=1e-5 * scale)
         state = ref
+
+
+_K5_CASES = {
+    "cg": ("lap64", 8, dict(tolerance=1e-4, ninner=20)),
+    "windows": ("lap64", 1, dict(tolerance=1e-4, ninner=20)),   # Sl = 8
+    "staleness": ("lap64", 2, dict(tolerance=1e-4, ninner=20, staleness=2)),
+    "oras": ("lap64", 4, dict(tolerance=1e-4, ninner=10, oras_weight=-0.8)),
+    "bicgstab": ("adv32", 8, dict(tolerance=1e-4, ninner=10, nonsym=True)),
+    "gmres": ("adv32", 8, dict(tolerance=1e-4, ninner=10, nonsym=True,
+                               nonsym_solver="gmres")),
+}
+
+
+def _k5(dev, case, **extra):
+    op, D, kw = _K5_CASES[case]
+    A = laplacian_2d(64) if op == "lap64" else advection_diffusion_2d(32)
+    s = AsyncRASolver(A, generate_rhs(A.n, random=False), 8, num_ranks=D,
+                      chunk_rounds=16, device=dev, **{**kw, **extra})
+    p, d = s.plan, s._dev
+    x, known, aux, hl, hr = s.init_state()
+    opts = dict(offsets=p.offsets, total=p.total, hw=p.hw, rounds=16,
+                staleness=s.staleness, ninner=s.ninner, tol=s.tolerance,
+                nonsym=s.nonsym, nonsym_solver=s.nonsym_solver,
+                fresh_read=s.fresh_read)
+    ops = (d["dia"], d["b"], d["dinv"], d["mask_dom"], d["mask_int"])
+    return ops, (x.reshape(D, -1), known, aux, hl, hr), d.get("boost"), opts
+
+
+@pytest.mark.parametrize("case", sorted(_K5_CASES))
+@pytest.mark.parametrize("C", CLUSTER_SIZES)
+def test_async_ras_cluster_matches_plain(dev, C, case):
+    """Two 16-round launches of K5 with C blocks per rank, forced, against
+    the lockstep emulation: the same check as at the chosen size (known
+    bits and done_at equal, iterates within float32 ties)."""
+    ops, state, boost, opts = _k5(dev, case)
+    for _ in range(2):
+        got = async_ras_rounds(*ops, *state, boost, **opts, cluster=C)
+        torch.cuda.synchronize()
+        assert async_ras_rounds.cluster == C
+        ref = async_ras_rounds_plain(*ops, *state, boost, **opts)
+        scale = float(ref[0].abs().max())
+        torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-5 * scale)
+        assert torch.equal(got[1], ref[1])
+        assert torch.equal(got[2][:, 1:3], ref[2][:, 1:3])
+        torch.testing.assert_close(got[3], ref[3], rtol=0, atol=1e-5 * scale)
+        state = ref
+
+
+@pytest.mark.parametrize("C", CLUSTER_SIZES)
+def test_async_ras_cluster_fresh_read_after_probe(dev, C):
+    """fresh_read at staleness 3 with C blocks per rank: the leader's peek
+    finds newer messages and every rank learns of convergence."""
+    assert dg.flag_order_probe(4096, 1000, dev)["mismatches"] == 0
+    ops, state, boost, opts = _k5(dev, "cg", staleness=3, fresh_read=True)
+    for _ in range(50):
+        state = async_ras_rounds(*ops, *state, boost, **opts, cluster=C)
+        if bool((state[2][:, 1] >= 0).all()):
+            break
+    aux = state[2]
+    assert bool((aux[:, 1] >= 0).all()) and float(aux[:, 4].sum()) > 0
+    assert bool(torch.isfinite(state[0]).all())
+
+
+def test_async_ras_chooses_a_cluster(dev):
+    ops, state, boost, opts = _k5(dev, "cg")
+    async_ras_rounds(*ops, *state, boost, **opts)
+    assert async_ras_rounds.cluster in CLUSTER_SIZES
+    with pytest.raises(RuntimeError, match="clusters"):
+        async_ras_rounds(*ops, *state, boost, **opts, cluster=3)
 
 
 def test_async_ras_converges_like_cpu(dev):
@@ -399,3 +474,62 @@ def test_rdma_solve_on_card_like_cpu(dev, comm, kw):
     assert r_c.converged and r_c.iters == r_h.iters
     np.testing.assert_allclose(r_c.global_resnorm_history,
                                r_h.global_resnorm_history, rtol=1e-8)
+
+
+def _rdma_plan(dev, which):
+    """The rdma slice's 1-D plan (16 strips on 16 ranks: 2 rounds) or phase
+    19's (``laplacian_2d(32)``, ``regular2d``, 64 subdomains on 16 ranks: 6
+    rounds), with random float64 interiors."""
+    n, part, S = (64, "regular", 16) if which == "1-D" else (32, "regular2d",
+                                                              64)
+    A = laplacian_2d(n)
+    dec = decompose(A, generate_rhs(A.n), Settings(
+        partition=Partition(part), overlap=2), S)
+    nx = build_neighbor_plan(dec, 16)
+    x = torch.tensor(np.random.default_rng(S).standard_normal(
+        (S, dec.meta.max_interior)), device=dev)
+    return nx, exchange_rounds(nx, dev), x
+
+
+@pytest.mark.parametrize("halo_dtype", [torch.float32, torch.float64,
+                                        torch.bfloat16])
+@pytest.mark.parametrize("which", ["1-D", "regular2d"])
+@pytest.mark.parametrize("mode,one_by_one,flush_local", _SHIFT_VARIANTS)
+def test_rdma_exchange_matches_plain(dev, mode, one_by_one, flush_local,
+                                     which, halo_dtype):
+    """One K4 launch for the whole exchange against the pack gathers, one
+    plain shift per round and the unpack: halo values bit for bit, the
+    per-round counts equal."""
+    nx, rounds, x = _rdma_plan(dev, which)
+    assert len(nx.offsets) == (2 if which == "1-D" else 6)
+    n0 = rdma_cyclic_shift.launches
+    halo, counts = rdma_exchange(x, rounds, halo_dtype, mode, one_by_one,
+                                 flush_local)
+    assert rdma_cyclic_shift.launches == n0 + 1
+    ref, ref_counts = rdma_exchange_plain(x, rounds, halo_dtype, mode,
+                                          one_by_one, flush_local)
+    assert torch.equal(halo.view(torch.uint8), ref.view(torch.uint8))
+    assert torch.equal(counts, ref_counts)
+
+
+def test_rdma_exchange_carries_its_sequence_words(dev):
+    """Exchanges in a row, of different kinds, on one set of counters that
+    nothing resets: each sees its own counts, and the counters hold the
+    running totals."""
+    nx, rounds, x = _rdma_plan(dev, "regular2d")
+    kinds = [("put", False, False), ("put", False, False),
+             ("get", True, True), ("put", True, False), ("get", False, False)]
+    for mode, one_by_one, flush_local in kinds:
+        x = x + 1.0
+        halo, counts = rdma_exchange(x, rounds, torch.float32, mode,
+                                     one_by_one, flush_local)
+        ref, ref_counts = rdma_exchange_plain(x, rounds, torch.float32, mode,
+                                              one_by_one, flush_local)
+        assert torch.equal(halo, ref) and torch.equal(counts, ref_counts)
+    card = rounds._card
+    assert card.totals == [3, 2, 2, 5]
+    widths = torch.tensor([t.shape[1] for t in nx.send_idx], device=dev)
+    seq = card.seq[:-2].reshape(2, len(nx.offsets), 16)
+    assert torch.equal(seq[0], (3 + 2 * widths)[:, None].expand(-1, 16))
+    assert bool((seq[1] == 2).all())
+    assert int(card.seq[-2]) == 5 * 16 and int(card.seq[-1]) == 0

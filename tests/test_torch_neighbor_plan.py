@@ -24,7 +24,8 @@ from schwarz_tpu_torch.parallel.exchange import (build_run_plan,
                                                  exchange_halo_allgather,
                                                  flat_run_tables)
 from schwarz_tpu_torch.parallel.neighbor_exchange import (
-    NeighborPlan, build_neighbor_plan, exchange_halo_neighbor)
+    NeighborPlan, build_neighbor_plan, exchange_halo_neighbor,
+    exchange_rounds)
 
 # the five one-sided variants of tests/test_exchange.py
 VARIANTS = [
@@ -101,14 +102,12 @@ def _exchange_both(dt, D, dtype, halo_dtype, transport, variant=VARIANTS[0]):
     x_own = torch.tensor(rng.standard_normal((S, R_int)), dtype=dtype)
     off = torch.tensor(dt.interior_offset.astype(np.int64))
     nx = build_neighbor_plan(dt, D)
-    i64 = lambda a: torch.tensor(a.astype(np.int64))  # noqa: E731
     mode, one_by_one, flush_local = variant
     got = exchange_halo_neighbor(
-        x_own, off, i64(dt.halo_slots), i64(nx.local_src),
-        torch.tensor(nx.is_local), i64(nx.recv_round), i64(nx.recv_pos),
-        [i64(t) for t in nx.send_idx], nx.offsets, D, nx.max_h, R_ext,
-        halo_dtype=halo_dtype, transport=transport, rdma_mode=mode,
-        rdma_one_by_one=one_by_one, rdma_flush_local=flush_local)
+        x_own, off, torch.tensor(dt.halo_slots.astype(np.int64)),
+        exchange_rounds(nx, "cpu"), R_ext, halo_dtype=halo_dtype,
+        transport=transport, rdma_mode=mode, rdma_one_by_one=one_by_one,
+        rdma_flush_local=flush_local)
     rp = build_run_plan(dt.halo_src_halo, dt.halo_slots, R_ext, R_int,
                         dt.interior_offset)
     tables = tuple(torch.tensor(t) for t in flat_run_tables(
