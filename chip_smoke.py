@@ -8,7 +8,9 @@
 3. holds each kernel (K1 DIA SpMV in float32 and float64, K2 halo-run copy,
    K3 fused CG) to its plain PyTorch version on the card, at the shapes of
    the 1M-row slice, and times kernel, plain version and (K1) one
-   ``torch.sparse.mm`` on the same operator in CSR;
+   ``torch.sparse.mm`` on the same operator in CSR; K3 at the cluster size
+   its wrapper chooses and at one block per subdomain, with the variant
+   (vectors in shared or in device memory) each took;
 4. runs the slice: the 1M-row 2-D Laplacian, 16 regular strips, overlap 3,
    float32, DIA operator, fused Jacobi-CG locals, with every launch count
    set to 0 before and read after; each kernel must have launched;
@@ -17,7 +19,8 @@
 6. runs default Settings() (float64, unfused CG: K1 float64 + K2) on a 256^2
    Laplacian, 4 subdomains, 20 iterations, on the card and on the CPU, and
    requires them to match within rtol 1e-8;
-7. holds K8 (x * 2), K9 (the flag-order probe, 10^4 rounds) and K5 (the
+7. holds K8 (x * 2; its time and that of ``x * 2`` the medians of seven
+   alternating reads), K9 (the flag-order probe, 10^4 rounds) and K5 (the
    free-running rounds, one 16-round launch at the shapes of the 1M-row
    free-running slice) to their plain versions, timed like phase 3; K5 at
    the cluster size its wrapper chooses and at one block per rank;
@@ -31,7 +34,8 @@
    ``fresh_read`` at staleness 3 and ``run_refined`` to 1e-8 on the card;
 11. holds K6 (the 2-D block-grid rounds) to its plain version: one
    16-round launch at the shapes of the 2-D slice (16 ranks, 272 x 384
-   tiles), timed like phase 3, then three small variants (16 blocks folded
+   tiles), at the cluster size its wrapper chooses and at one block per
+   rank, timed like phase 3, then three small variants (16 blocks folded
    onto 4 ranks, staleness 2, the 9-point anisotropic operator with O-RAS);
 12. runs the 2-D free-running slice: ``solve`` on ``laplacian_2d(1024)``
    (10^6 rows), 16 subdomains as 4 x 4 blocks, overlap 2, staleness 1, 16
@@ -258,23 +262,40 @@ def kernel_checks(sm: Smoke, solver) -> None:
     x0 = torch.zeros_like(b)
     dinv = plan["precond_dinv"]
     args = (offsets, dia, b, x0, dinv, s.local_tolerance, s.local_max_iters)
-    got = fused_cg_solve(*args)
-    torch.cuda.synchronize()
     ref = fused_cg_solve_plain(*args)
-    err = float((got.x - ref.x).abs().max())
     tol = 1e-3 * float(ref.x.abs().max())
-    d_it = int((got.iters - ref.iters).abs().max())
-    sm.check(err <= tol and d_it <= 1,
-             f"K3 fused_cg_solve: max abs err {err:.3e} <= {tol:.3e}, "
-             f"iterations within {d_it} <= 1 (float32 sums in another order)")
+    # at the cluster size the wrapper chooses, then on one block per
+    # subdomain (the first version's layout), each against the plain version
+    res = {}
+    for force in (None, 1):
+        got = fused_cg_solve(*args, cluster=force)
+        torch.cuda.synchronize()
+        C, var = fused_cg_solve.cluster, fused_cg_solve.variant
+        err = float((got.x - ref.x).abs().max())
+        d_it = int((got.iters - ref.iters).abs().max())
+        res[force] = (C, var, err, got)
+        sm.check(err <= tol and d_it <= 1,
+                 f"K3 fused_cg_solve, {C} blocks per subdomain ({var} "
+                 f"memory){' (chosen)' if force is None else ''}: max abs "
+                 f"err {err:.3e} <= {tol:.3e}, iterations within {d_it} <= 1 "
+                 f"(float32 sums in another order)")
+    C, var, err, got = res[None]
     iters = got.iters.to(torch.int64)
     n_ops = float(((iters * (2 * K + 13)).sum() + S * (2 * K + 6)) * R_rows)
     bound, by = _bound_ms((S * K * R_rows + 4 * S * R_rows) * 4 + S * 8,
                           n_ops, "float32")
+    ms1 = sm.ms(lambda: fused_cg_solve(*args, cluster=1), 5)
     sm.kernels["fused_cg"] = dict(
-        max_abs_err=err, ms=sm.ms(lambda: fused_cg_solve(*args), 5),
+        max_abs_err=err, cluster=C, variant=var,
+        ms=sm.ms(lambda: fused_cg_solve(*args), 5),
         plain_ms=sm.ms(lambda: fused_cg_solve_plain(*args), 2),
         bound_ms=bound, bound_by=by, library_ms=None)
+    ms1b = sm.ms(lambda: fused_cg_solve(*args, cluster=1), 5)
+    sm.kernels["fused_cg"]["ms_one_block"] = (ms1 + ms1b) / 2
+    print(f"K3 per launch: {sm.kernels['fused_cg']['ms']:.4f} ms at {C} "
+          f"blocks per subdomain ({var} memory, {C * S} of the card's SMs), "
+          f"{ms1:.4f} / {ms1b:.4f} ms at 1 block per subdomain "
+          f"({res[1][1]} memory; before / after)", flush=True)
     print(f"K3 iterations per subdomain: {got.iters.tolist()}")
     for k, v in sm.kernels.items():
         print(f"{k}: ms={v['ms']:.4f} plain_ms={v['plain_ms']:.4f} "
@@ -285,6 +306,7 @@ def kernel_checks(sm: Smoke, solver) -> None:
 def async_kernel_checks(sm: Smoke, solver) -> None:
     """Phase 7: K8, K9 and K5 against their plain versions; K5 at the
     shapes of the free-running slice (one 16-round launch from zero)."""
+    import numpy as np
     import torch
 
     from schwarz_tpu_torch import diagnostics as dg
@@ -304,12 +326,19 @@ def async_kernel_checks(sm: Smoke, solver) -> None:
     ok = torch.equal(y, dg.smoke_x2_plain(x))
     sm.check(ok, "K8 smoke_x2 bit-identical to x * 2")
     bound, by = _bound_ms(2 * x.numel() * 4, x.numel(), "float32")
+    # both are launch floors; the median of alternating reads, each the
+    # mean of 50 launches, keeps one slow read from deciding the order
+    reads = {"ms": [], "plain_ms": [], "library_ms": []}
+    for _ in range(7):
+        reads["ms"].append(sm.ms(lambda: dg.smoke_x2(x), 50))
+        reads["library_ms"].append(sm.ms(lambda: x * 2, 50))
+        reads["plain_ms"].append(sm.ms(lambda: dg.smoke_x2_plain(x), 50))
     sm.kernels["smoke_x2"] = dict(
         max_abs_err=float((y - x * 2).abs().max()),
-        ms=sm.ms(lambda: dg.smoke_x2(x), 50),
-        plain_ms=sm.ms(lambda: dg.smoke_x2_plain(x), 50),
-        bound_ms=bound, bound_by=by,
-        library_ms=sm.ms(lambda: x * 2, 50))
+        **{k: float(np.median(v)) for k, v in reads.items()},
+        bound_ms=bound, bound_by=by)
+    print(f"K8 reads (ms): kernel {reads['ms']}, x * 2 "
+          f"{reads['library_ms']}", flush=True)
 
     # --- K9: the flag-order probe --------------------------------------------
     n, rounds = 32768, 10000
@@ -530,19 +559,21 @@ def free_running_phases(sm: Smoke) -> None:
              "run_refined reaches a true relative residual <= 1e-8")
 
 
-def _k6_against_plain(sm: Smoke, solver, what: str):
+def _k6_against_plain(sm: Smoke, solver, what: str, cluster=None):
     """One K6 launch of ``solver`` from its zero state against its plain
-    version on the card; returns that state (folded) and the max abs
-    difference of the tiles."""
+    version on the card, at the cluster size the wrapper chooses or at
+    ``cluster``; returns that state (folded) and the max abs difference of
+    the tiles."""
     import torch
 
     from schwarz_tpu_torch.ops.async_ras_2d_kernel import (
-        async_ras_2d_rounds_plain)
+        async_ras_2d_rounds, async_ras_2d_rounds_plain)
 
     X, known, aux = solver.init_state()
     state = (solver._fold(X), known, aux)
-    got = solver.launch(*state)
+    got = solver.launch(*state, cluster=cluster)
     torch.cuda.synchronize()
+    C = async_ras_2d_rounds.cluster
     ref = solver.launch(*state, fn=async_ras_2d_rounds_plain)
     err = float((got[0] - ref[0]).abs().max())
     tol = 1e-5 * float(ref[0].abs().max())
@@ -551,9 +582,11 @@ def _k6_against_plain(sm: Smoke, solver, what: str):
     sm.check(err <= tol and same,
              f"K6 async_ras_2d_rounds, {what}, {solver.chunk_rounds} rounds, "
              f"ranks {solver.pdy}x{solver.pdx} of {solver.ply}x{solver.plx} "
-             f"windows: max abs err {err:.3e} <= {tol:.3e} (float64 sums of "
-             f"the same float32 products: equal up to ties), known bits, "
-             f"rn0, done_at and round counter equal: {same}")
+             f"windows, {C} blocks per rank"
+             f"{' (chosen)' if cluster is None else ''}: max abs err "
+             f"{err:.3e} <= {tol:.3e} (float64 sums of the same float32 "
+             f"products: equal up to ties), known bits, rn0, done_at and "
+             f"round counter equal: {same}")
     return state, err
 
 
@@ -589,7 +622,12 @@ def block_grid_phases(sm: Smoke) -> None:
           f"by={p.by} Bx={p.Bx} By={p.By} refine={refine}", flush=True)
 
     # --- 11. K6 against its plain version ------------------------------------
+    from schwarz_tpu_torch.ops import cuda_build
+    from schwarz_tpu_torch.ops.async_ras_2d_kernel import async_ras_2d_rounds
+
     state, err = _k6_against_plain(sm, solver, "the 2-D slice's shapes")
+    chosen = async_ras_2d_rounds.cluster
+    _k6_against_plain(sm, solver, "the 2-D slice's shapes", cluster=1)
     cells = solver.D * solver.ply * p.By * solver.plx * p.Bx
     # every input read once (9 coefficient planes, b, dinv, both masks, the
     # tile) and the tile written once; the operations of the planes that
@@ -597,16 +635,30 @@ def block_grid_phases(sm: Smoke) -> None:
     planes = int(sum(bool(p.coef[:, k].any()) for k in range(9)))
     n_ops = solver.chunk_rounds * solver.ninner * (2 * planes + 13) * cells
     bound, by = _bound_ms(4 * 15 * cells, n_ops, "float32")
+    ms1 = sm.ms(lambda: solver.launch(*state, cluster=1), 3)
     sm.kernels["async_ras_2d"] = dict(
-        max_abs_err=err,
+        max_abs_err=err, cluster=chosen,
         ms=sm.ms(lambda: solver.launch(*state), 3),
         plain_ms=sm.ms(lambda: solver.launch(
             *state, fn=async_ras_2d_rounds_plain), 1),
         bound_ms=bound, bound_by=by, library_ms=None)
+    ms1b = sm.ms(lambda: solver.launch(*state, cluster=1), 3)
+    sm.kernels["async_ras_2d"]["ms_one_block"] = (ms1 + ms1b) / 2
+    fits = [cuda_build.library("async_ras_2d").async_ras_2d_max_clusters(
+        9 if planes == 9 else 5, c) for c in range(8, 0, -1)]
+    for c in (4, 8):
+        if c != chosen and fits[8 - c] >= solver.D:
+            t = sm.ms(lambda: solver.launch(*state, cluster=c), 3)
+            print(f"K6 at {c} blocks per rank: {t:.4f} ms per launch",
+                  flush=True)
     v = sm.kernels["async_ras_2d"]
-    print(f"async_ras_2d: ms={v['ms']:.4f} plain_ms={v['plain_ms']:.4f} "
-          f"bound_ms={v['bound_ms']:.4f} ({v['bound_by']}, {planes} nonzero "
-          f"planes, {cells} cells) library_ms=None", flush=True)
+    print(f"async_ras_2d: ms={v['ms']:.4f} at {chosen} blocks per rank "
+          f"({chosen * solver.D} of the card's SMs), {ms1:.4f} / {ms1b:.4f} "
+          f"ms at 1 block per rank (before / after); plain_ms="
+          f"{v['plain_ms']:.4f} bound_ms={v['bound_ms']:.4f} "
+          f"({v['bound_by']}, {planes} nonzero planes, {cells} cells) "
+          f"library_ms=None; clusters the card holds at 8..1 blocks: {fits}",
+          flush=True)
     A256 = laplacian_2d(256)
     An = anisotropic_diffusion_2d(128, eps=5.0, theta=0.4)
     small = dict(tolerance=1e-3, ninner=8, chunk_rounds=16)
@@ -627,7 +679,8 @@ def block_grid_phases(sm: Smoke) -> None:
         n_l = launches["async_ras_2d"]
         n_rounds = n_l * solver.chunk_rounds
         print(f"2-D free-running slice ({tag}): {n_rounds} rounds in {n_l} "
-              f"launches, run loop {res.solve_time_s:.4f} s = "
+              f"launches of {async_ras_2d_rounds.cluster} blocks per rank, "
+              f"run loop {res.solve_time_s:.4f} s = "
               f"{1e3 * res.solve_time_s / max(n_rounds, 1):.3f} ms/round, "
               f"solve() wall with setup {wall:.2f} s, converged="
               f"{res.converged}, true relative residual "
@@ -1184,6 +1237,10 @@ def main() -> int:
     print("global residual history: " + " ".join(
         f"{v:.6e}" for v in res.global_resnorm_history), flush=True)
     print(f"launches in the slice: {launches}", flush=True)
+    from schwarz_tpu_torch.ops.fused_cg import fused_cg_solve
+
+    print(f"K3 on the slice: {fused_cg_solve.cluster} blocks per subdomain, "
+          f"{fused_cg_solve.variant} memory", flush=True)
     for k in ("dia_spmv", "halo_runs", "fused_cg"):
         sm.check(launches[k] > 0,
                  f"{k} launched {launches[k]} times on the main path")
@@ -1301,7 +1358,7 @@ def main() -> int:
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
-            **{e: k[e] for e in ("cluster", "ms_one_block",
+            **{e: k[e] for e in ("cluster", "variant", "ms_one_block",
                                  "rounds_per_launch") if e in k}})
     if sm.failures:
         print(f"chip_smoke: {len(sm.failures)} phase(s) failed: "

@@ -189,20 +189,24 @@ __device__ void jacobi_bicgstab(Op&& A, int n, int ninner, float rho_n,
 
 // ---- a rank on a thread-block cluster -------------------------------------
 
-// One block of a cluster owns rows [q0, q1) of the rank's vectors; the
-// cluster's blocks together own all of them.  A reduction sums the block's
-// float32 products in float64 into a partial in its shared memory; after
-// one cluster barrier every block reads the C partials through distributed
-// shared memory and adds them in the order 0..C-1, so every block of the
-// rank holds the same bits, rounded to float32 as block_sum rounds them.
+// One block of a cluster (of at most 8 blocks of NT threads) owns rows
+// [q0, q1) of the rank's vectors; the cluster's blocks together own all of
+// them.  A reduction sums the block's float32 products in float64 into a
+// partial in its shared memory; after one cluster barrier warp 0 of every block reads the C partials through
+// distributed shared memory (lane c block c's) and adds them in the order
+// 0..C-1, so every block of the rank holds the same bits, rounded to
+// float32 as block_sum rounds them; the block then reads the totals from
+// its own shared memory (``sh`` holds kSumScratch doubles).
 // The partial slots alternate between two buffers, so that a block may
 // write the next reduction's partial while another still reads this one's:
 // one cluster barrier per reduction.  ``sync`` is the cluster's barrier: a
 // block reads other blocks' rows of a vector in global memory only after
 // it, and with __ldcg (L1 is not coherent across SMs).
 constexpr int kMaxSum = 2;  // terms of one reduction
+constexpr int kSumScratch = kMaxSum * kWarps + kMaxSum;  // doubles of ``sh``
 
-struct ClusterTeam {
+template <int NT>
+struct ClusterTeamT {
   int q0, q1;
   double* part;  // this block's (2, kMaxSum) partial slots, in shared memory
   int buf;
@@ -224,24 +228,35 @@ struct ClusterTeam {
     if (warp == 0) {
 #pragma unroll
       for (int n = 0; n < N; ++n) {
-        const double s = warp_sum(sh[n * kWarps + lane]);
+        const double s = warp_sum(lane < NT / 32 ? sh[n * kWarps + lane]
+                                                 : 0.0);
         if (lane == 0) mine[n] = s;
       }
     }
     cl.sync();
     const int C = (int)cl.num_blocks();
+    // warp 0 reads the C partials, lane c block c's, and adds them in block
+    // order; the block reads the totals from its own shared memory
+    double* tot = sh + kMaxSum * kWarps;
+    if (warp == 0) {
 #pragma unroll
-    for (int n = 0; n < N; ++n) {
-      double t = 0.0;
-      for (int c = 0; c < C; ++c) t += cl.map_shared_rank(mine, c)[n];
-      v[n] = (float)t;
+      for (int n = 0; n < N; ++n) {
+        const double pc = lane < C ? cl.map_shared_rank(mine, lane)[n] : 0.0;
+        double t = 0.0;
+        for (int c = 0; c < C; ++c) t += __shfl_sync(0xffffffffu, pc, c);
+        if (lane == 0) tot[n] = (float)t;
+      }
     }
+    __syncthreads();
+#pragma unroll
+    for (int n = 0; n < N; ++n) v[n] = tot[n];
     buf ^= 1;
   }
   __device__ __forceinline__ void sync() {
     cooperative_groups::this_cluster().sync();
   }
 };
+using ClusterTeam = ClusterTeamT<kThreads>;
 
 // Rows a thread keeps in flight: a rank's loops are bound by the latency of
 // their loads (one block streams a chunk of rows through one SM), so in a
@@ -261,23 +276,23 @@ struct Vals {
 // kRowsInFlight rows at a time, every load before the first store.  ``load``
 // only reads; the rows' order, and so each thread's order of summation, is
 // the plain loop's.
-template <int U = kRowsInFlight, class Load, class Store>
-__device__ __forceinline__ void for_rows(const ClusterTeam& team, Load&& load,
-                                         Store&& store) {
-  for (int q = team.q0 + (int)threadIdx.x; q < team.q1; q += U * kThreads) {
+template <int U = kRowsInFlight, int NT, class Load, class Store>
+__device__ __forceinline__ void for_rows(const ClusterTeamT<NT>& team,
+                                         Load&& load, Store&& store) {
+  for (int q = team.q0 + (int)threadIdx.x; q < team.q1; q += U * NT) {
     decltype(load(q)) v[U];
 #pragma unroll
     for (int u = 0; u < U; ++u)
-      if (q + u * kThreads < team.q1) v[u] = load(q + u * kThreads);
+      if (q + u * NT < team.q1) v[u] = load(q + u * NT);
 #pragma unroll
     for (int u = 0; u < U; ++u)
-      if (q + u * kThreads < team.q1) store(q + u * kThreads, v[u]);
+      if (q + u * NT < team.q1) store(q + u * NT, v[u]);
   }
 }
 
 // jacobi_pcg over the team's rows.
-template <class Op>
-__device__ void cluster_pcg(ClusterTeam& team, Op&& A, int ninner, float rho,
+template <class Team, class Op>
+__device__ void cluster_pcg(Team& team, Op&& A, int ninner, float rho,
                             float* r, float* p, float* zz, float* ap,
                             const float* __restrict__ dv, double* red) {
   for (int it = 0; it < ninner; ++it) {
@@ -314,8 +329,8 @@ __device__ void cluster_pcg(ClusterTeam& team, Op&& A, int ninner, float rho,
 }
 
 // jacobi_bicgstab over the team's rows.
-template <class Op>
-__device__ void cluster_bicgstab(ClusterTeam& team, Op&& A, int ninner,
+template <class Team, class Op>
+__device__ void cluster_bicgstab(Team& team, Op&& A, int ninner,
                                  float rho_n, const float* r, float* zz,
                                  float* rr, float* p, float* v, float* s,
                                  float* tv, const float* __restrict__ dv,

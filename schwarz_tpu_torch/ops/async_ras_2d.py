@@ -387,10 +387,10 @@ class AsyncRASolver2D:
         return tuple(torch.from_numpy(np.ascontiguousarray(
             data[f"arr_{i}"], np.float32)).to(self.device) for i in range(3))
 
-    def launch(self, x, known, aux, fn=async_ras_2d_rounds):
+    def launch(self, x, known, aux, fn=async_ras_2d_rounds, **extra):
         """One launch: ``chunk_rounds`` rounds of all ranks on the folded
         iterate ``x`` (D, FY, FX).  ``fn`` is K6's wrapper or its plain
-        version."""
+        version; ``extra`` goes to ``fn`` (K6's ``cluster=``)."""
         d = self._dev
         return fn(
             d["coef"], d["b"], d["dinv"], d["mask_dom"], d["mask_int"],
@@ -398,7 +398,7 @@ class AsyncRASolver2D:
             pdx=self.pdx, pdy=self.pdy, ply=self.ply, plx=self.plx,
             rounds=self.chunk_rounds, staleness=self.staleness,
             ninner=self.ninner, tol=self.tolerance,
-            fresh_read=self.fresh_read, nonsym=self.nonsym,
+            fresh_read=self.fresh_read, nonsym=self.nonsym, **extra,
         )
 
     def init_state(self):

@@ -9,7 +9,12 @@ messages, consumes its four neighbours' messages of round t-B, acknowledges
 them, gossips convergence in band, runs its correction solve (Jacobi-PCG or
 BiCGStab on the 9-point operator, with the optional O-RAS Robin diagonal)
 and freezes once it knows every rank converged (source:
-``csrc/async_ras_2d.cu``).
+``csrc/async_ras_2d.cu``).  The operations of the inner iterations bound
+it on the card; the first version ran a rank on one SM.  Now a rank is a
+cluster of C thread blocks of 512 threads on C SMs, block c owning a
+contiguous band of the rank's tile rows; C is the largest of 8 down to 1
+for which the card holds D such clusters at once
+(:func:`.cluster_geometry.choose_cluster`).
 
 Layout, for D = pdx*pdy ranks that each fold a (ply, plx) sub-grid of
 (By, Bx) windows into one (FY, FX) = (ply*By, plx*Bx) tile: ``coef``
@@ -30,9 +35,15 @@ emulation reads message t-1 in every direction, one legal schedule.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from schwarz_tpu_torch.ops import cuda_build
+from schwarz_tpu_torch.ops.cluster_geometry import (ANY_CLUSTER_SIZES,
+                                                    choose_cluster,
+                                                    require_cluster,
+                                                    split_rows)
 from schwarz_tpu_torch.ops.async_ras_kernel import (
     LANES,
     bicgstab_plain,
@@ -42,6 +53,7 @@ from schwarz_tpu_torch.ops.async_ras_kernel import (
 
 HX = 64   # left/right halo width: 63 cells of overlap + the stencil ring
 HY = 8    # top/bottom halo height: 7 cells of overlap + the stencil ring
+_max_clusters: dict = {}   # (device, points, C) -> clusters the card holds
 
 # (dy, dx) of the stencil planes C, E, W, S, N, SE, SW, NE, NW
 _SHIFTS = ((0, 0), (0, 1), (0, -1), (1, 0), (-1, 0),
@@ -180,13 +192,22 @@ def async_ras_2d_rounds(
     coef, b, dinv, mask_dom, mask_int, x, known, aux, boost=None, *,
     pdx: int, pdy: int, ply: int, plx: int, rounds: int, staleness: int,
     ninner: int, tol: float, fresh_read: bool = False, nonsym: bool = False,
+    cluster: Optional[int] = None,
 ):
     """``rounds`` free-running rounds of all D ranks; K6 on the card.
 
-    One cooperative launch, one 1024-thread block per rank (all ranks
-    resident at once, or the waits would deadlock).  Raises when the card
-    cannot hold D blocks, when a wait times out, and for ``fresh_read``
-    before the flag-order probe (K9) has passed in this process."""
+    One cooperative launch; a rank is a cluster of C 512-thread blocks,
+    each owning a band of the rank's tile rows, and all D clusters are
+    resident at once (the ranks spin on each other).  C is the largest size
+    of :data:`.cluster_geometry.ANY_CLUSTER_SIZES` for which the card holds
+    D clusters, unless ``cluster`` forces one (the solvers never do; the
+    tests and the smoke run compare sizes); the C of the last launch is kept
+    in ``async_ras_2d_rounds.cluster``.  The operator walks each band's
+    cells without integer division, and a rank's reductions are float64
+    partials per block summed over the cluster in block order.  Raises when
+    the card cannot hold D clusters of C blocks, when a wait times out, and
+    for ``fresh_read`` before the flag-order probe (K9) has passed in this
+    process."""
     kw = dict(pdx=pdx, pdy=pdy, ply=ply, plx=plx, rounds=rounds,
               staleness=staleness, ninner=ninner, tol=tol,
               fresh_read=fresh_read, nonsym=nonsym)
@@ -212,6 +233,9 @@ def async_ras_2d_rounds(
             or FY // ply <= 2 * HY or FX // plx <= 2 * HX):
         raise ValueError("async_ras_2d_rounds: operand shapes do not match "
                          f"D={D}, tile ({FY}, {FX}), windows ({ply}, {plx})")
+    if FY * FX >= 1 << 24:
+        raise ValueError(f"async_ras_2d_rounds: a tile of {FY * FX} cells; "
+                         "the kernel takes fewer than 2^24")
     if D > LANES:
         raise ValueError(f"async_ras_2d_rounds: {D} ranks; the gossip keeps "
                          f"one lane per rank, at most {LANES}")
@@ -224,13 +248,19 @@ def async_ras_2d_rounds(
     # +-0 to every sum, so the result is the same
     points = 9 if bool(coef[:, 5:].any()) else 5
     lib = cuda_build.library("async_ras_2d")
-    with torch.cuda.device(x.device):
-        cap = lib.async_ras_2d_max_ranks(points)
-    if D > cap:
-        raise RuntimeError(
-            f"async_ras_2d_rounds: {D} ranks need {D} co-resident "
-            f"1024-thread blocks; this card holds {cap} — use fewer ranks "
-            "(num_ranks)")
+
+    def fits(c: int) -> int:
+        key = (x.device, points, c)
+        if key not in _max_clusters:
+            with torch.cuda.device(x.device):
+                _max_clusters[key] = lib.async_ras_2d_max_clusters(points, c)
+        return _max_clusters[key]
+
+    C = (choose_cluster(D, fits, ANY_CLUSTER_SIZES) if cluster is None
+         else int(cluster))
+    require_cluster("async_ras_2d_rounds", D, C, fits, ANY_CLUSTER_SIZES,
+                    need=D, unit="rank")
+    band, _ = split_rows(FY, C)
     M = 2 * B + 2
     slot = max(FY * HX, HY * FX) + LANES
     nwork = (7 if nonsym else 4) + (1 if ply * plx > 1 else 0)
@@ -251,9 +281,11 @@ def async_ras_2d_rounds(
             *(o.data_ptr() for o in out), work.data_ptr(), ring.data_ptr(),
             sync.data_ptr(), pdx, pdy, ply, plx, FY // ply, FX // plx, HY,
             HX, rounds, B, ninner, int(bool(nonsym)), int(bool(fresh_read)),
-            points, float(tol) * float(tol), cuda_build.stream_ptr(dev)),
+            points, float(tol) * float(tol), C, band,
+            cuda_build.stream_ptr(dev)),
         "async_ras_2d_rounds")
     async_ras_2d_rounds.launches += 1
+    async_ras_2d_rounds.cluster = C
     err = int(sync[-1].item())
     if err:
         what = {1: "an acknowledgement", 2: "a neighbour's message",
@@ -265,3 +297,4 @@ def async_ras_2d_rounds(
 
 
 async_ras_2d_rounds.launches = 0
+async_ras_2d_rounds.cluster = None    # blocks per rank of the last launch

@@ -34,27 +34,18 @@ available in lockstep: one legal schedule among many.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from schwarz_tpu_torch.ops import cuda_build
+from schwarz_tpu_torch.ops.cluster_geometry import (  # noqa: F401  re-exported
+    CLUSTER_SIZES, choose_cluster)
 
 LANES = 128                # known-converged bit lanes: at most 128 ranks
 MAX_GMRES_M = 64           # Hessenberg held in shared memory
-CLUSTER_SIZES = (8, 4, 2, 1)   # blocks per rank, largest first
 _SOLVERS = {"cg": 0, "bicgstab": 1, "gmres": 2}
 _max_clusters: dict = {}   # (device, K, C) -> clusters the card holds
-
-
-def choose_cluster(n_ranks: int, max_clusters: Callable[[int], int]) -> int:
-    """Blocks per rank: the largest C of :data:`CLUSTER_SIZES` for which
-    the card holds ``n_ranks`` clusters of C blocks at once
-    (``max_clusters(C)``); 0 when not even single blocks fit."""
-    for c in CLUSTER_SIZES:
-        if max_clusters(c) >= n_ranks:
-            return c
-    return 0
 
 
 def _sdiv(a, b):

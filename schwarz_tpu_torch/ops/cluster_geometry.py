@@ -1,0 +1,71 @@
+"""Launch geometry of the kernels that run one unit of work (a rank of the
+free-running tiers, a subdomain of the fused CG) on a thread-block cluster.
+
+A cluster is C thread blocks on C neighbouring SMs that share each other's
+shared memory.  The card places a cluster inside one GPC, so how many
+clusters of C blocks it holds at once is not 132 / C; the kernels' wrappers
+ask the card (``cudaOccupancyMaxActiveClusters``) through a ``fits(C)``
+probe and choose C here.  Everything in this module is plain Python, so the
+CPU tests reach it.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Sequence, Tuple
+
+CLUSTER_SIZES = (8, 4, 2, 1)                   # K5's sizes, largest first
+ANY_CLUSTER_SIZES = (8, 7, 6, 5, 4, 3, 2, 1)   # every portable size
+SMEM_PER_BLOCK = 232448      # bytes of shared memory a block may have (H100)
+SMEM_STATIC_RESERVE = 2048   # the kernels' static shared memory, rounded up
+_SMEM_CAP = SMEM_PER_BLOCK - SMEM_STATIC_RESERVE
+
+
+def choose_cluster(n_units: int, max_clusters: Callable[[int], int],
+                   sizes: Sequence[int] = CLUSTER_SIZES) -> int:
+    """Blocks per unit: the largest C of ``sizes`` for which the card holds
+    ``n_units`` clusters of C blocks at once (``max_clusters(C)``), so that
+    all units run in one wave; 0 when none does."""
+    for c in sizes:
+        if max_clusters(c) >= n_units:
+            return c
+    return 0
+
+
+def require_cluster(what: str, n_units: int, C: int,
+                    max_clusters: Callable[[int], int],
+                    sizes: Sequence[int], need: int, unit: str) -> None:
+    """Raise unless C is one of ``sizes`` and the card holds ``need``
+    clusters of C blocks at once (``need`` is ``n_units`` for kernels whose
+    units wait on each other, 1 for independent ones)."""
+    have = max_clusters(C) if C in sizes else 0
+    if have < need:
+        raise RuntimeError(
+            f"{what}: {n_units} {unit}s on clusters of {C} thread blocks "
+            f"need {need} co-resident clusters; this card holds {have} "
+            f"(sizes {tuple(sizes)})")
+
+
+def split_rows(n_rows: int, C: int, align: int = 1) -> Tuple[int, list]:
+    """Contiguous shares of ``n_rows`` over C blocks: the chunk length
+    (ceil(n_rows / C) rounded up to ``align``) and each block's [r0, r1).
+    Every row is owned once; trailing blocks may own fewer rows, or none."""
+    chunk = -(-(-(-n_rows // C)) // align) * align
+    return chunk, [(min(n_rows, c * chunk), min(n_rows, (c + 1) * chunk))
+                   for c in range(C)]
+
+
+def fused_cg_smem_bytes(n_rows: int, C: int, jacobi: bool) -> int:
+    """Dynamic shared memory of a block of K3's shared-memory variant: its
+    chunk of x, r, p and A p, float32, and of dinv too (with Jacobi) when
+    that still fits; otherwise dinv is read from device memory."""
+    chunk, _ = split_rows(n_rows, C, 32)
+    five = chunk * 5 * 4
+    return five if jacobi and five <= _SMEM_CAP else chunk * 4 * 4
+
+
+def fused_cg_variant(n_rows: int, C: int, jacobi: bool) -> str:
+    """'shared' when a block's chunk of K3's x, r, p and A p fits its shared
+    memory, else 'global' (the same kernel with the vectors in device
+    memory)."""
+    fits = fused_cg_smem_bytes(n_rows, C, jacobi) <= _SMEM_CAP
+    return "shared" if fits else "global"

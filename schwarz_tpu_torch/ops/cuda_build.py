@@ -51,16 +51,17 @@ SIGNATURES = {
         "halo_runs_f64": (_P, _LL, _P, _P, _P, _P, _I, _I, _I, _P),
     },
     "fused_cg": {
+        "fused_cg_max_clusters": (_I, _I, _I),
         "fused_cg_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                         _P, _F, _I, _P),
+                         _P, _F, _I, _I, _I, _I, _P),
     },
     "async_ras": {
         "async_ras_max_clusters": (_I, _I),
         "async_ras_f32": (_P,) * 19 + (_I,) * 10 + (_P, _F, _I, _P),
     },
     "async_ras_2d": {
-        "async_ras_2d_max_ranks": (_I,),
-        "async_ras_2d_f32": (_P,) * 15 + (_I,) * 14 + (_F, _P),
+        "async_ras_2d_max_clusters": (_I, _I),
+        "async_ras_2d_f32": (_P,) * 15 + (_I,) * 14 + (_F, _I, _I, _P),
     },
     "async_ras_general": {
         "async_general_max_ranks": (),

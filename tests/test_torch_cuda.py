@@ -31,6 +31,7 @@ from schwarz_tpu_torch.core.decompose import decompose
 from schwarz_tpu_torch.ops.async_ras_kernel import (CLUSTER_SIZES,
                                                     async_ras_rounds,
                                                     async_ras_rounds_plain)
+from schwarz_tpu_torch.ops.cluster_geometry import ANY_CLUSTER_SIZES
 from schwarz_tpu_torch.ops.dia_kernel import dia_spmv, dia_spmv_plain
 from schwarz_tpu_torch.ops.fused_cg import fused_cg_solve, fused_cg_solve_plain
 from schwarz_tpu_torch.ops.halo_kernel import assemble_runs, assemble_runs_plain
@@ -107,13 +108,14 @@ def test_halo_runs_bit_identical(dev, dtype):
     assert torch.equal(buf, ref)
 
 
-@pytest.mark.parametrize("jacobi", [False, True])
-def test_fused_cg_matches_plain(dev, jacobi):
-    S, R, n1d = 4, 1024, 32
+def _cg_args(dev, S, R, n1d, jacobi, shift=0.0):
+    """A batched 5-point operator on (R / n1d, n1d) grids, diagonal
+    4 + shift + s / 2 in subdomain s, and a random rhs that is zero in the
+    last subdomain (which must never iterate)."""
     offsets = (-n1d, -1, 0, 1, n1d)
     r = np.arange(R)
     dia = np.zeros((S, 5, R))
-    dia[:, 2] = 4.0 + np.arange(S)[:, None] * 0.5
+    dia[:, 2] = 4.0 + shift + np.arange(S)[:, None] * 0.5
     for k, o in enumerate(offsets):
         if o:
             ok = (r + o >= 0) & (r + o < R)
@@ -122,16 +124,54 @@ def test_fused_cg_matches_plain(dev, jacobi):
             dia[:, k, ok] = -1.0
     rng = np.random.default_rng(2)
     b = rng.standard_normal((S, R))
-    b[3] = 0.0                             # a subdomain that never iterates
+    b[S - 1] = 0.0
     t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa
     dinv = t(1.0 / dia[:, 2]) if jacobi else None
-    args = (offsets, t(dia), t(b), t(np.zeros((S, R))), dinv, 1e-5, 200)
-    got = fused_cg_solve(*args)
+    return (offsets, t(dia), t(b), t(np.zeros((S, R))), dinv, 1e-5, 200)
+
+
+def _cg_check(args, C, variant):
+    n0 = fused_cg_solve.launches
+    got = fused_cg_solve(*args, cluster=C)
     torch.cuda.synchronize()
+    assert fused_cg_solve.launches == n0 + 1
+    if C is not None:
+        assert fused_cg_solve.cluster == C
+    assert fused_cg_solve.variant == variant
     ref = fused_cg_solve_plain(*args)
-    assert int(got.iters[3]) == 0
+    assert int(got.iters[-1]) == 0
     assert (got.iters - ref.iters).abs().max().item() <= 1
     torch.testing.assert_close(got.x, ref.x, rtol=0, atol=5e-4)
+
+
+@pytest.mark.parametrize("C", [None, 1, 2, 4, 8])
+@pytest.mark.parametrize("jacobi", [False, True])
+def test_fused_cg_matches_plain(dev, jacobi, C):
+    """K3 at the chosen cluster size and forced ones, the vectors in shared
+    memory: x within float32 sum order of the plain CG, iterations within
+    one, and the zero-rhs subdomain at 0 iterations."""
+    _cg_check(_cg_args(dev, 4, 1024, 32, jacobi), C, "shared")
+
+
+@pytest.mark.parametrize("C", [2, 4, 8])
+def test_fused_cg_offsets_cross_chunks(dev, C):
+    """Offsets of +-300 rows against chunks of 512, 256 and 128 rows: the
+    product reads the next block's p, and at C = 8 a block two or three
+    chunks away, through distributed shared memory."""
+    _cg_check(_cg_args(dev, 3, 1024, 300, True, shift=0.5), C, "shared")
+
+
+@pytest.mark.parametrize("C", [1, 2])
+def test_fused_cg_global_memory_variant(dev, C):
+    """32768 rows on 1 or 2 blocks do not fit shared memory: the same
+    kernel keeps the vectors in device memory."""
+    _cg_check(_cg_args(dev, 2, 32768, 128, True, shift=0.5), C, "global")
+
+
+def test_fused_cg_refuses_a_cluster_it_cannot_hold(dev):
+    args = _cg_args(dev, 2, 1024, 32, True)
+    with pytest.raises(RuntimeError, match="clusters"):
+        fused_cg_solve(*args, cluster=9)
 
 
 def test_smoke_x2_matches_plain(dev):
@@ -288,10 +328,12 @@ def test_async_fresh_read_after_probe(dev):
                                oras_weight=-0.8)),          # 9-point
     ("adv128", 2, 2, 4, dict(tolerance=1e-3, ninner=8, nonsym=True)),
 ])
-def test_async_ras_2d_matches_plain(dev, op, px, py, D, kw):
-    """Two 8-round launches of K6 against the lockstep emulation.  Without
-    fresh_read the rounds do not depend on timing, and both sides sum the
-    same float32 products in float64 without FMA: equal up to ties."""
+@pytest.mark.parametrize("C", [None, 1, 2, 4])
+def test_async_ras_2d_matches_plain(dev, op, px, py, D, kw, C):
+    """Two 8-round launches of K6, at the chosen cluster size and forced
+    ones, against the lockstep emulation.  Without fresh_read the rounds do
+    not depend on timing, and both sides sum the same float32 products in
+    float64 without FMA: equal up to ties."""
     A = {"lap256": lambda: laplacian_2d(256),
          "aniso128": lambda: anisotropic_diffusion_2d(128, eps=5.0,
                                                       theta=0.4),
@@ -302,15 +344,27 @@ def test_async_ras_2d_matches_plain(dev, op, px, py, D, kw):
     state = (s._fold(X), known, aux)
     for _ in range(2):
         n0 = async_ras_2d_rounds.launches
-        got = s.launch(*state)
+        got = s.launch(*state, cluster=C)
         torch.cuda.synchronize()
         assert async_ras_2d_rounds.launches == n0 + 1
+        assert async_ras_2d_rounds.cluster in ANY_CLUSTER_SIZES
+        if C is not None:
+            assert async_ras_2d_rounds.cluster == C
         ref = s.launch(*state, fn=async_ras_2d_rounds_plain)
         scale = float(ref[0].abs().max())
         torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-5 * scale)
         assert torch.equal(got[1], ref[1])
         assert torch.equal(got[2][:, 1:3], ref[2][:, 1:3])
         state = ref
+
+
+def test_async_ras_2d_refuses_a_cluster_it_cannot_hold(dev):
+    A = laplacian_2d(256)
+    s = AsyncRASolver2D(A, np.ones(A.n), 2, 2, tolerance=1e-3, ninner=8,
+                        chunk_rounds=4, device=dev)
+    X, known, aux = s.init_state()
+    with pytest.raises(RuntimeError, match="clusters"):
+        s.launch(s._fold(X), known, aux, cluster=9)
 
 
 def test_async_ras_2d_converges_like_cpu(dev):
