@@ -20,10 +20,12 @@
    Laplacian, 4 subdomains, 20 iterations, on the card and on the CPU, and
    requires them to match within rtol 1e-8;
 7. holds K8 (x * 2; its time and that of ``x * 2`` the medians of seven
-   alternating reads), K9 (the flag-order probe, 10^4 rounds) and K5 (the
-   free-running rounds, one 16-round launch at the shapes of the 1M-row
-   free-running slice) to their plain versions, timed like phase 3; K5 at
-   the cluster size its wrapper chooses and at one block per rank;
+   alternating reads), K9 (the flag-order probe, 10^4 rounds, producer and
+   consumer each a cluster of C blocks, at the largest C the card holds two
+   of and at C = 1, with every block's SM id) and K5 (the free-running
+   rounds, one 16-round launch at the shapes of the 1M-row free-running
+   slice) to their plain versions, timed like phase 3; K5 at the cluster
+   size its wrapper chooses and at one block per rank;
 8. runs the diagnostics path (``python -m schwarz_tpu_torch.diagnostics
    smoke flagorder``) with K8 and K9 counted;
 9. runs the free-running slice: ``solve`` on ``laplacian_3d(100)`` (10^6
@@ -31,7 +33,8 @@
    float32, 64 rounds, twice (cold, warm), with K5 counted;
 10. runs a converging free-running solve, ``laplacian_2d(64)``, 8 ranks, on
    the card and on the CPU: equal ``done_at``, true residual < 1e-3; then
-   ``fresh_read`` at staleness 3 and ``run_refined`` to 1e-8 on the card;
+   ``fresh_read`` at staleness 3 (its cluster size covered by phase 7's
+   probe) and ``run_refined`` to 1e-8 on the card;
 11. holds K6 (the 2-D block-grid rounds) to its plain version: one
    16-round launch at the shapes of the 2-D slice (16 ranks, 272 x 384
    tiles), at the cluster size its wrapper chooses and at one block per
@@ -44,18 +47,22 @@
 13. runs a converging 2-D solve, ``laplacian_2d(256)``, 4 x 2 blocks on 8
    ranks, on the card and on the CPU: equal ``done_at``, unequal across
    ranks, true residual < 1e-2, error against a direct solve < 5e-3; then
-   ``fresh_read`` at staleness 3 and ``run_refined`` to 1e-8 on the card;
+   ``fresh_read`` at staleness 3 (its cluster size covered by phase 7's
+   probe) and ``run_refined`` to 1e-8 on the card;
 14. holds K7 (the general-graph rounds) to its plain version: one 16-round
    launch at the shapes of the general slice (128 ranks, one per part of a
-   metis partition of a 129 600-row 9-point anisotropic operator), timed
-   like phase 3, then three small variants (``ani4_crop`` on 8 ranks at
-   staleness 2, a 64^2 Laplacian on 16 ranks with O-RAS, 64^2 advection on
-   8 ranks with BiCGStab), each bit for bit;
+   metis partition of a 129 600-row 9-point anisotropic operator), at the
+   variant its size takes (a rank's data in shared memory) and with its
+   data forced into device memory, both timed like phase 3 (the chosen
+   one also with no inner iterations, the rounds' messages and residual
+   alone), then three small variants
+   (``ani4_crop`` on 8 ranks at staleness 2, a 64^2 Laplacian on 16 ranks
+   with O-RAS, 64^2 advection on 8 ranks with BiCGStab), each bit for bit;
 15. runs the general free-running slice: ``solve`` on
    ``anisotropic_diffusion_2d(360, eps=5.0, theta=0.3)``, metis partition,
    128 subdomains, overlap 2, staleness 1, 16 inner CG iterations, float32,
-   64 rounds, twice (cold, warm), with K7 counted and K5 and K6 required to
-   stay at 0;
+   64 rounds, twice (cold, warm), with K7 counted (its variant and threads
+   a block printed) and K5 and K6 required to stay at 0;
 16. runs a converging general solve, ``ani3_crop.mtx``, metis, 4 ranks, on
    the card and on the CPU: equal ``done_at`` and solution, true residual
    < 5e-3; then ``run_refined`` to 1e-8 on a 64^2 Laplacian, metis, 8
@@ -340,20 +347,40 @@ def async_kernel_checks(sm: Smoke, solver) -> None:
     print(f"K8 reads (ms): kernel {reads['ms']}, x * 2 "
           f"{reads['library_ms']}", flush=True)
 
-    # --- K9: the flag-order probe --------------------------------------------
+    # --- K9: the flag-order probe, at the cluster size it chooses (the
+    # largest the card holds two of) and at one block a side ------------------
     n, rounds = 32768, 10000
-    res = dg.flag_order_probe(n, rounds, "cuda")
-    sm.check(res["mismatches"] == 0 and res["error"] == 0
-             and res["producer_sm"] != res["consumer_sm"],
-             f"K9 flag_order_probe: {rounds} rounds of {n} floats, {res}")
-    plain = dg.flag_order_probe_plain(n, rounds, "cuda")
+    res = {}
+    for force in (None, 1):
+        r = dg.flag_order_probe(n, rounds, "cuda", cluster=force)
+        C = r["cluster"]
+        sms = r["producer_sms"] + r["consumer_sms"]
+        sm.check(r["mismatches"] == 0 and r["error"] == 0
+                 and len(set(sms)) == 2 * C,
+                 f"K9 flag_order_probe at C = {C}"
+                 f"{' (chosen)' if force is None else ''}: {rounds} rounds "
+                 f"of {n} floats, {r['mismatches']} mismatches, watchdog "
+                 f"{r['error']}, producer SMs {r['producer_sms']}, consumer "
+                 f"SMs {r['consumer_sms']} ({len(set(sms))} distinct of "
+                 f"{2 * C})")
+        res[force] = r
+    chosen_c = res[None]["cluster"]
+    plain = dg.flag_order_probe_plain(n, rounds, "cuda", cluster=chosen_c)
     bound, by = _bound_ms(2 * rounds * n * 4, 0, "float32")
     sm.kernels["flag_order_probe"] = dict(
-        max_abs_err=float(abs(res["mismatches"] - plain["mismatches"])),
+        max_abs_err=float(abs(res[None]["mismatches"]
+                              - plain["mismatches"])),
+        cluster=chosen_c,
         ms=sm.ms(lambda: dg.flag_order_probe(n, rounds, "cuda"), 3),
+        ms_one_block=sm.ms(
+            lambda: dg.flag_order_probe(n, rounds, "cuda", cluster=1), 3),
         plain_ms=sm.ms(lambda: dg.flag_order_probe_plain(n, rounds, "cuda"),
                        1),
         bound_ms=bound, bound_by=by, library_ms=None)
+    k9 = sm.kernels["flag_order_probe"]
+    print(f"K9 per probe: {k9['ms']:.4f} ms at C = {chosen_c}, "
+          f"{k9['ms_one_block']:.4f} ms at C = 1; passed here up to C = "
+          f"{dg.flag_order_passed('cuda')}", flush=True)
 
     # --- K5: one launch of the free-running slice ----------------------------
     p, d, D = solver.plan, solver._dev, solver.D
@@ -541,15 +568,19 @@ def free_running_phases(sm: Smoke) -> None:
              and i_c["relative_residual_norm"] < 1e-3,
              "64^2 free-running converges on the card with unequal done_at "
              "equal to the CPU run's, true residual < 1e-3")
+    covered = diagnostics.flag_order_passed("cuda")
     fr = AsyncRASolver(A2, b2, 8, **{**kw, "staleness": 3},
                        fresh_read=True)
     _, i_f = fr.run(max_rounds=800)
-    print(f"fresh_read, staleness 3: done_at {i_f['done_at'].tolist()}, "
-          f"hits {i_f['fresh_read_hits']}, true rel "
-          f"{i_f['relative_residual_norm']:.6e}", flush=True)
+    print(f"fresh_read, staleness 3, ranks of {async_ras_rounds.cluster} "
+          f"blocks after a probe that passed at C = {covered}: done_at "
+          f"{i_f['done_at'].tolist()}, hits {i_f['fresh_read_hits']}, true "
+          f"rel {i_f['relative_residual_norm']:.6e}", flush=True)
     sm.check(i_f["converged"] and i_f["fresh_read_hits"] > 0
-             and i_f["relative_residual_norm"] < 1e-3,
-             "fresh_read at staleness 3 converges with hits > 0")
+             and i_f["relative_residual_norm"] < 1e-3
+             and async_ras_rounds.cluster <= covered,
+             "fresh_read at staleness 3 converges with hits > 0, its "
+             "cluster size covered by the probe")
     xr, i_r = AsyncRASolver(A2, b2, 8, **kw).run_refined(tol=1e-8,
                                                          max_rounds=800)
     print(f"run_refined(tol=1e-8): {i_r['restarts']} restarts, "
@@ -597,12 +628,12 @@ def block_grid_phases(sm: Smoke) -> None:
     import scipy.sparse.linalg as spla
     import torch
 
-    from schwarz_tpu_torch import CommSettings, Settings
+    from schwarz_tpu_torch import CommSettings, Settings, diagnostics
     from schwarz_tpu_torch.models import (anisotropic_diffusion_2d,
                                           laplacian_2d)
     from schwarz_tpu_torch.ops.async_ras_2d import AsyncRASolver2D
     from schwarz_tpu_torch.ops.async_ras_2d_kernel import (
-        async_ras_2d_rounds_plain)
+        async_ras_2d_rounds, async_ras_2d_rounds_plain)
     from schwarz_tpu_torch.ras import make_free_running_solver, solve
 
     t0 = time.perf_counter()
@@ -733,14 +764,19 @@ def block_grid_phases(sm: Smoke) -> None:
              "256^2 2-D free-running converges on the card with unequal "
              "done_at equal to the CPU run's, true residual < 1e-2, error "
              "against spsolve < 5e-3")
+    covered = diagnostics.flag_order_passed("cuda")
     _, i_f = AsyncRASolver2D(A256, b2, **{**kw, "staleness": 3},
                              fresh_read=True).run(max_rounds=800)
-    print(f"2-D fresh_read, staleness 3: done_at {i_f['done_at'].tolist()}, "
-          f"hits {i_f['fresh_read_hits']}, true rel "
+    print(f"2-D fresh_read, staleness 3, ranks of "
+          f"{async_ras_2d_rounds.cluster} blocks after a probe that passed "
+          f"at C = {covered}: done_at {i_f['done_at'].tolist()}, hits "
+          f"{i_f['fresh_read_hits']}, true rel "
           f"{i_f['relative_residual_norm']:.6e}", flush=True)
     sm.check(i_f["converged"] and i_f["fresh_read_hits"] > 0
-             and i_f["relative_residual_norm"] < 1e-2,
-             "2-D fresh_read at staleness 3 converges with hits > 0")
+             and i_f["relative_residual_norm"] < 1e-2
+             and async_ras_2d_rounds.cluster <= covered,
+             "2-D fresh_read at staleness 3 converges with hits > 0, its "
+             "cluster size covered by the probe")
     _, i_r = AsyncRASolver2D(A256, b2, **kw).run_refined(tol=1e-8,
                                                          max_rounds=400)
     print(f"2-D run_refined(tol=1e-8): {i_r['restarts']} restarts, "
@@ -750,19 +786,23 @@ def block_grid_phases(sm: Smoke) -> None:
              "2-D run_refined reaches a true relative residual <= 1e-8")
 
 
-def _k7_against_plain(sm: Smoke, solver, what: str):
+def _k7_against_plain(sm: Smoke, solver, what: str, variant=None):
     """One K7 launch of ``solver`` from its zero state, then one from that
-    state (which consumes the carry), against the plain version on the card;
-    returns the zero state and the max abs difference of the iterates."""
+    state (which consumes the carry), against the plain version on the card,
+    at the variant the wrapper chooses or a forced one; returns the zero
+    state and the max abs difference of the iterates."""
     import torch
 
     from schwarz_tpu_torch.ops.async_ras_general_kernel import (
-        async_general_rounds_plain)
+        async_general_rounds, async_general_rounds_plain)
+
+    def k7(*args, **kw):
+        return async_general_rounds(*args, **kw, variant=variant)
 
     state = solver.init_state()
     got, ref, err, same = state, state, 0.0, True
     for _ in range(2):
-        got = solver.launch(*got)
+        got = solver.launch(*got, fn=k7)
         torch.cuda.synchronize()
         ref = solver.launch(*ref, fn=async_general_rounds_plain)
         err = max(err, float((got[0] - ref[0]).abs().max()),
@@ -770,10 +810,13 @@ def _k7_against_plain(sm: Smoke, solver, what: str):
         same = same and (torch.equal(got[1], ref[1])
                          and torch.equal(got[2][:, :3], ref[2][:, :3]))
     p = solver.plan
+    v, nt = async_general_rounds.variant, async_general_rounds.threads
     sm.check(err == 0.0 and same,
              f"K7 async_general_rounds, {what}, 2 x {solver.chunk_rounds} "
              f"rounds, {p.S} ranks, Rext={p.Rext} K={p.K} C={p.C} "
-             f"SEG={p.SEG}: max abs difference of iterate and carry {err:.3e} "
+             f"SEG={p.SEG}, {v} variant"
+             f"{' (chosen)' if variant is None else ''}, {nt} threads a "
+             f"block: max abs difference of iterate and carry {err:.3e} "
              f"== 0 (the same float32 operations in the same order, float64 "
              f"sums), known bits, rn0, done_at and round counter equal: "
              f"{same}")
@@ -793,7 +836,7 @@ def general_graph_phases(sm: Smoke) -> None:
                                           laplacian_2d, matrix_path, read_mtx)
     from schwarz_tpu_torch.ops.async_ras_general import AsyncGeneralRASolver
     from schwarz_tpu_torch.ops.async_ras_general_kernel import (
-        async_general_rounds_plain)
+        async_general_rounds, async_general_rounds_plain)
     from schwarz_tpu_torch.ras import make_free_running_solver, solve
 
     S = 128
@@ -822,8 +865,13 @@ def general_graph_phases(sm: Smoke) -> None:
           f"Rext={p.Rext} K={p.K} SEG={p.SEG} C={p.C}, at most "
           f"{links.max()} partners a rank, refine={refine}", flush=True)
 
-    # --- 14. K7 against its plain version ------------------------------------
+    # --- 14. K7 against its plain version, at the variant its size takes
+    # and with its data forced into device memory -----------------------------
     state, err = _k7_against_plain(sm, solver, "the general slice's shapes")
+    variant = async_general_rounds.variant
+    threads = async_general_rounds.threads
+    _, err_g = _k7_against_plain(sm, solver, "the general slice's shapes",
+                                 variant="global")
     rows = S * p.Rext
     # cols, vals, b, dinv, mask_int and x read once, x written once; per
     # extended row a residual and ninner products of K entries with the
@@ -831,16 +879,30 @@ def general_graph_phases(sm: Smoke) -> None:
     n_bytes = 4 * (2 * p.K * rows + 3 * rows + 2 * S * p.Rint)
     n_ops = solver.chunk_rounds * (solver.ninner + 1) * (2 * p.K + 13) * rows
     bound, by = _bound_ms(n_bytes, n_ops, "float32")
+
+    def k7_ms(**force):
+        return sm.ms(lambda: solver.launch(*state, fn=lambda *a, **k: (
+            async_general_rounds(*a, **{**k, **force}))), 3)
+
     sm.kernels["async_ras_general"] = dict(
-        max_abs_err=err,
-        ms=sm.ms(lambda: solver.launch(*state), 3),
+        max_abs_err=max(err, err_g), variant=variant, threads=threads,
+        ms=k7_ms(), ms_global=k7_ms(variant="global"),
         plain_ms=sm.ms(lambda: solver.launch(
             *state, fn=async_general_rounds_plain), 1),
         bound_ms=bound, bound_by=by, library_ms=None)
     v = sm.kernels["async_ras_general"]
-    print(f"async_ras_general: ms={v['ms']:.4f} plain_ms={v['plain_ms']:.4f} "
-          f"bound_ms={v['bound_ms']:.4f} ({v['bound_by']}, {rows} extended "
-          f"rows, {n_bytes} bytes, {n_ops} operations) library_ms=None",
+    print(f"async_ras_general: ms={v['ms']:.4f} ({variant} variant, "
+          f"{threads} threads a block) ms_global={v['ms_global']:.4f} "
+          f"(global variant, {async_general_rounds.threads} threads a block) "
+          f"plain_ms={v['plain_ms']:.4f} bound_ms={v['bound_ms']:.4f} "
+          f"({v['bound_by']}, {rows} extended rows, {n_bytes} bytes, {n_ops} "
+          f"operations) library_ms=None", flush=True)
+    # the rounds without their inner iterations: messages and the residual
+    fixed = k7_ms(ninner=0)
+    per_it = (v["ms"] - fixed) / (solver.chunk_rounds * solver.ninner)
+    print(f"K7 where a launch goes ({variant} variant): {fixed:.4f} ms for "
+          f"{solver.chunk_rounds} rounds of messages and residual (ninner = "
+          f"0), {1e3 * per_it:.3f} us per inner CG iteration of a round",
           flush=True)
     ani3 = read_mtx(matrix_path("ani3_crop.mtx"))
     ani4 = read_mtx(matrix_path("ani4_crop.mtx"))
@@ -870,7 +932,9 @@ def general_graph_phases(sm: Smoke) -> None:
         n_l = launches["async_ras_general"]
         n_rounds = n_l * solver.chunk_rounds
         print(f"general free-running slice ({tag}): {n_rounds} rounds in "
-              f"{n_l} launches, run loop {res.solve_time_s:.4f} s = "
+              f"{n_l} launches of the {async_general_rounds.variant} variant "
+              f"at {async_general_rounds.threads} threads a block, run loop "
+              f"{res.solve_time_s:.4f} s = "
               f"{1e3 * res.solve_time_s / max(n_rounds, 1):.3f} ms/round, "
               f"solve() wall with partition and plan {wall:.2f} s, converged="
               f"{res.converged}, true relative residual "
@@ -1358,7 +1422,8 @@ def main() -> int:
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
-            **{e: k[e] for e in ("cluster", "variant", "ms_one_block",
+            **{e: k[e] for e in ("cluster", "variant", "threads",
+                                 "ms_one_block", "ms_global",
                                  "rounds_per_launch") if e in k}})
     if sm.failures:
         print(f"chip_smoke: {len(sm.failures)} phase(s) failed: "

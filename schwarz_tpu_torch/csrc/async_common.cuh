@@ -2,9 +2,10 @@
 // banded tier, async_ras_2d.cu, the 2-D block-grid tier, and
 // async_ras_general.cu, the general tier): the release/acquire handoff
 // between ranks, the watchdog spin, the float64 reductions and the
-// correction solves that take any operator.  A rank is one thread block
-// (block_sum, jacobi_pcg, jacobi_bicgstab: the 2-D and general tiers) or a
-// thread-block cluster (ClusterTeam and the cluster_* solves: the 1-D tier).
+// correction solves that take any operator.  A rank is one thread block of
+// NT threads (block_sum, jacobi_pcg, jacobi_bicgstab: the general tier) or a
+// thread-block cluster (ClusterTeam and the cluster_* solves: the 1-D and
+// 2-D tiers).  The flag-order probe (diagnostics.cu) runs the same handoff.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -72,28 +73,29 @@ __device__ __forceinline__ double warp_sum(double v) {
 // the caller, so the result does not depend on the summation order (up to
 // a tie at a float32 rounding boundary) and the plain version, which sums
 // the same float32 products in float64, gets the same float32 dot.
-// ``sh`` holds N * kWarps + N doubles.
-template <int N>
+// A block of NT threads; ``sh`` holds N * NT / 32 + N doubles.
+template <int NT, int N>
 __device__ __forceinline__ void block_sum(double (&v)[N], double* sh) {
+  constexpr int NW = NT / 32;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
   for (int n = 0; n < N; ++n) v[n] = warp_sum(v[n]);
   if (lane == 0) {
 #pragma unroll
-    for (int n = 0; n < N; ++n) sh[n * kWarps + warp] = v[n];
+    for (int n = 0; n < N; ++n) sh[n * NW + warp] = v[n];
   }
   __syncthreads();
   if (warp == 0) {
 #pragma unroll
     for (int n = 0; n < N; ++n) {
-      const float s = warp_sum(sh[n * kWarps + lane]);
-      if (lane == 0) sh[N * kWarps + n] = s;
+      const float s = warp_sum(lane < NW ? sh[n * NW + lane] : 0.0);
+      if (lane == 0) sh[N * NW + n] = s;
     }
   }
   __syncthreads();
 #pragma unroll
-  for (int n = 0; n < N; ++n) v[n] = sh[N * kWarps + n];
+  for (int n = 0; n < N; ++n) v[n] = sh[N * NW + n];
   __syncthreads();  // sh is written again by the next call
 }
 
@@ -106,44 +108,45 @@ __device__ __forceinline__ float sdiv(float a, float b) {
 // A_solve (dv * v) when scaled.  They run over the rank's n folded cells
 // with step sizes shared by the whole rank (one polynomial per rank).
 
-// ninner iterations of Jacobi-preconditioned CG on A_solve z = r from z = 0.
-// On entry p = dv * r, zz = 0 and rho = <r, p>; r is overwritten; the
-// correction is left in zz.
-template <class Op>
+// ninner iterations of Jacobi-preconditioned CG on A_solve z = r from z = 0,
+// by a block of NT threads.  On entry p = dv * r, zz = 0 and rho = <r, p>;
+// r is overwritten; the correction is left in zz.  The vectors may lie in
+// shared or in device memory.
+template <int NT, class Op>
 __device__ void jacobi_pcg(Op&& A, int n, int ninner, float rho, float* r,
                            float* p, float* zz, float* ap,
                            const float* __restrict__ dv, double* red) {
   const int tid = threadIdx.x;
   for (int it = 0; it < ninner; ++it) {
     double pap[1] = {0.0};
-    for (int q = tid; q < n; q += kThreads) {
+    for (int q = tid; q < n; q += NT) {
       const float v = A(std::false_type{}, p, q);
       ap[q] = v;
       pap[0] += (double)(p[q] * v);
     }
-    block_sum(pap, red);
+    block_sum<NT>(pap, red);
     const float pa = (float)pap[0];
     const float alpha = pa > 0.f ? rho / fmaxf(pa, FLT_MIN) : 0.f;
     double rho_n[1] = {0.0};
-    for (int q = tid; q < n; q += kThreads) {
+    for (int q = tid; q < n; q += NT) {
       zz[q] = zz[q] + alpha * p[q];
       const float rq = r[q] - alpha * ap[q];
       r[q] = rq;
       rho_n[0] += (double)(rq * (dv[q] * rq));
     }
-    block_sum(rho_n, red);
+    block_sum<NT>(rho_n, red);
     const float rn_ = (float)rho_n[0];
     const float beta = rho > 0.f ? rn_ / fmaxf(rho, FLT_MIN) : 0.f;
-    for (int q = tid; q < n; q += kThreads) p[q] = dv[q] * r[q] + beta * p[q];
+    for (int q = tid; q < n; q += NT) p[q] = dv[q] * r[q] + beta * p[q];
     __syncthreads();  // the next product reads neighbours' p
     rho = rn_;
   }
 }
 
 // ninner iterations of right-Jacobi-preconditioned BiCGStab on
-// A_solve z = r from z = 0.  On entry zz = p = v = 0, rr = r and
-// rho_n = <r, r>; the correction is left in zz.
-template <class Op>
+// A_solve z = r from z = 0, by a block of NT threads.  On entry
+// zz = p = v = 0, rr = r and rho_n = <r, r>; the correction is left in zz.
+template <int NT, class Op>
 __device__ void jacobi_bicgstab(Op&& A, int n, int ninner, float rho_n,
                                 const float* r, float* zz, float* rr,
                                 float* p, float* v, float* s, float* tv,
@@ -152,36 +155,36 @@ __device__ void jacobi_bicgstab(Op&& A, int n, int ninner, float rho_n,
   float rho = 1.f, alpha = 1.f, omega = 1.f;
   for (int it = 0; it < ninner; ++it) {
     const float beta = sdiv(rho_n * alpha, rho * omega);
-    for (int q = tid; q < n; q += kThreads)
+    for (int q = tid; q < n; q += NT)
       p[q] = rr[q] + beta * (p[q] - omega * v[q]);
     __syncthreads();
     double rv[1] = {0.0};
-    for (int q = tid; q < n; q += kThreads) {
+    for (int q = tid; q < n; q += NT) {
       const float vq = A(std::true_type{}, p, q);
       v[q] = vq;
       rv[0] += (double)(r[q] * vq);
     }
-    block_sum(rv, red);
+    block_sum<NT>(rv, red);
     alpha = sdiv(rho_n, (float)rv[0]);
-    for (int q = tid; q < n; q += kThreads) s[q] = rr[q] - alpha * v[q];
+    for (int q = tid; q < n; q += NT) s[q] = rr[q] - alpha * v[q];
     __syncthreads();
     double ts[2] = {0.0, 0.0};
-    for (int q = tid; q < n; q += kThreads) {
+    for (int q = tid; q < n; q += NT) {
       const float tq = A(std::true_type{}, s, q);
       tv[q] = tq;
       ts[0] += (double)(tq * s[q]);
       ts[1] += (double)(tq * tq);
     }
-    block_sum(ts, red);
+    block_sum<NT>(ts, red);
     omega = sdiv((float)ts[0], (float)ts[1]);
     double rn_next[1] = {0.0};
-    for (int q = tid; q < n; q += kThreads) {
+    for (int q = tid; q < n; q += NT) {
       zz[q] = zz[q] + alpha * (dv[q] * p[q]) + omega * (dv[q] * s[q]);
       const float rq = s[q] - omega * tv[q];
       rr[q] = rq;
       rn_next[0] += (double)(r[q] * rq);
     }
-    block_sum(rn_next, red);
+    block_sum<NT>(rn_next, red);
     rho = rho_n;
     rho_n = (float)rn_next[0];
   }

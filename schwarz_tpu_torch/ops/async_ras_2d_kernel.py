@@ -206,8 +206,8 @@ def async_ras_2d_rounds(
     cells without integer division, and a rank's reductions are float64
     partials per block summed over the cluster in block order.  Raises when
     the card cannot hold D clusters of C blocks, when a wait times out, and
-    for ``fresh_read`` before the flag-order probe (K9) has passed in this
-    process."""
+    for ``fresh_read`` unless the flag-order probe (K9) has passed in this
+    process at a cluster of at least the C about to launch."""
     kw = dict(pdx=pdx, pdy=pdy, ply=ply, plx=plx, rounds=rounds,
               staleness=staleness, ninner=ninner, tol=tol,
               fresh_read=fresh_read, nonsym=nonsym)
@@ -240,10 +240,6 @@ def async_ras_2d_rounds(
         raise ValueError(f"async_ras_2d_rounds: {D} ranks; the gossip keeps "
                          f"one lane per rank, at most {LANES}")
     B = max(staleness, 1)
-    if fresh_read and B > 1:
-        from schwarz_tpu_torch.diagnostics import require_flag_order
-
-        require_flag_order(x.device)
     # a 5-point operator skips the four diagonal planes: a zero plane adds
     # +-0 to every sum, so the result is the same
     points = 9 if bool(coef[:, 5:].any()) else 5
@@ -260,6 +256,10 @@ def async_ras_2d_rounds(
          else int(cluster))
     require_cluster("async_ras_2d_rounds", D, C, fits, ANY_CLUSTER_SIZES,
                     need=D, unit="rank")
+    if fresh_read and B > 1:
+        from schwarz_tpu_torch.diagnostics import require_flag_order
+
+        require_flag_order(x.device, C)
     band, _ = split_rows(FY, C)
     M = 2 * B + 2
     slot = max(FY * HX, HY * FX) + LANES

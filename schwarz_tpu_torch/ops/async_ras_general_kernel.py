@@ -26,6 +26,12 @@ float32 products in float64 and round once, a row's product is summed over
 its K entries in order in float32, and the kernel is built without FMA
 contraction, as K5 and K6 are (:mod:`.async_ras_kernel`).
 
+A rank is one block.  When the rank's work vectors, ELL planes and dinv
+fit the block's shared memory (:func:`.cluster_geometry.general_variant`)
+the ``shared`` variant copies them there at the launch's start and runs
+512 threads a block; otherwise the ``global`` variant, the same kernel,
+keeps them in device memory and runs 1024.  The choice is by size alone.
+
 :func:`async_general_rounds_plain` is the same function in plain PyTorch: a
 lockstep emulation in which every rank runs round t at once.  A rank blocks
 on message t-B exactly and no slot is reused before it is acknowledged, so
@@ -44,6 +50,11 @@ from schwarz_tpu_torch.ops.async_ras_kernel import (
     dot_f64,
     jacobi_pcg_plain,
 )
+from schwarz_tpu_torch.ops.cluster_geometry import (SMEM_PER_BLOCK,
+                                                    general_smem_bytes,
+                                                    general_variant)
+
+VARIANTS = ("shared", "global")
 
 
 def ell_planes(cols, vals):
@@ -157,13 +168,18 @@ def async_general_rounds_plain(
 def async_general_rounds(
     cols, vals, b, dinv, mask_int, send_idx, recv_slot, tgt_subd, x, known,
     aux, carry, boost=None, *, rounds: int, staleness: int, ninner: int,
-    tol: float, nonsym: bool = False,
+    tol: float, nonsym: bool = False, variant=None,
 ):
     """``rounds`` free-running rounds of all S ranks; K7 on the card.
 
-    One cooperative launch, one 1024-thread block per rank (all ranks
-    resident at once, or the waits would deadlock).  Raises when the card
-    cannot hold S blocks and when a wait times out."""
+    One cooperative launch, one block per rank (all ranks resident at once,
+    or the waits would deadlock).  ``variant`` ('shared' or 'global') forces
+    what :func:`.cluster_geometry.general_variant` otherwise chooses by size
+    (the solvers never force it; the tests and the smoke run compare both).
+    The last launch's variant and threads a block are kept in
+    ``async_general_rounds.variant`` and ``.threads``.  Raises when a forced
+    'shared' variant does not fit, when the card cannot hold S blocks and
+    when a wait times out."""
     kw = dict(rounds=rounds, staleness=staleness, ninner=ninner, tol=tol,
               nonsym=nonsym)
     if x.device.type == "cpu":
@@ -199,20 +215,32 @@ def async_general_rounds(
     if S > LANES:
         raise ValueError(f"{what}: {S} ranks; the gossip keeps one lane per "
                          f"rank, at most {LANES}")
+    fitting = general_variant(Rext, K, nonsym)
+    v = fitting if variant is None else variant
+    if v not in VARIANTS:
+        raise ValueError(f"{what}: variant {v!r}, expected one of {VARIANTS}")
+    smem = general_smem_bytes(Rext, K, nonsym) if v == "shared" else 0
+    if v == "shared" and fitting != "shared":
+        raise ValueError(
+            f"{what}: a rank of {Rext} extended rows and {K} entries a row "
+            f"needs {smem} bytes of shared memory; a block may take "
+            f"{SMEM_PER_BLOCK} — use variant='global' or more parts")
     lib = cuda_build.library("async_ras_general")
+    nt = lib.async_general_threads(smem)
     with torch.cuda.device(x.device):
-        cap = lib.async_general_max_ranks()
+        cap = lib.async_general_max_ranks(K, smem)
     if S > cap:
         raise RuntimeError(
-            f"{what}: {S} ranks need {S} co-resident 1024-thread blocks; "
-            f"this card holds {cap} — use a partition with fewer parts")
+            f"{what}: {S} ranks need {S} co-resident blocks of {nt} threads "
+            f"and {smem} bytes of shared memory ({v} variant); this card "
+            f"holds {cap} — use a partition with fewer parts")
     B = max(staleness, 1)
     M = 2 * B + 2
     dev = x.device
     out = [torch.empty_like(x), torch.empty_like(known),
            torch.empty_like(aux), torch.empty_like(carry)]
-    work = torch.empty((S, 8 if nonsym else 5, Rext), dtype=torch.float32,
-                       device=dev)
+    work = (torch.empty((S, 8 if nonsym else 5, Rext), dtype=torch.float32,
+                        device=dev) if v == "global" else None)
     ring = torch.empty((S, C, M, SEG + LANES), dtype=torch.float32,
                        device=dev)
     # sequence words (S, C, M), ack counters (S, C) as uint32 pairs, and the
@@ -226,12 +254,15 @@ def async_general_rounds(
             boost.data_ptr() if boost is not None else None,
             send_idx.data_ptr(), recv_slot.data_ptr(), tgt_subd.data_ptr(),
             x.data_ptr(), known.data_ptr(), aux.data_ptr(), carry.data_ptr(),
-            *(o.data_ptr() for o in out), work.data_ptr(), ring.data_ptr(),
+            *(o.data_ptr() for o in out),
+            work.data_ptr() if work is not None else None, ring.data_ptr(),
             sync.data_ptr(), S, Rint, Rext - Rint, K, SEG, C, rounds, B,
-            ninner, int(bool(nonsym)), float(tol) * float(tol),
+            ninner, int(bool(nonsym)), float(tol) * float(tol), smem,
             cuda_build.stream_ptr(dev)),
         what)
     async_general_rounds.launches += 1
+    async_general_rounds.variant = v
+    async_general_rounds.threads = nt
     err = int(sync[-1].item())
     if err:
         waited = {1: "an acknowledgement", 2: "a partner's message",
@@ -243,3 +274,5 @@ def async_general_rounds(
 
 
 async_general_rounds.launches = 0
+async_general_rounds.variant = None   # 'shared' or 'global', last launch
+async_general_rounds.threads = None   # threads a block, last launch

@@ -279,8 +279,8 @@ def async_ras_rounds(
     :func:`choose_cluster`'s unless ``cluster`` forces one (the solvers
     never do; the tests and the smoke run compare sizes).  Raises when the
     card cannot hold D clusters, when a wait times out, and for
-    ``fresh_read`` before the flag-order probe (K9) has passed in this
-    process."""
+    ``fresh_read`` unless the flag-order probe (K9) has passed in this
+    process at a cluster of at least the C about to launch."""
     kw = dict(offsets=offsets, total=total, hw=hw, rounds=rounds,
               staleness=staleness, ninner=ninner, tol=tol,
               fresh_read=fresh_read, nonsym=nonsym,
@@ -314,10 +314,6 @@ def async_ras_rounds(
         raise ValueError(f"async_ras_rounds: GMRES({ninner}) exceeds the "
                          f"kernel's m <= {MAX_GMRES_M}")
     B = max(staleness, 1)
-    if fresh_read and B > 1:
-        from schwarz_tpu_torch.diagnostics import require_flag_order
-
-        require_flag_order(x.device)
     lib = cuda_build.library("async_ras")
 
     def fits(c: int) -> int:
@@ -334,6 +330,10 @@ def async_ras_rounds(
             f"{C} 1024-thread blocks; this card holds "
             f"{fits(C) if C in CLUSTER_SIZES else 0} — use fewer ranks "
             "(num_ranks)")
+    if fresh_read and B > 1:
+        from schwarz_tpu_torch.diagnostics import require_flag_order
+
+        require_flag_order(x.device, C)
     M = 2 * B + 2
     slot = -(-(hw + D) // 4) * 4
     nwork = {"cg": 5, "bicgstab": 8, "gmres": ninner + 4}[solver]

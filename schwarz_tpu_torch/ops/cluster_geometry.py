@@ -1,5 +1,7 @@
 """Launch geometry of the kernels that run one unit of work (a rank of the
-free-running tiers, a subdomain of the fused CG) on a thread-block cluster.
+free-running tiers, a subdomain of the fused CG) on a thread-block cluster,
+and the shared-memory sizing of those that keep a unit's data in one
+block's shared memory (K3, K7).
 
 A cluster is C thread blocks on C neighbouring SMs that share each other's
 shared memory.  The card places a cluster inside one GPC, so how many
@@ -68,4 +70,25 @@ def fused_cg_variant(n_rows: int, C: int, jacobi: bool) -> str:
     memory, else 'global' (the same kernel with the vectors in device
     memory)."""
     fits = fused_cg_smem_bytes(n_rows, C, jacobi) <= _SMEM_CAP
+    return "shared" if fits else "global"
+
+
+def general_smem_bytes(Rext: int, K: int, nonsym: bool) -> int:
+    """Dynamic shared memory of a block of K7's shared-memory variant, in
+    the order the kernel places them: the rank's work vectors (xe, r, p, z,
+    A p; BiCGStab's three more) float32, then the ELL planes, ``vals``
+    float32 and ``cols`` as 16-bit indices when Rext <= 65535 (else 32-bit),
+    padded to 16 bytes, then dinv (``SmemLayout`` in
+    ``csrc/async_ras_general.cu``)."""
+    vectors = (8 if nonsym else 5) * Rext * 4
+    vals = K * Rext * 4
+    cols = -(-K * Rext * (2 if Rext <= 65535 else 4) // 16) * 16
+    return vectors + vals + cols + Rext * 4
+
+
+def general_variant(Rext: int, K: int, nonsym: bool) -> str:
+    """'shared' when a rank's whole working set fits one block's shared
+    memory (:func:`general_smem_bytes`), else 'global' (the same kernel with
+    every array in device memory)."""
+    fits = general_smem_bytes(Rext, K, nonsym) <= _SMEM_CAP
     return "shared" if fits else "global"

@@ -64,12 +64,14 @@ SIGNATURES = {
         "async_ras_2d_f32": (_P,) * 15 + (_I,) * 14 + (_F, _I, _I, _P),
     },
     "async_ras_general": {
-        "async_general_max_ranks": (),
-        "async_general_f32": (_P,) * 20 + (_I,) * 10 + (_F, _P),
+        "async_general_threads": (_I,),
+        "async_general_max_ranks": (_I, _I),
+        "async_general_f32": (_P,) * 20 + (_I,) * 10 + (_F, _I, _P),
     },
     "diagnostics": {
         "smoke_x2_f32": (_P, _P, _LL, _P),
-        "flag_order_probe": (_P, _P, _P, _I, _I, _I, _P),
+        "flag_order_max_clusters": (_I,),
+        "flag_order_probe": (_P, _P, _P, _I, _I, _I, _I, _P),
     },
     "rdma_shift": {
         "rdma_shift_max_ranks": (_I, _I),

@@ -1,7 +1,8 @@
-"""The launch geometry of the port's cluster kernels (K3, K5, K6), on the
-CPU: the choice of blocks per unit from what the card holds, the row and
-band splits, K3's shared-memory size and variant, and the refusal of a
-cluster size the card cannot hold.  The CUDA kernels themselves are held to
+"""The launch geometry of the port's cluster kernels (K3, K5, K6, K9) and
+K7's shared-memory sizing, on the CPU: the choice of blocks per unit from
+what the card holds, the row and band splits, K3's and K7's shared-memory
+sizes and variants, and the refusal of a cluster size the card cannot
+hold.  The CUDA kernels themselves are held to
 their plain versions in ``tests/test_torch_cuda.py`` on the card."""
 
 import numpy as np
@@ -12,14 +13,21 @@ from schwarz_tpu_torch.models import laplacian_2d
 from schwarz_tpu_torch.ops.async_ras_2d import AsyncRASolver2D
 from schwarz_tpu_torch.ops.async_ras_2d_kernel import (
     async_ras_2d_rounds, async_ras_2d_rounds_plain)
+from schwarz_tpu_torch.ops.async_ras_general import AsyncGeneralRASolver
+from schwarz_tpu_torch.ops.async_ras_general_kernel import (
+    async_general_rounds, async_general_rounds_plain)
 from schwarz_tpu_torch.ops.cluster_geometry import (ANY_CLUSTER_SIZES,
                                                     CLUSTER_SIZES,
                                                     SMEM_PER_BLOCK,
+                                                    SMEM_STATIC_RESERVE,
                                                     choose_cluster,
                                                     fused_cg_smem_bytes,
                                                     fused_cg_variant,
+                                                    general_smem_bytes,
+                                                    general_variant,
                                                     require_cluster,
                                                     split_rows)
+from schwarz_tpu_torch.core.partition import partition_metis
 from schwarz_tpu_torch.ops.fused_cg import (fused_cg_solve,
                                             fused_cg_solve_plain)
 
@@ -127,3 +135,50 @@ def test_cpu_wrappers_take_the_plain_versions_whatever_the_cluster():
     got = s.launch(*state, fn=async_ras_2d_rounds, cluster=3)
     ref = s.launch(*state, fn=async_ras_2d_rounds_plain)
     assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+# K7's general slice: Rext = 2432 on the card's host, 2048 on another host
+# (metis ties break differently), K = 9; 5 work vectors for CG, 8 for
+# BiCGStab, 16-bit cols
+@pytest.mark.parametrize("Rext,nonsym,nbytes", [
+    (2432, False, 189696),   # 48 640 + 87 552 + 43 776 + 9 728
+    (2432, True, 218880),
+    (2048, False, 159744),
+    (2048, True, 184320),
+])
+def test_general_shared_memory_of_the_slice(Rext, nonsym, nbytes):
+    assert general_smem_bytes(Rext, 9, nonsym) == nbytes
+    assert general_variant(Rext, 9, nonsym) == "shared"
+    assert nbytes <= SMEM_PER_BLOCK - SMEM_STATIC_RESERVE
+
+
+@pytest.mark.parametrize("K,nonsym,edge", [
+    (9, False, 2953), (9, True, 2560), (5, False, 4266), (5, True, 3490),
+])
+def test_general_variant_at_the_edge_of_shared_memory(K, nonsym, edge):
+    """The largest rank that fits takes 'shared', one row more 'global'."""
+    cap = SMEM_PER_BLOCK - SMEM_STATIC_RESERVE
+    assert general_smem_bytes(edge, K, nonsym) <= cap
+    assert general_smem_bytes(edge + 1, K, nonsym) > cap
+    assert general_variant(edge, K, nonsym) == "shared"
+    assert general_variant(edge + 1, K, nonsym) == "global"
+
+
+def test_general_cols_are_16_bit_up_to_65535_rows():
+    # 5 vectors + vals + dinv at 4 bytes a row, cols 2 or 4 bytes (x16)
+    assert general_smem_bytes(65535, 1, False) == 7 * 4 * 65535 + 131072
+    assert general_smem_bytes(65536, 1, False) == 7 * 4 * 65536 + 4 * 65536
+    assert general_variant(65536, 1, False) == "global"
+
+
+def test_cpu_general_wrapper_takes_the_plain_version_whatever_is_forced():
+    A = laplacian_2d(32)
+    s = AsyncGeneralRASolver(A, np.ones(A.n), 4, overlap=2,
+                             part=partition_metis(A, 4), chunk_rounds=2,
+                             tolerance=1e-3, ninner=4, device="cpu")
+    state = s.init_state()
+    ref = s.launch(*state, fn=async_general_rounds_plain)
+    for variant in ("global", "shared"):
+        got = s.launch(*state, fn=lambda *a, **k: async_general_rounds(
+            *a, **k, variant=variant))
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))

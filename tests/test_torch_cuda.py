@@ -7,6 +7,8 @@ without the JAX test harness:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+from functools import partial
+
 import numpy as np
 import pytest
 import torch
@@ -31,7 +33,9 @@ from schwarz_tpu_torch.core.decompose import decompose
 from schwarz_tpu_torch.ops.async_ras_kernel import (CLUSTER_SIZES,
                                                     async_ras_rounds,
                                                     async_ras_rounds_plain)
-from schwarz_tpu_torch.ops.cluster_geometry import ANY_CLUSTER_SIZES
+from schwarz_tpu_torch.exceptions import NotImplementedFeature
+from schwarz_tpu_torch.ops.cluster_geometry import (ANY_CLUSTER_SIZES,
+                                                    general_variant)
 from schwarz_tpu_torch.ops.dia_kernel import dia_spmv, dia_spmv_plain
 from schwarz_tpu_torch.ops.fused_cg import fused_cg_solve, fused_cg_solve_plain
 from schwarz_tpu_torch.ops.halo_kernel import assemble_runs, assemble_runs_plain
@@ -183,11 +187,51 @@ def test_smoke_x2_matches_plain(dev):
     assert torch.equal(y, dg.smoke_x2_plain(x))
 
 
-def test_flag_order_probe(dev):
-    res = dg.flag_order_probe(32768, 10000, dev)
-    assert res == dict(res, mismatches=0, error=0)
-    assert res["producer_sm"] != res["consumer_sm"]
-    assert dg.flag_order_probe_plain(1024, 100)["mismatches"] == 0
+@pytest.mark.parametrize("C", [1, 2, 4, 8])
+def test_flag_order_probe(dev, C):
+    """K9 at the smoke run's size with producer and consumer clusters of C
+    blocks: no mismatch, no watchdog, 2C distinct SMs."""
+    res = dg.flag_order_probe(32768, 10000, dev, cluster=C)
+    assert res == dict(res, mismatches=0, error=0, cluster=C)
+    sms = res["producer_sms"] + res["consumer_sms"]
+    assert len(sms) == 2 * C and len(set(sms)) == 2 * C
+    assert dg.flag_order_probe_plain(1024, 100, cluster=C) == dict(
+        mismatches=0, error=0, cluster=C, producer_sms=[-1] * C,
+        consumer_sms=[-1] * C)
+
+
+def test_flag_order_probe_chooses_a_cluster(dev, monkeypatch):
+    """By default the largest size of which the card holds two clusters,
+    and a pass records it; a ragged message (not a multiple of 4 floats)
+    takes the scalar tail."""
+    monkeypatch.setattr(dg, "_FLAG_ORDER_PASSED", {})
+    res = dg.flag_order_probe(4099, 1000, dev)
+    C = res["cluster"]
+    assert C in ANY_CLUSTER_SIZES and res["mismatches"] == 0
+    assert len(set(res["producer_sms"] + res["consumer_sms"])) == 2 * C
+    assert dg.flag_order_passed(dev) == C
+    with pytest.raises(RuntimeError, match="clusters"):
+        dg.flag_order_probe(4096, 10, dev, cluster=9)
+
+
+def test_fresh_read_refuses_a_cluster_above_the_probed_one(dev, monkeypatch):
+    """K5 and K6 under fresh_read after a pass at C = 2 only: they run at
+    C <= 2 and refuse a larger C, naming it."""
+    monkeypatch.setattr(dg, "_FLAG_ORDER_PASSED", {})
+    assert dg.flag_order_probe(4096, 1000, dev, cluster=2)["mismatches"] == 0
+    ops, state, boost, opts = _k5(dev, "cg", staleness=3, fresh_read=True)
+    with pytest.raises(NotImplementedFeature, match="C >= 4"):
+        async_ras_rounds(*ops, *state, boost, **opts, cluster=4)
+    async_ras_rounds(*ops, *state, boost, **opts, cluster=2)
+    A = laplacian_2d(256)
+    s = AsyncRASolver2D(A, np.ones(A.n), 2, 2, tolerance=1e-3, ninner=8,
+                        staleness=3, chunk_rounds=4, fresh_read=True,
+                        device=dev)
+    X, known, aux = s.init_state()
+    with pytest.raises(NotImplementedFeature, match="flag-order probe"):
+        s.launch(s._fold(X), known, aux, cluster=3)
+    s.launch(s._fold(X), known, aux, cluster=1)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("op,D,kw", [
@@ -411,25 +455,51 @@ _GENERAL = {
     ("ani4", 8, dict(tolerance=1e-3, ninner=24, staleness=2)),
     ("lap64", 1, dict(tolerance=1e-3, ninner=8)),   # no link at all
 ])
-def test_async_general_matches_plain(dev, op, S, kw):
-    """Three 8-round launches of K7 against the lockstep emulation, the
-    later ones from a carry.  The rounds do not depend on timing, and both
-    sides do the same float32 operations in the same order, without FMA,
-    with float64 sums: bit for bit."""
+@pytest.mark.parametrize("variant", ["shared", "global"])
+def test_async_general_matches_plain(dev, op, S, kw, variant):
+    """Three 8-round launches of K7 with its data forced into shared or
+    device memory against the lockstep emulation, the later ones from a
+    carry.  The rounds do not depend on timing, and both sides do the same
+    float32 operations in the same order, without FMA, with float64 sums:
+    bit for bit.  Every case fits shared memory (one rank of the 64^2
+    Laplacian, 221 184 bytes, near its edge)."""
     A = _GENERAL[op]()
     s = AsyncGeneralRASolver(A, np.ones(A.n), S, overlap=2,
                              part=partition_metis(A, S), chunk_rounds=8,
                              device=dev, **kw)
     state = s.init_state()
+    fn = partial(async_general_rounds, variant=variant)
     for _ in range(3):
         n0 = async_general_rounds.launches
-        got = s.launch(*state)
+        got = s.launch(*state, fn=fn)
         torch.cuda.synchronize()
         assert async_general_rounds.launches == n0 + 1
+        assert async_general_rounds.variant == variant
+        assert async_general_rounds.threads == (512 if variant == "shared"
+                                                else 1024)
         ref = s.launch(*state, fn=async_general_rounds_plain)
         for g, r in zip(got, ref):
             assert torch.equal(g, r)
         state = ref
+
+
+def test_async_general_takes_global_when_too_large(dev):
+    """One rank of the 9-point 64^2 operator (Rext = 4096, K = 9: 319 488
+    bytes) does not fit shared memory: the wrapper takes the global-memory
+    variant by size, and refuses 'shared' when it is forced."""
+    A = _GENERAL["aniso64"]()
+    s = AsyncGeneralRASolver(A, np.ones(A.n), 1, overlap=2,
+                             part=partition_metis(A, 1), chunk_rounds=8,
+                             tolerance=1e-3, ninner=8, device=dev)
+    assert general_variant(s.plan.Rext, s.plan.K, False) == "global"
+    state = s.init_state()
+    got = s.launch(*state)
+    assert async_general_rounds.variant == "global"
+    ref = s.launch(*state, fn=async_general_rounds_plain)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    with pytest.raises(ValueError, match="shared memory"):
+        s.launch(*state, fn=partial(async_general_rounds, variant="shared"))
 
 
 def test_async_general_converges_like_cpu(dev):
