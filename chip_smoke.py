@@ -5,15 +5,21 @@
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every CUDA kernel of the port from ``schwarz_tpu_torch/csrc``;
-3. holds each kernel (K1 DIA SpMV in float32 and float64, K2 halo-run copy,
-   K3 fused CG) to its plain PyTorch version on the card, at the shapes of
-   the 1M-row slice, and times kernel, plain version and (K1) one
-   ``torch.sparse.mm`` on the same operator in CSR; K3 at the cluster size
-   its wrapper chooses and at one block per subdomain, with the variant
-   (vectors in shared or in device memory) each took;
+3. holds each kernel (K1 DIA SpMV in float32 and float64, K2 the whole
+   ``x_ext`` from its segment table, with float32, bfloat16 and float16
+   halos, K3 fused CG) to its plain PyTorch version on the card, at the
+   shapes of the 1M-row slice, and times kernel, plain version and one
+   library call for the same function (K1 ``torch.sparse.mm`` on the
+   operator in CSR, K2 ``torch.take`` through an index map); K3 at the
+   cluster size its wrapper chooses and at one block per subdomain, with
+   the variant (vectors in shared or in device memory) each took;
 4. runs the slice: the 1M-row 2-D Laplacian, 16 regular strips, overlap 3,
    float32, DIA operator, fused Jacobi-CG locals, with every launch count
-   set to 0 before and read after; each kernel must have launched;
+   set to 0 before and read after; each kernel must have launched, K2 once
+   per outer iteration; then counts with the profiler the device
+   operations of one exchange, which must be 1 (K2) on ``all_gather``,
+   with and without a bfloat16 halo, and 2 (K4, then K2) on ``rdma``, and
+   times each exchange on the card and on the host;
 5. runs the same solve on the CPU (plain versions) for 5 outer iterations
    and requires the global residual history to match within rtol 1e-3;
 6. runs default Settings() (float64, unfused CG: K1 float64 + K2) on a 256^2
@@ -74,15 +80,17 @@
    float64, then 2 and 64 ranks and a ragged small buffer; data bit for
    bit, counters equal), then one whole exchange of the rdma slice (its 2
    rounds of 16 x 3072, pack and unpack in the launch; float32 and
-   bfloat16 halos; halo values bit for bit, per-round counts equal); the
-   exchange timed like phase 3 beside two ``torch.roll``, the ``ppermute``
+   bfloat16 halos; halo values bit for bit, per-round counts equal), and
+   K2 over the halo values it delivers (the neighbour strategies' form of
+   K2), bit for bit against its plain version and timed; the exchange
+   timed like phase 3 beside two ``torch.roll``, the ``ppermute``
    transport's exchange and the first version's path (two one-round
    launches between the torch pack and unpack);
 18. runs the synchronous slice of phase 4 with the strategy switched to
    ``rdma`` (put mode, 16 ranks), 30 outer iterations, twice (cold, warm):
-   K4 must launch once per exchange (outer iteration), K1 and K3 must
-   launch, K2 must stay at 0, and the global residual history must equal
-   phase 4's bit for bit;
+   K4 and K2 must launch once per exchange (outer iteration), K1 and K3
+   must launch, and the global residual history must equal phase 4's bit
+   for bit;
 19. runs converging solves on a second partition, ``laplacian_2d(32)``,
    ``regular2d``, 64 subdomains on 16 ranks, overlap 2, float64, tolerance
    1e-6, on the card and on the CPU: ``rdma`` in get mode (equal iteration
@@ -128,6 +136,31 @@ def _bound_ms(n_bytes: float, n_ops: float, dtype: str):
     t_ops = n_ops / PEAK_OPS_PER_S[dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _k2_bound(segs, first, S: int, r_ext: int, one_source: bool):
+    """K2's bound: x_ext (S, r_ext) float32 written once, the tables read
+    once, and each source element that a window or halo segment reads
+    counted once, however many segments read it.  With ``one_source`` (the
+    ``all_gather`` form) window and halo segments read the same array,
+    ``x_own`` flat; otherwise the halo segments read the compact halo
+    values, a second array."""
+    import numpy as np
+
+    from schwarz_tpu_torch.ops.halo_kernel import HALO, WINDOW
+
+    seg = segs.cpu().numpy().astype(np.int64)
+    n_read = 0
+    for kinds in ([(WINDOW, HALO)] if one_source else [(WINDOW,), (HALO,)]):
+        sel = seg[np.isin(seg[:, 2], kinds)]
+        if len(sel):
+            ends = sel[:, 3] + sel[:, 1]
+            depth = np.zeros(int(ends.max()) + 1, np.int64)
+            np.add.at(depth, sel[:, 3], 1)
+            np.add.at(depth, ends, -1)
+            n_read += int((np.cumsum(depth) > 0).sum())
+    table_bytes = (segs.numel() + first.numel()) * 4
+    return _bound_ms((S * r_ext + n_read) * 4 + table_bytes, 0, "float32")
 
 
 class Smoke:
@@ -178,9 +211,8 @@ def kernel_checks(sm: Smoke, solver) -> None:
     from schwarz_tpu_torch.ops.dia_kernel import dia_spmv, dia_spmv_plain
     from schwarz_tpu_torch.ops.fused_cg import (fused_cg_solve,
                                                 fused_cg_solve_plain)
-    from schwarz_tpu_torch.ops.halo_kernel import (assemble_runs,
-                                                   assemble_runs_plain)
-    from schwarz_tpu_torch.parallel.exchange import window_insert
+    from schwarz_tpu_torch.ops.halo_kernel import (ZERO, assemble_x_ext,
+                                                   assemble_x_ext_plain)
 
     plan, meta = solver._plan, solver.meta
     S, R_int, R_rows, R_ext = (meta.num_subdomains, meta.max_interior,
@@ -240,27 +272,60 @@ def kernel_checks(sm: Smoke, solver) -> None:
             bound_ms=bound, bound_by=by,
             library_ms=sm.ms(lambda: torch.sparse.mm(csr, xc), 50))
 
-    # --- K2: halo-run copy ---------------------------------------------------
+    # --- K2: the whole x_ext in one launch ----------------------------------
     x_own = torch.randn((S, R_int), generator=gen, device="cuda")
-    tables = (plan["runs_src"], plan["runs_dst"], plan["runs_len"])
-    buf = window_insert(x_own, plan["interior_off"], R_ext)
-    ref = assemble_runs_plain(buf.clone(), x_own.reshape(-1), *tables, R_ext)
-    assemble_runs(buf, x_own.reshape(-1), *tables, R_ext)
-    torch.cuda.synchronize()
-    err = float((buf - ref).abs().max())
-    sm.check(bool(torch.equal(buf, ref)),
-             f"K2 assemble_runs bit-identical (max abs err {err})")
-    used = plan["runs_dst"] < R_ext
-    moved = int((used.to(torch.int64) * plan["runs_len"][None, :]).sum())
-    table_bytes = sum(t.numel() * t.element_size() for t in tables)
-    bound, by = _bound_ms(2 * moved * 4 + table_bytes, 0, "float32")
-    xf = x_own.reshape(-1)
+    segs, first = plan["ext_segs"], plan["ext_first"]
+    args = (x_own, x_own, segs, first, R_ext)
+    for hd in (None, torch.bfloat16, torch.float16):
+        got = assemble_x_ext(*args, hd)
+        torch.cuda.synchronize()
+        ref = assemble_x_ext_plain(*args, hd)
+        e = float((got - ref).abs().max())
+        sm.check(bool(torch.equal(got, ref)),
+                 f"K2 assemble_x_ext, halo "
+                 f"{str(hd or x_own.dtype).split('.')[-1]}, {segs.shape[0]} "
+                 f"segments: bit-identical (max abs err {e})")
+        if hd is None:
+            err, out = e, got
+    bound, by = _k2_bound(segs, first, S, R_ext, True)
+    # the library yardstick: one torch.take over [x_own flat ; 0] through
+    # an (S, R_ext) int64 index map (the zero segments point at the 0)
+    seg_np = segs.cpu().numpy().astype(np.int64)
+    lens = seg_np[:, 1]
+    index = np.repeat(np.where(seg_np[:, 2] == ZERO, S * R_int, seg_np[:, 3]),
+                      lens) + np.where(
+        np.repeat(seg_np[:, 2] == ZERO, lens), 0,
+        np.arange(lens.sum()) - np.repeat(np.cumsum(lens) - lens, lens))
+    index = torch.from_numpy(index.reshape(S, R_ext)).cuda()
+    src = torch.cat((x_own.reshape(-1), x_own.new_zeros(1)))
+    sm.check(bool(torch.equal(torch.take(src, index), out)),
+             "K2 library yardstick (torch.take) agrees bit for bit")
+    # the copy rate of the card on as many bytes: one torch copy_ of
+    # S x R_ext floats (K2 reads and writes about as much)
+    flat = out.reshape(-1)
+    dst = torch.empty_like(flat)
+    # all times a few microseconds: the median of five alternating reads,
+    # each the mean of 50 launches, keeps one host stall longer than the
+    # spin kernel from deciding a number
+    timed = {
+        "ms": lambda: assemble_x_ext(*args),
+        "library_ms": lambda: torch.take(src, index),
+        "ms_bfloat16": lambda: assemble_x_ext(*args, torch.bfloat16),
+        "ms_copy": lambda: dst.copy_(flat)}
+    reads = {k: [] for k in timed}
+    for _ in range(5):
+        for k, fn in timed.items():
+            reads[k].append(sm.ms(fn, 50))
+    t = {k: float(np.median(v)) for k, v in reads.items()}
     sm.kernels["halo_runs"] = dict(
-        max_abs_err=err,
-        ms=sm.ms(lambda: assemble_runs(buf, xf, *tables, R_ext), 50),
-        plain_ms=sm.ms(lambda: assemble_runs_plain(buf, xf, *tables, R_ext),
-                       5),
-        bound_ms=bound, bound_by=by, library_ms=None)
+        max_abs_err=err, segments=segs.shape[0], ms=t["ms"],
+        plain_ms=sm.ms(lambda: assemble_x_ext_plain(*args), 5),
+        bound_ms=bound, bound_by=by, library_ms=t["library_ms"])
+    print(f"K2: {segs.shape[0]} segments for {S} x {R_ext} slots; "
+          f"{t['ms']:.5f} ms (reads {reads['ms']}), {t['ms_bfloat16']:.5f} "
+          f"with bfloat16 halos; torch.take {t['library_ms']:.5f}; a copy_ "
+          f"of {S} x {R_ext} floats {t['ms_copy']:.5f} (medians of 5 "
+          f"reads); bound {bound:.6f} ms", flush=True)
 
     # --- K3: fused CG --------------------------------------------------------
     s = solver.settings
@@ -451,10 +516,10 @@ def _counters():
     from schwarz_tpu_torch.ops.async_ras_kernel import async_ras_rounds
     from schwarz_tpu_torch.ops.dia_kernel import dia_spmv
     from schwarz_tpu_torch.ops.fused_cg import fused_cg_solve
-    from schwarz_tpu_torch.ops.halo_kernel import assemble_runs
+    from schwarz_tpu_torch.ops.halo_kernel import assemble_x_ext
     from schwarz_tpu_torch.ops.rdma_kernel import rdma_cyclic_shift
 
-    return {"dia_spmv": dia_spmv, "halo_runs": assemble_runs,
+    return {"dia_spmv": dia_spmv, "halo_runs": assemble_x_ext,
             "rdma_shift": rdma_cyclic_shift,
             "fused_cg": fused_cg_solve, "async_ras": async_ras_rounds,
             "async_ras_2d": async_ras_2d_rounds,
@@ -474,6 +539,54 @@ def counted(fn):
     res = fn()
     torch.cuda.synchronize()
     return res, {k: f.launches for k, f in fns.items()}
+
+
+def exchange_cost(sm: Smoke, solver, what: str, want: int,
+                  ms_per_it: float = None) -> None:
+    """Device operations (kernels, copies, memsets; the profiler's count)
+    in one ``solver._exchange``, which must be ``want``; its device time
+    (events, L2 flushed) and its host time per call, beside a warm outer
+    iteration of ``ms_per_it`` when one is given."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from schwarz_tpu_torch.ops.rdma_kernel import rdma_shift_finish
+
+    def finish():
+        # K4's status words are read, as at an outer iteration's sync;
+        # left unread before a profiled window, K4's launch went missing
+        # from the profiler's record
+        torch.cuda.synchronize()
+        if solver._pending_shifts:
+            rdma_shift_finish(solver._pending_shifts)
+            solver._pending_shifts.clear()
+
+    m = solver.meta
+    x_own = torch.randn((m.num_subdomains, m.max_interior), device="cuda",
+                        dtype=solver.settings.value_dtype)
+    solver._exchange(x_own)
+    finish()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        solver._exchange(x_own)
+        torch.cuda.synchronize()
+    finish()
+    names = [e.name for e in prof.events()
+             if "CUDA" in str(getattr(e, "device_type", ""))]
+    sm.check(len(names) == want,
+             f"{what}: one exchange is {len(names)} device operation(s) "
+             f"(want {want}): {names}")
+    ms = sm.ms(lambda: solver._exchange(x_own), 50)
+    finish()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        solver._exchange(x_own)
+    host_ms = (time.perf_counter() - t0) * 10
+    finish()
+    share = ("" if ms_per_it is None else
+             f", of a warm outer iteration of {ms_per_it:.3f} ms")
+    print(f"{what}: exchange {ms:.5f} ms on the card (events), "
+          f"{host_ms:.5f} ms of host time per call{share}", flush=True)
 
 
 def free_running_phases(sm: Smoke) -> None:
@@ -1002,7 +1115,8 @@ def general_graph_phases(sm: Smoke) -> None:
 
 def exchange_kernel_checks(sm: Smoke, dec) -> None:
     """Phase 17: K4 against its plain version, as one shift and as one whole
-    exchange of the rdma slice (``dec`` on 16 ranks), and timed."""
+    exchange of the rdma slice (``dec`` on 16 ranks), and timed; K2 over
+    the halo values that exchange delivers, against its plain version."""
     import torch
 
     from schwarz_tpu_torch.ops.rdma_kernel import (exchange_rounds_plain,
@@ -1012,6 +1126,9 @@ def exchange_kernel_checks(sm: Smoke, dec) -> None:
                                                    rdma_exchange_launch,
                                                    rdma_exchange_plain,
                                                    rdma_shift_launch)
+    from schwarz_tpu_torch.ops.halo_kernel import (assemble_x_ext,
+                                                   assemble_x_ext_plain)
+    from schwarz_tpu_torch.parallel.exchange import segments_of
     from schwarz_tpu_torch.parallel.neighbor_exchange import (
         build_neighbor_plan, exchange_rounds)
 
@@ -1050,6 +1167,10 @@ def exchange_kernel_checks(sm: Smoke, dec) -> None:
     x = torch.randn((dec.meta.num_subdomains, dec.meta.max_interior),
                     generator=gen, device="cuda")
     widths = [t.shape[1] for t in nx.send_idx]
+    # K2 in the form the neighbour strategies launch it: the window from
+    # x_own, the halo from K4's compact (S, H) values
+    segs, first = (torch.from_numpy(t).cuda() for t in segments_of(dec, True))
+    R_ext = dec.meta.max_ext
     for halo_dtype in (None, torch.bfloat16):
         for mode, one_by_one, flush_local in variants:
             halo, counts = rdma_exchange(x, rounds, halo_dtype, mode,
@@ -1068,6 +1189,20 @@ def exchange_kernel_checks(sm: Smoke, dec) -> None:
                      f"{' flush-local' if flush_local else ''}: halo values "
                      f"bit for bit (max abs err {err}), per-round counts "
                      f"{counts[:, 0].tolist()} equal to the plain version's")
+        halo, _ = rdma_exchange(x, rounds, halo_dtype)
+        got = assemble_x_ext(x, halo, segs, first, R_ext)
+        torch.cuda.synchronize()
+        ref = assemble_x_ext_plain(x, halo, segs, first, R_ext)
+        sm.check(bool(torch.equal(got, ref)),
+                 f"K2 assemble_x_ext over K4's halo values (halo "
+                 f"{str(halo_dtype or x.dtype).split('.')[-1]}), "
+                 f"{segs.shape[0]} segments: bit-identical to the plain "
+                 f"version (max abs err {float((got - ref).abs().max())})")
+    bound_b, _ = _k2_bound(segs, first, x.shape[0], R_ext, False)
+    t_b = sm.ms(lambda: assemble_x_ext(x, halo, segs, first, R_ext), 50)
+    print(f"K2 over K4's halo values ({segs.shape[0]} segments, halo "
+          f"{tuple(halo.shape)}): {t_b:.5f} ms, bound {bound_b:.6f} ms",
+          flush=True)
     # bytes the fused launch must move: the packed values read from x_own
     # with their send indices, each window element written and read, the
     # unpack table read, the own-block values read and halo_vals written
@@ -1125,16 +1260,17 @@ def exchange_kernel_checks(sm: Smoke, dec) -> None:
           flush=True)
 
 
-def neighbor_exchange_phases(sm: Smoke, dec, settings, hist4,
+def neighbor_exchange_phases(sm: Smoke, dec, solver, hist4,
                              ms_per_it4: float) -> None:
     """Phases 17-19: K4 against its plain version, the synchronous slice
-    through the one-sided strategy, and converging solves on a 2-D
-    partition with the stale-halo modes and the convergence protocols."""
+    through the one-sided strategy (``solver``, on 16 ranks), and
+    converging solves on a 2-D partition with the stale-halo modes and the
+    convergence protocols."""
     import numpy as np
 
     from schwarz_tpu_torch import (CommSettings, ConvergenceSettings,
                                    GlobalConvergence, HaloStrategy,
-                                   Partition, RASolver, Settings)
+                                   Partition, Settings)
     from schwarz_tpu_torch.models import generate_rhs, laplacian_2d
     from schwarz_tpu_torch.ras import solve
 
@@ -1142,9 +1278,6 @@ def neighbor_exchange_phases(sm: Smoke, dec, settings, hist4,
     exchange_kernel_checks(sm, dec)
 
     # --- 18. the synchronous slice through the one-sided strategy ------------
-    s18 = settings.replace(comm=CommSettings(
-        strategy=HaloStrategy.rdma, enable_put=True, enable_get=False))
-    solver = RASolver(dataclasses.replace(dec, settings=s18), num_ranks=16)
     nx = solver._neighbor_plan
     for tag in ("cold", "warm"):
         res, launches = counted(solver.run)
@@ -1161,8 +1294,9 @@ def neighbor_exchange_phases(sm: Smoke, dec, settings, hist4,
                      f"one launch for the {len(nx.offsets)} rounds of each "
                      f"of the {n_it} exchanges")
             sm.check(launches["dia_spmv"] > 0 and launches["fused_cg"] > 0
-                     and launches["halo_runs"] == 0,
-                     "the rdma slice launched K1 and K3 and never K2")
+                     and launches["halo_runs"] == n_it,
+                     f"the rdma slice launched K1 and K3, and K2 once per "
+                     f"exchange ({launches['halo_runs']})")
             sm.kernels["rdma_shift"]["launches"] = launches["rdma_shift"]
             sm.check(np.array_equal(res.global_resnorm_history, hist4),
                      "rdma slice: global residual history equal to the "
@@ -1251,7 +1385,8 @@ def main() -> int:
     try:
         import numpy as np
 
-        from schwarz_tpu_torch import Precond, RASolver, Settings
+        from schwarz_tpu_torch import (CommSettings, HaloStrategy, Precond,
+                                       RASolver, Settings)
         from schwarz_tpu_torch.core.decompose import decompose
         from schwarz_tpu_torch.models import generate_rhs, laplacian_2d
         from schwarz_tpu_torch.ops import cuda_build
@@ -1308,6 +1443,9 @@ def main() -> int:
     for k in ("dia_spmv", "halo_runs", "fused_cg"):
         sm.check(launches[k] > 0,
                  f"{k} launched {launches[k]} times on the main path")
+    sm.check(launches["halo_runs"] == n_it,
+             f"K2 launched once per exchange ({launches['halo_runs']} for "
+             f"{n_it} outer iterations)")
     hist = res.global_resnorm_history
     sm.check(res.solution.shape == (A.n,) and bool(np.isfinite(
         res.solution).all()) and bool(np.isfinite(hist).all()),
@@ -1328,6 +1466,21 @@ def main() -> int:
     sm.kernels["dia_spmv_float32"]["launches"] = launches["dia_spmv"]
     sm.kernels["halo_runs"]["launches"] = launches["halo_runs"]
     sm.kernels["fused_cg"]["launches"] = launches["fused_cg"]
+    # one exchange of the slice, counted with the profiler, on all_gather
+    # with and without a bfloat16 halo and on rdma (the solver of phase
+    # 18); rdma comes first, so that every kernel of these windows has
+    # run before the first of them (the profiler missed kernels of a
+    # library first launched after its first window)
+    solver_rd = RASolver(dataclasses.replace(dec, settings=settings.replace(
+        comm=CommSettings(strategy=HaloStrategy.rdma, enable_put=True,
+                          enable_get=False))), num_ranks=16)
+    exchange_cost(sm, solver_rd, "rdma (K4, then K2)", 2)
+    ms_it = 1e3 * warm.solve_time_s / max(n_it, 1)
+    exchange_cost(sm, solver, "all_gather", 1, ms_it)
+    solver_h = RASolver(dataclasses.replace(
+        dec, settings=settings.replace(halo_dtype="bfloat16")))
+    exchange_cost(sm, solver_h, "all_gather, bfloat16 halos", 1, ms_it)
+    del solver_h
 
     # where the card's time goes in two outer iterations of the slice
     from torch.profiler import ProfilerActivity, profile
@@ -1389,7 +1542,7 @@ def main() -> int:
     general_graph_phases(sm)
 
     # --- 17-19. the neighbour / one-sided exchange and the protocols ----------
-    neighbor_exchange_phases(sm, dec, settings, hist,
+    neighbor_exchange_phases(sm, dec, solver_rd, hist,
                              1e3 * warm.solve_time_s / max(n_it, 1))
 
     # --- 20. the kernels line and the last line ------------------------------

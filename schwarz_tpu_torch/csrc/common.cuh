@@ -1,9 +1,31 @@
 // Shared pieces of the port's hand-written Hopper kernels.
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
+
+// One value from type From to type To, as PyTorch's cast computes it: a
+// double goes to bfloat16 and float16 through float.  K2 rounds halo values
+// through the halo type with it, K4 packs and unpacks with it.
+template <typename To, typename From>
+__device__ __forceinline__ To convert(From v) {
+  if constexpr (std::is_same_v<To, From>) {
+    return v;
+  } else if constexpr (std::is_same_v<To, __nv_bfloat16>) {
+    return __float2bfloat16((float)v);   // via float, as PyTorch's cast
+  } else if constexpr (std::is_same_v<To, __half>) {
+    return __float2half((float)v);
+  } else if constexpr (std::is_same_v<From, __nv_bfloat16>) {
+    return (To)__bfloat162float(v);
+  } else if constexpr (std::is_same_v<From, __half>) {
+    return (To)__half2float(v);
+  } else {
+    return (To)v;
+  }
+}
 
 // Diagonal offsets of a DIA operator, passed by value in the kernel
 // parameters (the host copies the wrapper's offsets in).

@@ -106,23 +106,6 @@ __device__ __forceinline__ unsigned long long atom_acq_rel_add(
   return old;
 }
 
-template <typename To, typename From>
-__device__ __forceinline__ To convert(From v) {
-  if constexpr (std::is_same_v<To, From>) {
-    return v;
-  } else if constexpr (std::is_same_v<To, __nv_bfloat16>) {
-    return __float2bfloat16((float)v);   // via float, as PyTorch's cast
-  } else if constexpr (std::is_same_v<To, __half>) {
-    return __float2half((float)v);
-  } else if constexpr (std::is_same_v<From, __nv_bfloat16>) {
-    return (To)__bfloat162float(v);
-  } else if constexpr (std::is_same_v<From, __half>) {
-    return (To)__half2float(v);
-  } else {
-    return (To)v;
-  }
-}
-
 // An element of another SM's writes, read past L1 (not coherent across SMs).
 template <typename T>
 __device__ __forceinline__ T load_cg(const T* p) {

@@ -47,8 +47,8 @@ SIGNATURES = {
         "dia_spmv_f64": (_P, _P, _P, _I, _I, _I, _LL, _P, _P),
     },
     "halo_runs": {
-        "halo_runs_f32": (_P, _LL, _P, _P, _P, _P, _I, _I, _I, _P),
-        "halo_runs_f64": (_P, _LL, _P, _P, _P, _P, _I, _I, _I, _P),
+        "halo_assemble_f32": (_P,) * 5 + (_I,) * 5 + (_P,),
+        "halo_assemble_f64": (_P,) * 5 + (_I,) * 5 + (_P,),
     },
     "fused_cg": {
         "fused_cg_max_clusters": (_I, _I, _I),

@@ -42,7 +42,7 @@ from schwarz_tpu_torch.ops.rdma_kernel import (ExchangeRounds,
                                                exchange_rounds_plain,
                                                rdma_exchange_launch,
                                                rdma_shift_finish)
-from schwarz_tpu_torch.parallel.exchange import assemble_x_ext
+from schwarz_tpu_torch.ops.halo_kernel import assemble_x_ext
 
 
 @dataclasses.dataclass
@@ -184,8 +184,7 @@ def exchange_rounds(nx: NeighborPlan, device) -> ExchangeRounds:
 
 def exchange_halo_neighbor(
     x_own: torch.Tensor,            # (S, R_int) every subdomain's interior
-    interior_off: torch.Tensor,     # (S,) closure slot of first interior row
-    halo_slots: torch.Tensor,       # (S, H) int64 ext slot (R_ext = scratch pad)
+    segments,                       # (segs, first): segments_of(dec, True)
     rounds: ExchangeRounds,         # the plan's round tables
     r_ext: int,
     halo_dtype: Optional[torch.dtype] = None,
@@ -197,14 +196,15 @@ def exchange_halo_neighbor(
 ) -> torch.Tensor:
     """Run the offset rounds of all D ranks and assemble x_ext (S, R_ext).
 
-    Interior slots are a plain copy of ``x_own``; only the O(halo) compact
-    tables go through gather/scatter.  Values that cross ranks travel in
-    ``halo_dtype``; slots owned by the same rank are read from the rank's
-    own block, unrounded.  On the ``rdma`` transport the whole exchange
-    (every round, pack and unpack) is one K4 launch; its watchdog word is
-    read at once (one host sync), or, when the caller passes a ``pending``
-    list, left in it for the caller to hand to ``rdma_shift_finish`` at its
-    own next sync, so that the host can run ahead of the card.
+    Only the O(halo) compact tables go through the rounds.  Values that
+    cross ranks travel in ``halo_dtype``; slots owned by the same rank are
+    read from the rank's own block, unrounded.  On the ``rdma`` transport
+    the whole exchange (every round, pack and unpack) is one K4 launch; its
+    watchdog word is read at once (one host sync), or, when the caller
+    passes a ``pending`` list, left in it for the caller to hand to
+    ``rdma_shift_finish`` at its own next sync, so that the host can run
+    ahead of the card.  x_ext is then one K2 launch over the compact halo
+    values: window, halo and zeros.
     """
     if transport == "rdma":
         halo_vals, status = rdma_exchange_launch(
@@ -217,4 +217,4 @@ def exchange_halo_neighbor(
     else:
         halo_vals = exchange_rounds_plain(
             x_own, rounds, halo_dtype, lambda buf, r: torch.roll(buf, r, 0))
-    return assemble_x_ext(x_own, interior_off, halo_slots, halo_vals, r_ext)
+    return assemble_x_ext(x_own, halo_vals, *segments, r_ext)

@@ -7,8 +7,8 @@ check_convergence -> local_solve -> local_to_global_vector}
 (schwarz_base.cpp:322-506) runs as a Python loop over a state dictionary,
 with all S subdomains batched on one device:
 
-  - exchange_boundary  -> window insert + halo-run copy (K2)   (parallel/exchange.py)
-                          or packed neighbour rounds, one-sided through
+  - exchange_boundary  -> x_ext in one launch of K2            (parallel/exchange.py),
+                          after packed neighbour rounds, one-sided through
                           K4                        (parallel/neighbor_exchange.py)
   - update_boundary    -> interface gather/scatter             (restricted_schwarz.cpp:991-1017)
   - check_convergence  -> local residual through the DIA SpMV (K1) + protocol round
@@ -59,9 +59,8 @@ from schwarz_tpu_torch.ops.rdma_kernel import rdma_shift_finish
 from schwarz_tpu_torch.ops.spmv import ell_spmv_batched
 from schwarz_tpu_torch.parallel.convergence import conv_step, init_conv_state
 from schwarz_tpu_torch.parallel.exchange import (
-    build_run_plan,
     exchange_halo_allgather,
-    flat_run_tables,
+    segments_of,
 )
 from schwarz_tpu_torch.parallel.neighbor_exchange import (
     build_neighbor_plan,
@@ -233,8 +232,8 @@ class RASolver:
         s = self.settings
         meta = self.meta
         dtype = np.dtype(s.dtype)
-        S, R_int, R_rows, R_ext = (meta.num_subdomains, meta.max_interior,
-                                   meta.max_rows, meta.max_ext)
+        S, R_int, R_rows = (meta.num_subdomains, meta.max_interior,
+                            meta.max_rows)
         _, interior_valid, _ = dec.masks()
         off = dec.interior_offset.astype(np.int64)
         arrays = {
@@ -242,7 +241,6 @@ class RASolver:
             "iface_vals": dec.iface_vals.astype(dtype),
             "iface_cols": dec.iface_cols.astype(np.int64),
             "local_rhs": dec.local_rhs.astype(dtype),
-            "interior_off": off,
             "interior_mask": interior_valid,
             # column of each interior slot in the closure (0 off the mask)
             "int_cols": np.where(interior_valid,
@@ -301,21 +299,17 @@ class RASolver:
                     f"== 0 (set row_pad_multiple=128; got {R_rows}), and "
                     "precond in (none, jacobi)")
             self._use_fused_cg = True
-        # halo runs for K2: the contiguous-run plan, or one-element runs for
-        # an irregular halo
-        rp = build_run_plan(dec.halo_src_halo, dec.halo_slots, R_ext, R_int,
-                            dec.interior_offset)
-        src, dst, lens = flat_run_tables(rp, dec.halo_src_halo,
-                                         dec.halo_slots, R_ext, S * R_int)
-        arrays.update(runs_src=src, runs_dst=dst, runs_len=lens)
-        # packed per-rank-pair tables of the neighbour strategies; every
-        # rank lives on this host, so every round is intra-host
+        # K2's segments of x_ext: the halo as runs of the gathered
+        # interiors, or as the neighbour strategies' compact halo values,
+        # whose packed per-rank-pair tables come with them; every rank
+        # lives on this host, so every round is intra-host
         self._neighbor_plan = None
-        if s.comm.strategy in (HaloStrategy.neighbor, HaloStrategy.rdma):
-            nx = build_neighbor_plan(dec, self.num_ranks,
-                                     process_of=[0] * self.num_ranks)
-            self._neighbor_plan = nx
-            arrays.update(halo_slots=dec.halo_slots.astype(np.int64))
+        compact = s.comm.strategy in (HaloStrategy.neighbor,
+                                      HaloStrategy.rdma)
+        if compact:
+            self._neighbor_plan = build_neighbor_plan(
+                dec, self.num_ranks, process_of=[0] * self.num_ranks)
+        arrays["ext_segs"], arrays["ext_first"] = segments_of(dec, compact)
         return plan_from_numpy(arrays, self.device)
 
     # ------------------------------------------------------------- the stages --
@@ -325,10 +319,11 @@ class RASolver:
         s = self.settings
         halo_dtype = (s.halo_value_dtype
                       if s.halo_value_dtype != s.value_dtype else None)
+        segments = (plan["ext_segs"], plan["ext_first"])
         if self._rounds is not None:
             return exchange_halo_neighbor(
-                x_own.contiguous(), plan["interior_off"], plan["halo_slots"],
-                self._rounds, self.meta.max_ext, halo_dtype=halo_dtype,
+                x_own.contiguous(), segments, self._rounds,
+                self.meta.max_ext, halo_dtype=halo_dtype,
                 transport=("rdma" if s.comm.strategy == HaloStrategy.rdma
                            else "ppermute"),
                 rdma_mode="put" if s.comm.enable_put else "get",
@@ -336,10 +331,9 @@ class RASolver:
                 rdma_flush_local=s.comm.flush_type == "flush-local",
                 pending=self._pending_shifts,
             )
-        return exchange_halo_allgather(
-            x_own.contiguous(), plan["interior_off"],
-            (plan["runs_src"], plan["runs_dst"], plan["runs_len"]),
-            self.meta.max_ext, halo_dtype=halo_dtype)
+        return exchange_halo_allgather(x_own.contiguous(), segments,
+                                       self.meta.max_ext,
+                                       halo_dtype=halo_dtype)
 
     def _apply_local(self, inner: bool = False):
         """y = A_local @ x for the whole batch: DIA (K1) + remainder when

@@ -38,11 +38,15 @@ from schwarz_tpu_torch.ops.cluster_geometry import (ANY_CLUSTER_SIZES,
                                                     general_variant)
 from schwarz_tpu_torch.ops.dia_kernel import dia_spmv, dia_spmv_plain
 from schwarz_tpu_torch.ops.fused_cg import fused_cg_solve, fused_cg_solve_plain
-from schwarz_tpu_torch.ops.halo_kernel import assemble_runs, assemble_runs_plain
+from schwarz_tpu_torch.ops.halo_kernel import (assemble_x_ext,
+                                               assemble_x_ext_plain,
+                                               build_segments)
 from schwarz_tpu_torch.ops.rdma_kernel import (rdma_cyclic_shift,
                                                rdma_cyclic_shift_plain,
                                                rdma_exchange,
                                                rdma_exchange_plain)
+from schwarz_tpu_torch.ops.rdma_kernel import exchange_rounds_plain
+from schwarz_tpu_torch.parallel.exchange import segments_of
 from schwarz_tpu_torch.parallel.neighbor_exchange import (build_neighbor_plan,
                                                           exchange_rounds)
 
@@ -93,23 +97,98 @@ def test_dia_spmv_matches_plain(dev, dtype, rtol, offsets):
     torch.testing.assert_close(y, ref, rtol=rtol, atol=rtol)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_halo_runs_bit_identical(dev, dtype):
-    rng = np.random.default_rng(1)
-    S, r_ext, ldb, n_all = 4, 900, 1000, 4 * 700
-    lens = np.array([1, 7, 130, 333], np.int32)
-    src = rng.integers(0, n_all - 333, (S, 4)).astype(np.int32)
-    dst = np.stack([[0, 11, 300, 500]] * S).astype(np.int32)
-    dst[2, 1] = r_ext                      # unused entry
-    x_all = torch.tensor(rng.standard_normal(n_all), dtype=dtype, device=dev)
-    buf = torch.tensor(rng.standard_normal((S, ldb)), dtype=dtype,
-                       device=dev)
-    ref = buf.clone()
-    tables = [torch.tensor(t, device=dev) for t in (src, dst, lens)]
-    assemble_runs(buf, x_all, *tables, r_ext)
+def _k2_case(case):
+    """(x_own shape, r_ext, segs, first) of a K2 case: a regular strip
+    plan (halo runs), an irregular metis halo (one-element runs), or
+    synthetic tables whose rows, window offsets and run starts are no
+    multiples of 4 (the edge paths of the 16-byte copies), with segments
+    across tiles."""
+    if case == "synthetic":
+        S, r_int, r_ext = 3, 5001, 9003
+        off = np.array([0, 1001, 3])
+        # runs (src, dst) of lengths lens; r_ext = unused
+        src = np.array([[5003, 5, 10001, 0], [1, 4099, 5001, 0],
+                        [2, 9, 5005, 10005]])
+        dst = np.array([[5001, 7001, 8999, r_ext], [1, 6002, 8999, r_ext],
+                        [5004, 7003, 0, 8000]])
+        lens = np.array([1999, 13, 3, 1])
+        used = dst < r_ext
+        within = [np.arange(n) for n in lens]
+        slots = np.full((S, lens.sum()), r_ext)
+        srcs = np.zeros((S, lens.sum()), np.int64)
+        for s in range(S):
+            slots[s, :lens[used[s]].sum()] = np.concatenate(
+                [d + w for d, w, u in zip(dst[s], within, used[s]) if u])
+            srcs[s, :lens[used[s]].sum()] = np.concatenate(
+                [a + w for a, w, u in zip(src[s], within, used[s]) if u])
+        return (S, r_int), r_ext, build_segments(
+            off, r_int, r_ext, slots, srcs, S * r_int)
+    A = laplacian_2d(64 if case == "regular" else 32)
+    s = Settings(overlap=3, partition=Partition(case))
+    dec = decompose(A, generate_rhs(A.n), s, 4 if case == "regular" else 8)
+    m = dec.meta
+    return ((m.num_subdomains, m.max_interior), m.max_ext, segments_of(dec))
+
+
+def _k2_check(dev, x, halo_src, tables, r_ext, halo_dtype=None):
+    segs, first = (torch.tensor(t, device=dev) for t in tables)
+    n0 = assemble_x_ext.launches
+    got = assemble_x_ext(x, halo_src, segs, first, r_ext, halo_dtype)
     torch.cuda.synchronize()
-    assemble_runs_plain(ref, x_all, *tables, r_ext)
-    assert torch.equal(buf, ref)
+    assert assemble_x_ext.launches == n0 + 1
+    ref = assemble_x_ext_plain(x, halo_src, segs, first, r_ext, halo_dtype)
+    assert got.shape == (x.shape[0], r_ext) and got.is_contiguous()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("halo_dtype", [None, torch.float32, torch.float64,
+                                        torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["regular", "metis", "synthetic"])
+def test_halo_runs_bit_identical(dev, case, dtype, halo_dtype):
+    """K2 with the halo as runs of the gathered interiors (all_gather),
+    rounded through each halo type, against its plain version."""
+    shape, r_ext, tables = _k2_case(case)
+    x = torch.tensor(np.random.default_rng(1).standard_normal(shape),
+                     dtype=dtype, device=dev)
+    _k2_check(dev, x, x, tables, r_ext, halo_dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_halo_assembly_compact_bit_identical(dev, dtype):
+    """K2 over the neighbour strategies' compact halo values."""
+    A = laplacian_2d(32)
+    dec = decompose(A, generate_rhs(A.n), Settings(
+        overlap=2, partition=Partition.regular2d), 16)
+    m = dec.meta
+    x = torch.tensor(np.random.default_rng(2).standard_normal(
+        (m.num_subdomains, m.max_interior)), dtype=dtype, device=dev)
+    halo = exchange_rounds_plain(
+        x, exchange_rounds(build_neighbor_plan(dec, 4), dev), None,
+        lambda b, r: torch.roll(b, r, 0))
+    _k2_check(dev, x, halo, segments_of(dec, compact=True), m.max_ext)
+
+
+def test_halo_assembly_one_subdomain(dev):
+    """S = 1: no halo, the window and zero padding only."""
+    A = laplacian_2d(48)
+    dec = decompose(A, generate_rhs(A.n), Settings(row_pad_multiple=1024), 1)
+    m = dec.meta
+    x = torch.randn((1, m.max_interior), device=dev, dtype=torch.float64)
+    _k2_check(dev, x, x, segments_of(dec), m.max_ext)
+
+
+def test_halo_assembly_refuses(dev):
+    shape, r_ext, tables = _k2_case("synthetic")
+    segs, first = (torch.tensor(t, device=dev) for t in tables)
+    x = torch.zeros(shape, device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError, match="dtype"):
+        assemble_x_ext(x, x, segs, first, r_ext)
+    x = x.float()
+    with pytest.raises(TypeError, match="halo_dtype"):
+        assemble_x_ext(x, x, segs, first, r_ext, torch.int32)
+    with pytest.raises(ValueError, match="do not fit"):
+        assemble_x_ext(x, x, segs, first, r_ext + 4096)
 
 
 def _cg_args(dev, S, R, n1d, jacobi, shift=0.0):

@@ -1,5 +1,6 @@
 """The port's host setup against the JAX package's: partition, overlap
-decomposition, DIA split and halo run plan must be bit-identical."""
+decomposition and DIA split must be bit-identical, and K2's segment table
+must hold the halo runs of the JAX package's run plan."""
 
 import dataclasses
 import importlib
@@ -16,6 +17,7 @@ import schwarz_tpu_torch.config as tcfg
 import schwarz_tpu_torch.core.partition as tpart
 import schwarz_tpu_torch.models as tmodels
 import schwarz_tpu_torch.ops.dia as tdia
+import schwarz_tpu_torch.ops.halo_kernel as thk
 import schwarz_tpu_torch.parallel.exchange as tex
 
 # the modules, not the ``decompose`` functions the packages re-export
@@ -90,13 +92,25 @@ def test_dia_split_and_run_plan_identical(case):
     for k, o in enumerate(ht.offsets):
         out = (r + o < 0) | (r + o >= R)
         assert not ht.dia_vals[:, k, out].any()
-    args = (dj.halo_src_halo, dj.halo_slots, dj.meta.max_ext,
-            dj.meta.max_interior, dj.interior_offset)
-    rj, rt = jex.build_run_plan(*args), tex.build_run_plan(*args)
-    assert (rj is None) == (rt is None)
+    # the JAX run plan's runs, slot by slot, give the port's segments
+    r_ext, r_int = dj.meta.max_ext, dj.meta.max_interior
+    rj = jex.build_run_plan(dj.halo_src_halo, dj.halo_slots, r_ext, r_int,
+                            dj.interior_offset)
     if rj is not None:
-        assert rj.lengths == rt.lengths
-        for a, b in zip(rj.run_src + rj.run_dst, rt.run_src + rt.run_dst):
+        S = dj.meta.num_subdomains
+        per = [[] for _ in range(S)]
+        for L, srcs, dsts in zip(rj.lengths, rj.run_src, rj.run_dst):
+            for s, k in zip(*np.nonzero(dsts < r_ext)):
+                per[s] += [(dsts[s, k] + i, srcs[s, k] + i) for i in range(L)]
+        H = max(map(len, per))
+        slots = np.full((S, H), r_ext)
+        src = np.zeros((S, H), np.int64)
+        for s, pairs in enumerate(per):
+            if pairs:
+                slots[s, :len(pairs)], src[s, :len(pairs)] = zip(*pairs)
+        from_runs = thk.build_segments(dt.interior_offset, r_int, r_ext,
+                                       slots, src, S * r_int)
+        for a, b in zip(from_runs, tex.segments_of(dt)):
             np.testing.assert_array_equal(a, b)
 
 
@@ -110,27 +124,26 @@ def test_partition_regular_identical(n, S):
 
 
 def test_flat_run_tables_cover_the_halo():
-    """K2's flat table (runs, or one-element runs without a run plan)
-    addresses exactly the halo slots of the decomposition."""
+    """K2's segment table (the halo read from the gathered interiors)
+    addresses exactly the halo slots of the decomposition, each with its
+    source; a source outside the interiors is refused."""
     _, dt = _both("lap128", 4, 2, 128, "float32", False)
     r_ext, r_int = dt.meta.max_ext, dt.meta.max_interior
-    rp = tex.build_run_plan(dt.halo_src_halo, dt.halo_slots, r_ext, r_int,
-                            dt.interior_offset)
-    for plan in (rp, None):
-        src, dst, lens = tex.flat_run_tables(
-            plan, dt.halo_src_halo, dt.halo_slots, r_ext, 4 * r_int)
-        for s in range(4):
-            pairs = sorted(
-                (d + i, sr + i)
-                for sr, d, L in zip(src[s], dst[s], lens) if d < r_ext
-                for i in range(L))
-            valid = dt.halo_slots[s] < r_ext
-            want = sorted(zip(dt.halo_slots[s][valid].tolist(),
-                              dt.halo_src_halo[s][valid].tolist()))
-            assert pairs == want
+    segs, first = tex.segments_of(dt)
+    lo = 0
+    for s in range(4):
+        pairs = sorted(
+            (d + i, s0 + i)
+            for d, n, kind, s0 in segs[lo:first[s, -1]] if kind == 2
+            for i in range(n))
+        lo = first[s, -1]
+        valid = dt.halo_slots[s] < r_ext
+        want = sorted(zip(dt.halo_slots[s][valid].tolist(),
+                          dt.halo_src_halo[s][valid].tolist()))
+        assert pairs == want
     with pytest.raises(ValueError):
-        tex.flat_run_tables(rp, dt.halo_src_halo, dt.halo_slots, r_ext,
-                            r_int)
+        thk.build_segments(dt.interior_offset, r_int, r_ext, dt.halo_slots,
+                           dt.halo_src_halo, r_int)
 
 
 @pytest.mark.parametrize("part", [tcfg.Partition.regular2d,

@@ -1,5 +1,5 @@
-"""The plain PyTorch versions of the port's kernels (K1 DIA SpMV, K2 halo-run
-copy, K3 fused CG) against the JAX package's Pallas kernels, run in interpret
+"""The plain PyTorch versions of the port's kernels (K1 DIA SpMV, K2 x_ext
+assembly, K3 fused CG) against the JAX package's Pallas kernels, run in interpret
 mode on the CPU as the JAX package's own tests run them, and against its XLA
 paths.  On CPU tensors each kernel wrapper takes its plain version; the
 kernels themselves are held to these versions on the card
@@ -34,11 +34,10 @@ from schwarz_tpu.parallel.exchange import build_run_plan
 from schwarz_tpu_torch.ops.dia import dia_ell_spmv as t_dia_ell_spmv
 from schwarz_tpu_torch.ops.dia_kernel import dia_spmv, dia_spmv_plain
 from schwarz_tpu_torch.ops.fused_cg import fused_cg_solve, fused_cg_solve_plain
-from schwarz_tpu_torch.ops.halo_kernel import assemble_runs
+from schwarz_tpu_torch.ops.halo_kernel import assemble_x_ext as k2
 from schwarz_tpu_torch.parallel.exchange import (
-    assemble_x_ext_runs,
     exchange_halo_allgather,
-    flat_run_tables,
+    segments_of,
 )
 from schwarz_tpu_torch.ras import plan_from_numpy
 
@@ -141,13 +140,12 @@ def test_k2_plain_bit_identical_to_fused_and_runs(n1d, S, overlap):
         jnp.asarray(off), rp.lengths,
         tuple(jnp.asarray(t) for t in rp.run_src),
         tuple(jnp.asarray(t) for t in rp.run_dst), r_ext, jnp.float32))
-    tables = plan_from_numpy(dict(zip(("src", "dst", "len"), flat_run_tables(
-        rp, dec.halo_src_halo, dec.halo_slots, r_ext, S * r_int))), "cpu")
-    n0 = assemble_runs.launches
+    tables = plan_from_numpy(dict(zip(("segs", "first"),
+                                      segments_of(dec))), "cpu")
+    n0 = k2.launches
     got = exchange_halo_allgather(
-        _t(x_own), _t(off.astype(np.int64)),
-        (tables["src"], tables["dst"], tables["len"]), r_ext).numpy()
-    assert assemble_runs.launches == n0
+        _t(x_own), (tables["segs"], tables["first"]), r_ext).numpy()
+    assert k2.launches == n0
     np.testing.assert_array_equal(got, fused)
     np.testing.assert_array_equal(got, runs)
 
@@ -156,8 +154,8 @@ def test_k2_plain_bit_identical_to_fused_and_runs(n1d, S, overlap):
     ("lap12", 4, 3, "float64"), ("lap32", 4, 2, "float64"),
     ("ani4", 4, 2, "float64"), ("ani3", 2, 3, "float32")])
 def test_k2_plain_bit_identical_to_xla_paths(kind, S, overlap, dtype):
-    """Both table forms (the run plan, and one-element runs for an
-    irregular halo) give the XLA gather path's x_ext bit for bit."""
+    """Both halo forms (read from the gathered interiors, and from
+    compact halo values) give the XLA gather path's x_ext bit for bit."""
     dec = _decomp(kind, S, overlap, dtype)
     r_ext, r_int = dec.meta.max_ext, dec.meta.max_interior
     rng = np.random.default_rng(6)
@@ -167,14 +165,13 @@ def test_k2_plain_bit_identical_to_xla_paths(kind, S, overlap, dtype):
     ref = np.asarray(assemble_x_ext(
         jnp.asarray(x_own), jnp.asarray(off), jnp.asarray(dec.halo_slots),
         x_all[jnp.asarray(dec.halo_src_halo)], r_ext))
-    rp = build_run_plan(dec.halo_src_halo, dec.halo_slots, r_ext, r_int,
-                        dec.interior_offset)
-    for plan in ([rp] if rp is not None else []) + [None]:
-        tables = tuple(_t(t) for t in flat_run_tables(
-            plan, dec.halo_src_halo, dec.halo_slots, r_ext, S * r_int))
-        got = assemble_x_ext_runs(_t(x_own), _t(x_own.reshape(-1)),
-                                  _t(off), tables, r_ext).numpy()
-        np.testing.assert_array_equal(got, ref)
+    got = exchange_halo_allgather(
+        _t(x_own), tuple(map(_t, segments_of(dec))), r_ext).numpy()
+    np.testing.assert_array_equal(got, ref)
+    halo = _t(x_own.reshape(-1)[dec.halo_src_halo])
+    got = k2(_t(x_own), halo, *map(_t, segments_of(dec, compact=True)),
+             r_ext).numpy()
+    np.testing.assert_array_equal(got, ref)
 
 
 # ---------------------------------------------------------------- K3 ------

@@ -20,9 +20,8 @@ from schwarz_tpu_torch.ops.rdma_kernel import (rdma_cyclic_shift,
                                                rdma_cyclic_shift_plain,
                                                rdma_shift_finish,
                                                rdma_shift_launch)
-from schwarz_tpu_torch.parallel.exchange import (build_run_plan,
-                                                 exchange_halo_allgather,
-                                                 flat_run_tables)
+from schwarz_tpu_torch.parallel.exchange import (exchange_halo_allgather,
+                                                 segments_of)
 from schwarz_tpu_torch.parallel.neighbor_exchange import (
     NeighborPlan, build_neighbor_plan, exchange_halo_neighbor,
     exchange_rounds)
@@ -100,20 +99,16 @@ def _exchange_both(dt, D, dtype, halo_dtype, transport, variant=VARIANTS[0]):
     S, R_int, R_ext = meta.num_subdomains, meta.max_interior, meta.max_ext
     rng = np.random.default_rng(5)
     x_own = torch.tensor(rng.standard_normal((S, R_int)), dtype=dtype)
-    off = torch.tensor(dt.interior_offset.astype(np.int64))
     nx = build_neighbor_plan(dt, D)
     mode, one_by_one, flush_local = variant
     got = exchange_halo_neighbor(
-        x_own, off, torch.tensor(dt.halo_slots.astype(np.int64)),
+        x_own, tuple(map(torch.tensor, segments_of(dt, compact=True))),
         exchange_rounds(nx, "cpu"), R_ext, halo_dtype=halo_dtype,
         transport=transport, rdma_mode=mode, rdma_one_by_one=one_by_one,
         rdma_flush_local=flush_local)
-    rp = build_run_plan(dt.halo_src_halo, dt.halo_slots, R_ext, R_int,
-                        dt.interior_offset)
-    tables = tuple(torch.tensor(t) for t in flat_run_tables(
-        rp, dt.halo_src_halo, dt.halo_slots, R_ext, S * R_int))
-    ref = exchange_halo_allgather(x_own, off, tables, R_ext,
-                                  halo_dtype=halo_dtype)
+    ref = exchange_halo_allgather(
+        x_own, tuple(map(torch.tensor, segments_of(dt))), R_ext,
+        halo_dtype=halo_dtype)
     return got, ref, nx
 
 

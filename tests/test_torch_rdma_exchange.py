@@ -21,7 +21,8 @@ from schwarz_tpu_torch.models import generate_rhs, laplacian_2d
 from schwarz_tpu_torch.ops import rdma_kernel as rk
 from schwarz_tpu_torch.ops.async_ras_kernel import (CLUSTER_SIZES,
                                                     choose_cluster)
-from schwarz_tpu_torch.parallel.exchange import assemble_x_ext
+from schwarz_tpu_torch.ops.halo_kernel import assemble_x_ext
+from schwarz_tpu_torch.parallel.exchange import segments_of
 from schwarz_tpu_torch.parallel.neighbor_exchange import (
     build_neighbor_plan, exchange_halo_neighbor, exchange_rounds)
 from schwarz_tpu_torch.ras import RASolver as TSolver
@@ -46,17 +47,18 @@ def _case(partition, D, overlap=3, n=16, dtype=torch.float64):
     return dec, nx, rounds, x
 
 
+def _segments(dec):
+    return tuple(map(torch.tensor, segments_of(dec, compact=True)))
+
+
 def _x_ext(dec, x, halo):
-    return assemble_x_ext(x, torch.tensor(dec.interior_offset.astype(
-        np.int64)), torch.tensor(dec.halo_slots.astype(np.int64)), halo,
-        dec.meta.max_ext)
+    return assemble_x_ext(x, halo, *_segments(dec), dec.meta.max_ext)
 
 
 def _neighbor(dec, rounds, x, halo_dtype, transport, variant=VARIANTS[0]):
     mode, one_by_one, flush_local = variant
     return exchange_halo_neighbor(
-        x, torch.tensor(dec.interior_offset.astype(np.int64)),
-        torch.tensor(dec.halo_slots.astype(np.int64)), rounds,
+        x, _segments(dec), rounds,
         dec.meta.max_ext, halo_dtype=halo_dtype, transport=transport,
         rdma_mode=mode, rdma_one_by_one=one_by_one,
         rdma_flush_local=flush_local)
