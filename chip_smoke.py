@@ -100,7 +100,29 @@
    ``decentralized`` and accumulate convergence protocols, each with equal
    counts on card and CPU and no fewer iterations than the plain run, and
    ``halo_dtype='bfloat16'`` (tolerance 0.25, histories within rtol 1e-2);
-20. prints one JSON line describing the kernels, then the fixed last line
+20. runs the flagship recipe (``bench.py:531-539``): ``laplacian_2d(512)``,
+   16 regular strips, overlap 6, tolerance 1e-8, a float64 outer loop with
+   float32 FSAI(0)-preconditioned local CG capped at 20 iterations and the
+   two-level spectral coarse space (q = 32), through ``RASolver`` on the
+   card (the host setup timed: decompose, the 16 eigensolves into a cache
+   under ``build/coarse_cache``, the plan), cold and warm, with K1, K2 and
+   K3 counted (K1 per operand from the inner iteration history) and one
+   warm run profiled; then the same on the CPU (the basis read from the
+   cache): converged to a true relative residual <= 1e-8 in the CPU run's
+   iteration count, both histories printed;
+21. holds K1 to its plain version at the flagship's shapes (the float64
+   and float32 operator, K = 5, and FSAI's G and G^T, K = 3, all
+   (16, ., 21504)), timed like phase 3 beside ``torch.sparse.mm``;
+22. holds K3 to its plain version on the O-RAS operator of a converging
+   run (``laplacian_2d(128)``, 16 strips, overlap 6, ``oras_weight=
+   'auto'``, float32 Jacobi locals under a float64 outer loop), then runs
+   it on the card and on the CPU (iterations within one, histories within
+   1e-3, K3 once per local solve);
+23. runs two-level free-running refinement (``run_refined(tol=1e-8,
+   coarse_q=4)``, ``laplacian_2d(64)``, 8 ranks, the 1-D tier) on the card
+   and on the CPU: the same restarts and residual; then the same recipe
+   through ``solve(free_running=True, two_level=True)``;
+24. prints one JSON line describing the kernels, then the fixed last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the last line, as does a machine
@@ -163,6 +185,15 @@ def _k2_bound(segs, first, S: int, r_ext: int, one_source: bool):
     return _bound_ms((S * r_ext + n_read) * 4 + table_bytes, 0, "float32")
 
 
+def _k3_bound(iters, S: int, K: int, R: int):
+    """K3's bound: the operator, b, x0, dinv read once and x written once
+    (float32), against the iterations this run's data took, 2K + 13
+    operations a row each, plus the set-up pass."""
+    n_ops = float(((iters.to("cpu").long() * (2 * K + 13)).sum()
+                   + S * (2 * K + 6)) * R)
+    return _bound_ms((S * K * R + 4 * S * R) * 4 + S * 8, n_ops, "float32")
+
+
 class Smoke:
     def __init__(self, torch):
         self.torch = torch
@@ -201,6 +232,63 @@ class Smoke:
         return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
+def k1_entry(sm: Smoke, offsets, dia, x, what: str) -> dict:
+    """K1 on ``dia`` (S, K, R) and ``x`` against its plain version, then
+    timed beside its bound, its plain version and ``torch.sparse.mm`` on
+    the same operator as one block-diagonal CSR matrix (the library
+    yardstick: cuSPARSE, never on the path)."""
+    import numpy as np
+    import torch
+
+    from schwarz_tpu_torch.ops.dia_kernel import dia_spmv, dia_spmv_plain
+
+    S, K, R_rows = dia.shape
+    name = str(dia.dtype).split(".")[-1]
+    y = dia_spmv(offsets, dia, x)
+    torch.cuda.synchronize()
+    ref = dia_spmv_plain(offsets, dia, x)
+    err = float((y - ref).abs().max())
+    tol = (1e-5 if dia.dtype == torch.float32 else 1e-12) * float(
+        ref.abs().max())
+    sm.check(err <= tol, f"K1 {what}: max abs err {err:.3e} <= {tol:.3e} "
+             f"(FMA contraction and sum order)")
+    d_np = dia.cpu().numpy()
+    rows, cols, vals = [], [], []
+    r = np.arange(R_rows)
+    for k, o in enumerate(offsets):
+        ok = (r + o >= 0) & (r + o < R_rows)
+        for s in range(S):
+            keep = ok & (d_np[s, k] != 0)
+            rows.append(s * R_rows + r[keep])
+            cols.append(s * R_rows + r[keep] + o)
+            vals.append(d_np[s, k, keep])
+    rows, cols, vals = (np.concatenate(a) for a in (rows, cols, vals))
+    order = np.lexsort((cols, rows))
+    n = S * R_rows
+    crow = np.zeros(n + 1, np.int64)
+    np.add.at(crow, rows + 1, 1)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # "beta" notices
+        csr = torch.sparse_csr_tensor(
+            torch.from_numpy(np.cumsum(crow)),
+            torch.from_numpy(cols[order]), torch.from_numpy(vals[order]),
+            size=(n, n)).to("cuda")
+    xc = x[:, :R_rows].contiguous().reshape(n, 1)
+    lib_err = float((torch.sparse.mm(csr, xc).reshape(S, R_rows)
+                     - ref).abs().max())
+    sm.check(lib_err <= tol, f"K1 {what}: library yardstick agrees "
+             f"({lib_err:.3e})")
+    e = dia.element_size()
+    bound, by = _bound_ms((S * K * R_rows + 2 * S * R_rows) * e,
+                          2 * K * S * R_rows, name)
+    return dict(
+        max_abs_err=err,
+        ms=sm.ms(lambda: dia_spmv(offsets, dia, x), 50),
+        plain_ms=sm.ms(lambda: dia_spmv_plain(offsets, dia, x), 10),
+        bound_ms=bound, bound_by=by,
+        library_ms=sm.ms(lambda: torch.sparse.mm(csr, xc), 50))
+
+
 def kernel_checks(sm: Smoke, solver) -> None:
     """Phase 3: each kernel against its plain version at the slice's
     shapes, then timed beside its bound, its plain version and (K1) a
@@ -208,7 +296,6 @@ def kernel_checks(sm: Smoke, solver) -> None:
     import numpy as np
     import torch
 
-    from schwarz_tpu_torch.ops.dia_kernel import dia_spmv, dia_spmv_plain
     from schwarz_tpu_torch.ops.fused_cg import (fused_cg_solve,
                                                 fused_cg_solve_plain)
     from schwarz_tpu_torch.ops.halo_kernel import (ZERO, assemble_x_ext,
@@ -226,51 +313,9 @@ def kernel_checks(sm: Smoke, solver) -> None:
         dia = plan["dia_vals"].to(dt)
         x_ext = torch.randn((S, R_ext), generator=gen, device="cuda",
                             dtype=dt)
-        x = x_ext[:, :R_rows]             # the solver's strided view
-        y = dia_spmv(offsets, dia, x)
-        torch.cuda.synchronize()
-        ref = dia_spmv_plain(offsets, dia, x)
-        err = float((y - ref).abs().max())
-        tol = (1e-5 if dt == torch.float32 else 1e-12) * float(
-            ref.abs().max())
-        sm.check(err <= tol, f"K1 dia_spmv {name}: max abs err {err:.3e} "
-                 f"<= {tol:.3e} (FMA contraction and sum order)")
-        # the same operator as one block-diagonal CSR matrix: the library
-        # yardstick (cuSPARSE through torch.sparse.mm), never on the path
-        d_np = dia.cpu().numpy()
-        rows, cols, vals = [], [], []
-        r = np.arange(R_rows)
-        for k, o in enumerate(offsets):
-            ok = (r + o >= 0) & (r + o < R_rows)
-            for s in range(S):
-                keep = ok & (d_np[s, k] != 0)
-                rows.append(s * R_rows + r[keep])
-                cols.append(s * R_rows + r[keep] + o)
-                vals.append(d_np[s, k, keep])
-        rows, cols, vals = (np.concatenate(a) for a in (rows, cols, vals))
-        order = np.lexsort((cols, rows))
-        n = S * R_rows
-        crow = np.zeros(n + 1, np.int64)
-        np.add.at(crow, rows + 1, 1)
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", UserWarning)   # "beta" notices
-            csr = torch.sparse_csr_tensor(
-                torch.from_numpy(np.cumsum(crow)),
-                torch.from_numpy(cols[order]), torch.from_numpy(vals[order]),
-                size=(n, n)).to("cuda")
-        xc = x.contiguous().reshape(n, 1)
-        lib_err = float((torch.sparse.mm(csr, xc).reshape(S, R_rows)
-                         - ref).abs().max())
-        sm.check(lib_err <= tol, f"K1 library yardstick agrees ({lib_err:.3e})")
-        e = dia.element_size()
-        bound, by = _bound_ms((S * K * R_rows + 2 * S * R_rows) * e,
-                              2 * K * S * R_rows, name)
-        sm.kernels[f"dia_spmv_{name}"] = dict(
-            max_abs_err=err,
-            ms=sm.ms(lambda: dia_spmv(offsets, dia, x), 50),
-            plain_ms=sm.ms(lambda: dia_spmv_plain(offsets, dia, x), 10),
-            bound_ms=bound, bound_by=by,
-            library_ms=sm.ms(lambda: torch.sparse.mm(csr, xc), 50))
+        # the solver's strided view
+        sm.kernels[f"dia_spmv_{name}"] = k1_entry(
+            sm, offsets, dia, x_ext[:, :R_rows], f"dia_spmv {name}")
 
     # --- K2: the whole x_ext in one launch ----------------------------------
     x_own = torch.randn((S, R_int), generator=gen, device="cuda")
@@ -352,10 +397,7 @@ def kernel_checks(sm: Smoke, solver) -> None:
                  f"err {err:.3e} <= {tol:.3e}, iterations within {d_it} <= 1 "
                  f"(float32 sums in another order)")
     C, var, err, got = res[None]
-    iters = got.iters.to(torch.int64)
-    n_ops = float(((iters * (2 * K + 13)).sum() + S * (2 * K + 6)) * R_rows)
-    bound, by = _bound_ms((S * K * R_rows + 4 * S * R_rows) * 4 + S * 8,
-                          n_ops, "float32")
+    bound, by = _k3_bound(got.iters, S, K, R_rows)
     ms1 = sm.ms(lambda: fused_cg_solve(*args, cluster=1), 5)
     sm.kernels["fused_cg"] = dict(
         max_abs_err=err, cluster=C, variant=var,
@@ -535,6 +577,7 @@ def counted(fn):
     fns = _counters()
     for f in fns.values():
         f.launches = 0
+    fns["dia_spmv"].launches_by = {}
     torch.cuda.synchronize()
     res = fn()
     torch.cuda.synchronize()
@@ -1374,6 +1417,290 @@ def neighbor_exchange_phases(sm: Smoke, dec, solver, hist4,
          halo_dtype="bfloat16", tolerance=0.25)
 
 
+# the flagship recipe, bench.py:531-539
+FLAGSHIP = dict(overlap=6, tolerance=1e-8, max_iters=200, dtype="float64",
+                local_compute_dtype="float32", local_tolerance=1e-6,
+                local_max_iters=20, row_pad_multiple=128, two_level=True,
+                coarse_aggregates=32, coarse_space="spectral")
+
+
+# the flagship's card history against its CPU history, both DIA: float32
+# local CG sums in another order.  After the first outer iteration the gap
+# read 6.3e-7 on an H100; the port against the JAX package on the CPU reads
+# 7.5e-7 there on the 64^2 analog, and 1.2e-5 with FSAI's factors rounded
+# to bfloat16.  Over the whole history it grows as each iteration adds its
+# own rounding: 7.2e-4 on the H100 (4.7e-5 over the analog's 10).
+FLAGSHIP_FIRST_RTOL = 4e-6
+FLAGSHIP_HISTORY_RTOL = 2e-3
+
+
+def flagship_phases(sm: Smoke) -> None:
+    """Phases 20-23: the flagship recipe at full size on the card and on
+    the CPU, K1 at its shapes, a converging O-RAS run through K3 on the
+    Robin-modified operator, and two-level free-running refinement."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from schwarz_tpu_torch import (Partition, Precond, RASolver, Settings,
+                                   solve)
+    from schwarz_tpu_torch.coarse_correction import spectral_coarse_basis
+    from schwarz_tpu_torch.core.decompose import decompose
+    from schwarz_tpu_torch.models import generate_rhs, laplacian_2d
+    from schwarz_tpu_torch.ops.async_ras import AsyncRASolver
+    from schwarz_tpu_torch.ops.dia_kernel import dia_spmv
+    from schwarz_tpu_torch.ops.fused_cg import (fused_cg_solve,
+                                                fused_cg_solve_plain)
+
+    # the eigenvectors go to a cache inside the checkout, cleared first, so
+    # the card's setup solves them and the CPU's setup reads them
+    cache = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "coarse_cache")
+    shutil.rmtree(cache, ignore_errors=True)
+    os.environ["SCHWARZ_TPU_COARSE_CACHE"] = cache
+
+    # --- 20. the flagship at full size: card, then CPU -----------------------
+    A = laplacian_2d(512)
+    b = generate_rhs(A.n)
+    s = Settings(partition=Partition.regular, precond=Precond.fsai,
+                 **FLAGSHIP)
+    S = 16
+    t0 = time.perf_counter()
+    dec = decompose(A, b, s, S)
+    t_dec = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spectral_coarse_basis(dec, s.coarse_aggregates, dec.meta.max_interior)
+    t_eig = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    solver = RASolver(dec)
+    torch.cuda.synchronize()
+    t_plan = time.perf_counter() - t0
+    m = solver.meta
+    print(f"flagship setup on the host: partition + decompose {t_dec:.2f} "
+          f"s, 16 Neumann eigensolves (q = {s.coarse_aggregates}) and the "
+          f"Galerkin product {t_eig:.2f} s, plan (FSAI build, coarse "
+          f"inverse, copies to the card) {t_plan:.2f} s, total "
+          f"{t_dec + t_eig + t_plan:.2f} s; N={m.global_size} S={S} "
+          f"R_int={m.max_interior} R_rows={m.max_rows} R_ext={m.max_ext} "
+          f"offsets={solver._dia_offsets} fsai={solver._fsai_offsets} "
+          f"remainder={solver._dia_has_remainder}", flush=True)
+    res, launches = counted(solver.run)
+    by_operand = dict(dia_spmv.launches_by)    # before any other K1 launch
+    warm = solver.run()
+    n_run = len(warm.global_resnorm_history)
+    ms_it = 1e3 * warm.solve_time_s / max(n_run, 1)
+    print(f"flagship on the card: {res.iters} iterations, converged="
+          f"{res.converged}, true relative residual (float64, host) "
+          f"{res.relative_residual_norm:.6e}; run loop {res.solve_time_s:.3f}"
+          f" s cold, {warm.solve_time_s:.3f} s warm ({ms_it:.2f} ms per "
+          f"outer iteration over {n_run} passes); inner iterations per "
+          f"outer iteration {res.inner_iters_history.max(axis=1).tolist()}",
+          flush=True)
+    print(f"launches in the flagship run: {launches}", flush=True)
+    hist = res.global_resnorm_history
+    print("flagship card history: " + " ".join(f"{v:.9e}" for v in hist),
+          flush=True)
+    go, uo = solver._fsai_offsets
+    a_off = tuple(solver._dia_offsets)
+    operands = {"A_f64": (a_off, "float64"), "A_f32": (a_off, "float32"),
+                "G": (tuple(go), "float32"), "GT": (tuple(uo), "float32")}
+    k1 = {key: by_operand.get(op, 0) for key, op in operands.items()}
+    sm.check(res.converged and res.relative_residual_norm <= 1e-8
+             and res.solution.shape == (A.n,)
+             and bool(np.isfinite(res.solution).all()),
+             f"flagship converges on the card: {res.iters} iterations, "
+             f"true relative residual {res.relative_residual_norm:.3e} "
+             f"<= 1e-8 (the JAX package on a TPU: 18, 6.21e-9, "
+             f"BENCH_r05.json)")
+    sm.check(set(by_operand) == set(operands.values())
+             and all(k1.values())
+             and launches["dia_spmv"] == sum(k1.values())
+             and launches["halo_runs"] == 2 * res.iters + 1
+             and launches["fused_cg"] == 0,
+             f"flagship: K1 launched {launches['dia_spmv']} times, by "
+             f"operand {k1} as its wrapper counted them (the FSAI factors' "
+             f"products run through it; launches by offsets and type "
+             f"{by_operand}), K2 "
+             f"{launches['halo_runs']} = 2 per outer iteration + the exit "
+             f"pass, K3 not at all (FSAI locals)")
+    # the profiler's view of one warm run: launches by kernel, device busy
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, lp = counted(solver.run)
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if "CUDA" in str(getattr(e, "device_type", ""))]
+    dev_us = sum(e.self_device_time_total for e in events)
+    n_k1 = sum(e.count for e in events if "dia_spmv_kernel" in e.key)
+    n_k2 = sum(e.count for e in events if "assemble_kernel" in e.key)
+    print(f"flagship profile, one warm run of {n_run} passes: wall "
+          f"{wall * 1e3:.2f} ms, device busy {dev_us / 1e3:.2f} ms "
+          f"({100 * dev_us / 1e3 / (wall * 1e3):.1f}%); K1 {n_k1} launches "
+          f"({n_k1 / max(res.iters, 1):.2f} per outer iteration), K2 {n_k2} "
+          f"({n_k2 / max(res.iters, 1):.2f} per outer iteration)",
+          flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:14]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
+              f"{e.key[:70]}", flush=True)
+    groups = {"K1": "dia_spmv_kernel", "K2": "assemble_kernel",
+              "reductions": "reduce_kernel", "products (cuBLAS)": "gemm",
+              "copies": "Memcpy"}
+    share = {g: sum(e.self_device_time_total for e in events
+                    if k in e.key) / 1e3 for g, k in groups.items()}
+    print(f"flagship device ms by kind: {share}, the rest "
+          f"{dev_us / 1e3 - sum(share.values()):.3f}", flush=True)
+    sm.check(n_k1 == lp["dia_spmv"] and n_k2 == lp["halo_runs"],
+             f"flagship profile: K1 {n_k1} and K2 {n_k2} launches, as "
+             f"counted by their wrappers ({lp['dia_spmv']}, "
+             f"{lp['halo_runs']})")
+    # the CPU takes the card's DIA layout (its 'auto' picks ELL), so both
+    # sides run the same local operator and the same FSAI factors
+    t0 = time.perf_counter()
+    cpu_solver = RASolver(decompose(A, b, dataclasses.replace(
+        s, spmv_format="dia"), S), device="cpu")
+    t_cpu_setup = time.perf_counter() - t0
+    same_layout = (cpu_solver._dia_offsets == solver._dia_offsets
+                   and cpu_solver._fsai_offsets == solver._fsai_offsets)
+    cpu = cpu_solver.run()
+    h_cpu = cpu.global_resnorm_history
+    print(f"flagship on the CPU (setup {t_cpu_setup:.2f} s, basis from the "
+          f"cache; DIA offsets {cpu_solver._dia_offsets}, FSAI "
+          f"{cpu_solver._fsai_offsets}): {cpu.iters} iterations, true "
+          f"relative residual "
+          f"{cpu.relative_residual_norm:.6e}, run loop "
+          f"{cpu.solve_time_s:.2f} s", flush=True)
+    print("flagship CPU history: " + " ".join(f"{v:.9e}" for v in h_cpu),
+          flush=True)
+    n = min(len(hist), len(h_cpu))
+    gaps = np.abs(hist[:n] / h_cpu[:n] - 1)
+    rel, first = float(gaps.max()), float(gaps[1])
+    sm.check(same_layout and cpu.converged
+             and abs(cpu.iters - res.iters) <= 1
+             and cpu.relative_residual_norm <= 1e-8
+             and first <= FLAGSHIP_FIRST_RTOL
+             and rel <= FLAGSHIP_HISTORY_RTOL,
+             f"flagship card vs CPU, both DIA: {res.iters} / {cpu.iters} "
+             f"iterations (a difference of one only with both histories, "
+             f"printed above), histories within {first:.3e} <= "
+             f"{FLAGSHIP_FIRST_RTOL:g} after the first outer iteration and "
+             f"{rel:.3e} <= {FLAGSHIP_HISTORY_RTOL:g} over the common "
+             f"entries")
+    del cpu_solver
+
+    # --- 21. K1 at the flagship's shapes against its plain version -----------
+    plan = solver._plan
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x64 = torch.randn((S, m.max_ext), generator=gen, device="cuda",
+                      dtype=torch.float64)
+    x32 = torch.randn((S, m.max_rows), generator=gen, device="cuda")
+    for key, offs, dia, x in (
+            ("A_f64", solver._dia_offsets, plan["dia_vals"], x64[:, :m.max_rows]),
+            ("A_f32", solver._dia_offsets, plan["dia_vals_lc"], x32),
+            ("G", go, plan["fsai_gl_dia"], x32),
+            ("GT", uo, plan["fsai_gu_dia"], x32)):
+        e = k1_entry(sm, offs, dia, x,
+                     f"at the flagship's {key} {tuple(dia.shape)} offsets "
+                     f"{offs}")
+        e["launches"] = k1[key]
+        sm.kernels[f"dia_spmv_flagship_{key}"] = e
+        print(f"K1 flagship {key}: ms={e['ms']:.5f} plain_ms="
+              f"{e['plain_ms']:.5f} bound_ms={e['bound_ms']:.5f} "
+              f"({e['bound_by']}) library_ms={e['library_ms']:.5f}; "
+              f"{k1[key]} launches in the run, "
+              f"{k1[key] / max(res.iters, 1):.1f} per outer iteration",
+              flush=True)
+    del solver, plan
+
+    # --- 22. a converging synchronous O-RAS run through K3 -------------------
+    A3 = laplacian_2d(128)
+    b3 = generate_rhs(A3.n, random=False)
+    s3 = Settings(overlap=6, tolerance=1e-8, max_iters=400, dtype="float64",
+                  local_compute_dtype="float32", local_tolerance=1e-6,
+                  local_max_iters=50, fused_local_cg=True,
+                  precond=Precond.jacobi, row_pad_multiple=128,
+                  spmv_format="dia", oras_weight="auto")
+    oras = RASolver(decompose(A3, b3, s3, 16))
+    p3 = oras._plan
+    K3_args = (oras._dia_offsets, p3["dia_vals_solve_lc"],
+               p3["local_rhs"].float(), torch.zeros_like(p3["local_rhs"],
+                                                         dtype=torch.float32),
+               p3["precond_dinv"], s3.local_tolerance, s3.local_max_iters)
+    ref = fused_cg_solve_plain(*K3_args)
+    got = fused_cg_solve(*K3_args)
+    torch.cuda.synchronize()
+    err = float((got.x - ref.x).abs().max())
+    tol = 1e-3 * float(ref.x.abs().max())
+    d_it = int((got.iters - ref.iters).abs().max())
+    C, var = fused_cg_solve.cluster, fused_cg_solve.variant
+    sm.check(err <= tol and d_it <= 1,
+             f"K3 on the O-RAS operator (dia_vals_solve_lc, weight "
+             f"{oras._oras_c}), {C} blocks per subdomain ({var} memory): max "
+             f"abs err {err:.3e} <= {tol:.3e}, iterations within {d_it} <= 1")
+    Sx, Kx, Rx = p3["dia_vals_solve_lc"].shape
+    bound, by = _k3_bound(got.iters, Sx, Kx, Rx)
+    r3, l3 = counted(oras.run)
+    cpu3 = RASolver(decompose(A3, b3, s3, 16), device="cpu").run()
+    print(f"O-RAS 128^2, S = 16, overlap 6, weight {oras._oras_c}: card "
+          f"{r3.iters} iterations (true rel {r3.relative_residual_norm:.3e},"
+          f" run loop {r3.solve_time_s:.3f} s), CPU {cpu3.iters} (true rel "
+          f"{cpu3.relative_residual_norm:.3e}); launches {l3}", flush=True)
+    if r3.iters != cpu3.iters:
+        for who, h in (("card", r3), ("CPU", cpu3)):
+            print(f"O-RAS {who} history: " + " ".join(
+                f"{v:.9e}" for v in h.global_resnorm_history), flush=True)
+    n = min(len(r3.global_resnorm_history), len(cpu3.global_resnorm_history))
+    rel = float(np.abs(r3.global_resnorm_history[:n]
+                       / cpu3.global_resnorm_history[:n] - 1).max())
+    sm.check(r3.converged and cpu3.converged
+             and abs(r3.iters - cpu3.iters) <= 1 and rel <= 1e-3
+             and r3.relative_residual_norm < 1e-7
+             and l3["fused_cg"] == r3.iters,
+             f"O-RAS through K3 converges on card and CPU: {r3.iters} / "
+             f"{cpu3.iters} iterations, histories within {rel:.3e} <= 1e-3, "
+             f"K3 launched once per local solve ({l3['fused_cg']})")
+    sm.kernels["fused_cg_oras"] = dict(
+        max_abs_err=err, cluster=C, variant=var, launches=l3["fused_cg"],
+        ms=sm.ms(lambda: fused_cg_solve(*K3_args), 5),
+        plain_ms=sm.ms(lambda: fused_cg_solve_plain(*K3_args), 2),
+        bound_ms=bound, bound_by=by, library_ms=None)
+    del oras, p3
+
+    # --- 23. two-level free-running refinement: card against CPU -------------
+    A4 = laplacian_2d(64)
+    b4 = np.ones(A4.n)
+    kw = dict(overlap=2, tolerance=1e-4, staleness=1, ninner=20,
+              chunk_rounds=16, num_ranks=8)
+    (x_c, i_c), l4 = counted(lambda: AsyncRASolver(A4, b4, 8, **kw)
+                             .run_refined(tol=1e-8, max_rounds=800,
+                                          coarse_q=4))
+    x_h, i_h = AsyncRASolver(A4, b4, 8, device="cpu", **kw).run_refined(
+        tol=1e-8, max_rounds=800, coarse_q=4)
+    print(f"run_refined(tol=1e-8, coarse_q=4), 64^2, 8 ranks: card "
+          f"{i_c['restarts']} restarts, {i_c['rounds']} rounds, true rel "
+          f"{i_c['relative_residual_norm']:.6e}; CPU {i_h['restarts']} "
+          f"restarts, true rel {i_h['relative_residual_norm']:.6e}; K5 "
+          f"launches {l4['async_ras']}", flush=True)
+    sm.check(i_c["converged"] and i_c["relative_residual_norm"] <= 1e-8
+             and i_c["restarts"] == i_h["restarts"]
+             and abs(i_c["relative_residual_norm"]
+                     / i_h["relative_residual_norm"] - 1) <= 1e-6
+             and l4["async_ras"] > 0,
+             "two-level run_refined reaches 1e-8 on the card with the CPU "
+             "run's restarts and residual, through K5")
+    # the same through solve()'s free-running dispatch
+    r5 = solve(A4, b4, Settings(free_running=True, two_level=True,
+                                coarse_aggregates=4, tolerance=1e-8,
+                                overlap=2, local_max_iters=20,
+                                max_iters=800), 8)
+    sm.check(r5.converged and r5.relative_residual_norm <= 1e-8,
+             f"solve(free_running, two_level): true relative residual "
+             f"{r5.relative_residual_norm:.3e} <= 1e-8")
+    os.environ.pop("SCHWARZ_TPU_COARSE_CACHE")
+
+
 def main() -> int:
     import torch
 
@@ -1545,7 +1872,10 @@ def main() -> int:
     neighbor_exchange_phases(sm, dec, solver_rd, hist,
                              1e3 * warm.solve_time_s / max(n_it, 1))
 
-    # --- 20. the kernels line and the last line ------------------------------
+    # --- 20-23. the flagship recipe, O-RAS through K3, two-level refinement --
+    flagship_phases(sm)
+
+    # --- 24. the kernels line and the last line ------------------------------
     meta_k = {
         "dia_spmv_float32": ("csrc/dia_spmv.cu",
                              "schwarz_tpu/ops/pallas_kernels.py:110"),
@@ -1564,6 +1894,10 @@ def main() -> int:
         "smoke_x2": ("csrc/diagnostics.cu", "scripts/tpu_diagnostics.py:53"),
         "flag_order_probe": ("csrc/diagnostics.cu",
                              "scripts/tpu_diagnostics.py:214"),
+        **{f"dia_spmv_flagship_{k}": ("csrc/dia_spmv.cu",
+                                      "schwarz_tpu/ops/pallas_kernels.py:110")
+           for k in ("A_f64", "A_f32", "G", "GT")},
+        "fused_cg_oras": ("csrc/fused_cg.cu", "schwarz_tpu/ops/fused_cg.py:84"),
     }
     line = []
     for name, (src, replaces) in meta_k.items():

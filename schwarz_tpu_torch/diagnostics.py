@@ -26,7 +26,7 @@ alone; a larger cluster than the probe's has writers on SMs the probe never
 exercised, so it needs its own pass.
 
 The other runs of the TPU script (spmv, direct, ras, fgmres) launch no
-Pallas kernel; their port waits for the drivers (ROADMAP Queue 1 item 10).
+Pallas kernel; their port waits for the command line (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations

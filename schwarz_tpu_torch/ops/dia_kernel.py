@@ -71,7 +71,11 @@ def dia_spmv(
            cuda_build.stream_ptr(x.device)),
         "dia_spmv")
     dia_spmv.launches += 1
+    key = (tuple(offsets), str(x.dtype).removeprefix("torch."))
+    dia_spmv.launches_by[key] = dia_spmv.launches_by.get(key, 0) + 1
     return y
 
 
+# launches in all, and by operand: (offsets, dtype name) -> launches
 dia_spmv.launches = 0
+dia_spmv.launches_by = {}

@@ -1,5 +1,5 @@
 """Restricted additive Schwarz solver: the port of ``schwarz_tpu/ras.py``,
-one level, synchronous, plus the free-running dispatch
+synchronous, one or two levels, plus the free-running dispatch
 (:func:`make_free_running_solver`, ``Settings(free_running=True)``).
 
 The reference's per-rank loop {exchange_boundary -> update_boundary ->
@@ -12,8 +12,15 @@ with all S subdomains batched on one device:
                           K4                        (parallel/neighbor_exchange.py)
   - update_boundary    -> interface gather/scatter             (restricted_schwarz.cpp:991-1017)
   - check_convergence  -> local residual through the DIA SpMV (K1) + protocol round
-  - local_solve        -> batched CG, or the fused CG kernel (K3)
+  - coarse correction  -> restriction, coarse solve, prolongation, then a
+                          second exchange                    (coarse_correction.py)
+  - local_solve        -> batched CG with a local preconditioner (Jacobi,
+                          block-Jacobi, ILU(0), FSAI(0); their banded
+                          factors through K1), or the fused CG kernel (K3)
   - local_to_global    -> interior-window write                (communicate.cpp:64-94)
+
+Optimized Schwarz (``oras_weight``) adds a Robin term to the local solve
+operator's boundary rows and the matching trace term to its rhs.
 
 :class:`RASolver` and :func:`solve` run on the CUDA device unless the caller
 passes ``device="cpu"``, where every kernel wrapper takes its plain PyTorch
@@ -43,6 +50,7 @@ from schwarz_tpu_torch.config import (
     Precond,
     Settings,
 )
+from schwarz_tpu_torch.coarse_correction import coarse_arrays, coarse_correct
 from schwarz_tpu_torch.core.decompose import Decomposition
 from schwarz_tpu_torch.core.partition import make_partition
 from schwarz_tpu_torch.exceptions import NotImplementedFeature
@@ -53,7 +61,7 @@ from schwarz_tpu_torch.ops.async_ras import (
     plan_geometry,
 )
 from schwarz_tpu_torch.ops.async_ras_general import AsyncGeneralRASolver
-from schwarz_tpu_torch.ops.dia import dia_ell_spmv, split_dia_ell
+from schwarz_tpu_torch.ops.dia import dia_ell_spmv, dia_spmv, split_dia_ell
 from schwarz_tpu_torch.ops.fused_cg import fused_cg_solve, fused_cg_supported
 from schwarz_tpu_torch.ops.rdma_kernel import rdma_shift_finish
 from schwarz_tpu_torch.ops.spmv import ell_spmv_batched
@@ -68,7 +76,10 @@ from schwarz_tpu_torch.parallel.neighbor_exchange import (
     exchange_rounds,
 )
 from schwarz_tpu_torch.solvers.cg import cg_solve
-from schwarz_tpu_torch.solvers.precond import jacobi_inverse
+from schwarz_tpu_torch.solvers.precond import (block_jacobi_inverse,
+                                              build_fsai, build_ilu0,
+                                              ell_to_dia, ilu_apply_ell,
+                                              jacobi_inverse)
 
 DIVERGENCE_LIMIT = 1e12  # schwarz_base.cpp:424: abort when ||r|| exceeds this
 
@@ -84,6 +95,20 @@ def resolve_device(device=None) -> torch.device:
                 "versions of its kernels on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def oras_weight(settings: Settings) -> float:
+    """The O-RAS coefficient of ``settings.oras_weight``: ``"auto"`` is the
+    JAX package's coarse-space-aware default, -0.6 under ``two_level`` and
+    -0.8 otherwise."""
+    if settings.oras_weight == "auto":
+        return -0.6 if settings.two_level else -0.8
+    try:
+        return float(settings.oras_weight)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"oras_weight must be a float or 'auto', got "
+            f"{settings.oras_weight!r}") from None
 
 
 def plan_from_numpy(arrays: Dict[str, np.ndarray],
@@ -200,21 +225,17 @@ class RASolver:
             raise ValueError(
                 f"inner_operator must be 'exact' or 'dia_only', got "
                 f"{s.inner_operator!r}")
-        if s.oras_weight != "auto":
-            try:
-                float(s.oras_weight)
-            except (TypeError, ValueError):
-                raise ValueError(
-                    f"oras_weight must be a float or 'auto', got "
-                    f"{s.oras_weight!r}") from None
+        self._oras_c = oras_weight(s)
+        if not -1.0 <= self._oras_c <= 0.0:
+            raise ValueError(
+                f"oras_weight={self._oras_c} outside [-1, 0]: the Robin "
+                "ghost elimination gives coefficients in (-1, 0]; values "
+                "beyond -1 make the local solve operator indefinite and the "
+                "iteration diverges, and positive weights stiffen it in "
+                "the wrong direction")
         unported = {
-            "two_level": s.two_level,
-            "O-RAS (oras_weight != 0)": (s.oras_weight == "auto"
-                                        or float(s.oras_weight) != 0.0),
             f"local_solver={s.local_solver.value!r}":
                 s.local_solver != LocalSolver.iterative_cg,
-            f"precond={s.precond.value!r}":
-                s.precond not in (Precond.none, Precond.jacobi),
             f"accelerator={s.accelerator!r}": s.accelerator != "none",
             "free_running": s.free_running,
             "comm.overlap_split": s.comm.overlap_split,
@@ -269,15 +290,43 @@ class RASolver:
                 if lc_np is not None:
                     arrays["dia_vals_lc"] = hyb.dia_vals.astype(lc_np)
                     arrays["rem_vals_lc"] = hyb.rem_vals.astype(lc_np)
+        # O-RAS: the local SOLVE operator's boundary rows gain c * sum |dropped
+        # couplings| on the diagonal (the first col == row entry only);
+        # residuals and the convergence check keep the true A.  The rhs
+        # gains the matching c * D * trace in _local_solve, so the fixed
+        # point is exactly A x = b (ras.py:624-680 of the JAX package)
+        self._oras = self._oras_c != 0
+        lv_solve = dec.lmat_vals
+        if self._oras:
+            srows = np.broadcast_to(np.arange(S)[:, None], dec.iface_rows.shape)
+            boost_pad = np.zeros((S, R_rows + 1), dtype=np.float64)
+            np.add.at(boost_pad, (srows, dec.iface_rows),
+                      np.abs(dec.iface_vals).sum(axis=2))
+            boost = self._oras_c * boost_pad[:, :R_rows]
+            arrays["oras_diag"] = boost.astype(dtype)
+            if self._dia_offsets is not None:
+                dv = hyb.dia_vals.copy()
+                dv[:, self._dia_offsets.index(0), :] += boost
+                arrays["dia_vals_solve"] = dv.astype(dtype)
+                if lc_np is not None:
+                    arrays["dia_vals_solve_lc"] = dv.astype(lc_np)
+            rows_idx = np.arange(R_rows)[None, :, None]
+            dmask = dec.lmat_cols == rows_idx
+            first = dmask & (np.cumsum(dmask, axis=2) == 1)
+            lv_solve = dec.lmat_vals + boost[:, :, None] * first
         if self._dia_offsets is None:
             arrays["lmat_vals"] = dec.lmat_vals.astype(dtype)
             arrays["lmat_cols"] = dec.lmat_cols.astype(np.int64)
             if lc_np is not None:
                 arrays["lmat_vals_lc"] = dec.lmat_vals.astype(lc_np)
-        if s.precond == Precond.jacobi:
-            arrays["precond_dinv"] = jacobi_inverse(
-                dec.lmat_vals.astype(dtype), dec.lmat_cols).astype(
-                    lc_np or dtype)
+            if self._oras:
+                arrays["lmat_vals_solve"] = lv_solve.astype(dtype)
+                if lc_np is not None:
+                    arrays["lmat_vals_solve_lc"] = lv_solve.astype(lc_np)
+        arrays.update(self._precond_arrays(lv_solve.astype(dtype),
+                                           lc_np or dtype))
+        if s.two_level:
+            arrays.update(coarse_arrays(dec, s, dtype, lc_np))
         # fused whole-solve CG kernel: opt-in and gated; an unsatisfiable
         # request fails loudly with the recipe
         self._use_fused_cg = False
@@ -312,6 +361,54 @@ class RASolver:
         arrays["ext_segs"], arrays["ext_first"] = segments_of(dec, compact)
         return plan_from_numpy(arrays, self.device)
 
+    def _precond_arrays(self, pv: np.ndarray, pdtype) -> Dict[str, np.ndarray]:
+        """The local preconditioner's plan entries, built on the host from
+        ``pv``, the (O-RAS solve) operator in the outer dtype, and stored
+        in the inner dtype ``pdtype`` (``ras.py:965-1060`` of the JAX
+        package).  ILU(0) and FSAI(0) factors go to DIA form on the DIA
+        operator, so their products are K1 on the card."""
+        s = self.settings
+        cols = self.dec.lmat_cols
+        dia = self._dia_offsets is not None
+        out = {}
+        if s.precond == Precond.jacobi:
+            out["precond_dinv"] = jacobi_inverse(pv, cols).astype(pdtype)
+        elif s.precond == Precond.ilu:
+            lv, lc, uv, uc, ud = build_ilu0(pv, cols)
+            out["ilu_udinv"] = (1.0 / ud).astype(pdtype)
+            if dia:
+                lo, ld = ell_to_dia(lv, lc)
+                uo, udia = ell_to_dia(uv, uc)
+                self._ilu_offsets = (lo, uo)
+                out["ilu_l_dia"] = ld.astype(pdtype)
+                out["ilu_u_dia"] = udia.astype(pdtype)
+            else:
+                out.update(ilu_l_vals=lv.astype(pdtype), ilu_l_cols=lc,
+                           ilu_u_vals=uv.astype(pdtype), ilu_u_cols=uc)
+        elif s.precond == Precond.fsai:
+            if dia:
+                # the pattern restricted to the DIA offsets keeps both
+                # factors banded when the operator has an ELL remainder;
+                # M stays SPD, only a weaker approximation
+                rows = np.arange(pv.shape[1])[None, :, None]
+                on_dia = np.isin(cols.astype(np.int64) - rows,
+                                 np.asarray(self._dia_offsets))
+                pv = np.where(on_dia, pv, 0.0)
+            glv, glc, guv, guc = build_fsai(pv, cols)
+            if dia:
+                go, gd = ell_to_dia(glv, glc)
+                uo, ud = ell_to_dia(guv, guc)
+                self._fsai_offsets = (go, uo)
+                out["fsai_gl_dia"] = gd.astype(pdtype)
+                out["fsai_gu_dia"] = ud.astype(pdtype)
+            else:
+                out.update(fsai_gl_vals=glv.astype(pdtype), fsai_gl_cols=glc,
+                           fsai_gu_vals=guv.astype(pdtype), fsai_gu_cols=guc)
+        elif s.precond == Precond.block_jacobi:
+            out["precond_blockinv"] = block_jacobi_inverse(
+                pv, cols, s.block_jacobi_block_size).astype(pdtype)
+        return out
+
     # ------------------------------------------------------------- the stages --
     def _exchange(self, x_own: torch.Tensor) -> torch.Tensor:
         """Halo exchange (strategy dispatch): x_ext from the interiors."""
@@ -337,19 +434,71 @@ class RASolver:
 
     def _apply_local(self, inner: bool = False):
         """y = A_local @ x for the whole batch: DIA (K1) + remainder when
-        extracted, ELL otherwise.  ``inner`` selects the local-compute copy
-        of the operator."""
+        extracted, ELL otherwise.  ``inner`` selects the local solve's copy
+        of the operator: in the local-compute dtype, and with the Robin
+        term under O-RAS; the residual and the check keep the true A."""
         plan = self._plan
         lc = "_lc" if (inner and self._lc_dtype is not None) else ""
+        solve = "_solve" if (inner and self._oras) else ""
         if self._dia_offsets is not None:
             offsets = self._dia_offsets
-            dv, rr, rv, rc = (plan["dia_vals" + lc], plan["rem_rows"],
+            dv, rr, rv, rc = (plan["dia_vals" + solve + lc], plan["rem_rows"],
                               plan["rem_vals" + lc], plan["rem_cols"])
             has_rem = self._dia_has_remainder
             return lambda x: dia_ell_spmv(offsets, dv, rr, rv, rc, x,
                                           has_remainder=has_rem)
-        lv, lcols = plan["lmat_vals" + lc], plan["lmat_cols"]
+        lv, lcols = plan["lmat_vals" + solve + lc], plan["lmat_cols"]
         return lambda x: ell_spmv_batched(lv, lcols, x)
+
+    def _precond_fn(self):
+        """The local preconditioner's apply ``z = M^-1 r``, or None
+        (``ras.py:1117-1186`` of the JAX package)."""
+        plan = self._plan
+        if "precond_dinv" in plan:
+            dinv = plan["precond_dinv"]
+            return lambda r: dinv * r
+        if "ilu_udinv" in plan:
+            sweeps = self.settings.ilu_sweeps
+            udinv = plan["ilu_udinv"]
+            if "ilu_l_dia" not in plan:
+                return lambda r: ilu_apply_ell(
+                    plan["ilu_l_vals"], plan["ilu_l_cols"],
+                    plan["ilu_u_vals"], plan["ilu_u_cols"], udinv, r, sweeps)
+            lo, uo = self._ilu_offsets
+            ld, ud = plan["ilu_l_dia"], plan["ilu_u_dia"]
+
+            def apply_ilu_dia(r):
+                y = r
+                for _ in range(sweeps):
+                    y = r - dia_spmv(lo, ld, y)
+                x = udinv * y
+                for _ in range(sweeps):
+                    x = udinv * (y - dia_spmv(uo, ud, x))
+                return x
+
+            return apply_ilu_dia
+        if "fsai_gl_dia" in plan:
+            # M r = G^T (G r): two launches of K1 on the card
+            go, uo = self._fsai_offsets
+            gd, ud = plan["fsai_gl_dia"], plan["fsai_gu_dia"]
+            return lambda r: dia_spmv(uo, ud, dia_spmv(go, gd, r))
+        if "fsai_gl_vals" in plan:
+            return lambda r: ell_spmv_batched(
+                plan["fsai_gu_vals"], plan["fsai_gu_cols"],
+                ell_spmv_batched(plan["fsai_gl_vals"], plan["fsai_gl_cols"],
+                                 r))
+        if "precond_blockinv" in plan:
+            inv_blocks = plan["precond_blockinv"]
+            bs = self.settings.block_jacobi_block_size
+
+            def apply_block_jacobi(r):
+                S, R = r.shape
+                zb = torch.einsum("sbij,sbj->sbi", inv_blocks,
+                                  r.reshape(S, R // bs, bs))
+                return zb.reshape(S, R)
+
+            return apply_block_jacobi
+        return None
 
     def _extract_int(self, z: torch.Tensor) -> torch.Tensor:
         """Interior window ``z[off : off + R_int]`` per subdomain, zero on
@@ -364,10 +513,14 @@ class RASolver:
         g = _interface_contrib(self._plan, x_ext)
         return _interface_scatter(self._plan, -g, self._plan["local_rhs"])
 
-    def _local_solve(self, rhs_eff, z_prev, outer_it: Optional[int] = None):
+    def _local_solve(self, rhs_eff, z_prev, outer_it: Optional[int] = None,
+                     robin_trace: Optional[torch.Tensor] = None):
         """Batched local CG (solve.cpp:666-792).  ``reset_local_crit_iter``
         (solve.cpp:729-742): outer iterations beyond it switch the inner
-        budget from the subdomain size to ``local_max_iters``."""
+        budget from the subdomain size to ``local_max_iters``.  Under O-RAS
+        the solution form passes the neighbours' trace (``robin_trace``,
+        the exchanged iterate on the local rows), whose Robin term joins
+        the rhs; the correction form carries no Robin data (None)."""
         s = self.settings
         R = self.meta.max_rows
         max_it = s.local_max_iters if s.local_max_iters > 0 else R
@@ -376,22 +529,24 @@ class RASolver:
             max_it = (s.local_max_iters if outer_it > s.reset_local_crit_iter
                       else R)
         out_dtype = rhs_eff.dtype
+        plan = self._plan
+        if self._oras and robin_trace is not None:
+            rhs_eff = rhs_eff + plan["oras_diag"] * robin_trace
         if self._lc_dtype is not None:
             # mixed-precision inner solve (iterative refinement)
             rhs_eff = rhs_eff.to(self._lc_dtype)
             z_prev = z_prev.to(self._lc_dtype)
-        plan = self._plan
-        dinv = plan.get("precond_dinv")
         if self._use_fused_cg:
             lc = "_lc" if self._lc_dtype is not None else ""
+            solve = "_solve" if self._oras else ""
             res = fused_cg_solve(
-                self._dia_offsets, plan["dia_vals" + lc],
-                rhs_eff.contiguous(), z_prev.contiguous(), dinv,
-                s.local_tolerance, max_it)
+                self._dia_offsets, plan["dia_vals" + solve + lc],
+                rhs_eff.contiguous(), z_prev.contiguous(),
+                plan.get("precond_dinv"), s.local_tolerance, max_it)
         else:
             res = cg_solve(
                 None, None, rhs_eff, z_prev, s.local_tolerance, max_it,
-                precond=(lambda r: dinv * r) if dinv is not None else None,
+                precond=self._precond_fn(),
                 apply_fn=self._apply_local(inner=True))
         return (res.x.to(out_dtype), res.iters,
                 res.rel_resnorm.to(out_dtype))
@@ -450,13 +605,28 @@ class RASolver:
         # --- local_solve + local_to_global (skipped on the exit pass) ----
         z_prev = st["z"]
         if nconv_h < S and not div_h:
+            x_trace = x_ext[:, :R_rows]     # Robin data under O-RAS
+            if s.two_level:
+                # two-level (multiplicative): coarse-correct x from the
+                # fresh residual, exchange again, and let the local solves
+                # act on the corrected boundary data; the pre-coarse
+                # residual stays the one reported and checked
+                plan = self._plan
+                cfield = coarse_correct(plan, self._extract_int(r))
+                x_own = x_own + torch.where(
+                    conv_state.detected[:, None] | ~plan["interior_mask"],
+                    torch.zeros_like(cfield), cfield)
+                x_ext2 = self._exchange(x_own)
+                rhs_eff = self._interface_update(x_ext2)
+                x_trace = x_ext2[:, :R_rows]
+                r = rhs_eff - self._apply_local()(x_trace)
             if residual_update:
                 # solve the correction equation A_local z = r, x += z
                 z, inner, inner_rel = self._local_solve(
                     r, torch.zeros_like(z_prev), outer_it=it)
             else:
                 z, inner, inner_rel = self._local_solve(
-                    rhs_eff, z_prev, outer_it=it)
+                    rhs_eff, z_prev, outer_it=it, robin_trace=x_trace)
             # freeze subdomains that already detected global convergence
             frozen = conv_state.detected[:, None]
             z = torch.where(frozen, z_prev, z)
@@ -657,16 +827,7 @@ def make_free_running_solver(mat, rhs, num_subdomains, settings,
             "correction solves; block_jacobi/fsai preconditioning requires "
             "the synchronous path"
         )
-    if settings.oras_weight == "auto":
-        oras_c = -0.6 if settings.two_level else -0.8
-    else:
-        try:
-            oras_c = float(settings.oras_weight)
-        except (TypeError, ValueError):
-            raise ValueError(
-                f"oras_weight must be a float or 'auto', got "
-                f"{settings.oras_weight!r}"
-            ) from None
+    oras_c = oras_weight(settings)
 
     S = num_subdomains
     if ninner is None:

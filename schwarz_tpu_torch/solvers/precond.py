@@ -1,11 +1,28 @@
-"""Local preconditioners: port of ``schwarz_tpu/solvers/precond.py`` for
-``none`` and diagonal ``jacobi`` (block-Jacobi, FSAI(0) and ILU(0) wait for
-a later slice).  The Jacobi inverse is built once on the host at setup; its
-apply is ``dinv * r`` inside the local solve."""
+"""Local preconditioners: port of ``schwarz_tpu/solvers/precond.py``.
+
+Diagonal Jacobi, dense block-Jacobi (the diagonal blocks of the ELL
+operator, inverted on the host at setup, applied as a batched block
+product), ILU(0) on the operator's own pattern (applied as truncated
+Neumann sweeps, never a substitution) and FSAI(0), the factorized sparse
+approximate inverse ``M = G^T G ~= A^-1`` with G on the lower pattern of A
+(Kolotilina-Yeremin), whose apply is two sparse products.
+
+Every factor is built once on the host in numpy, with the JAX package's
+arithmetic, so the builds agree with it bit for bit; the applies are torch
+ops.  Inside :class:`schwarz_tpu_torch.ras.RASolver` the banded factors go
+through :func:`ell_to_dia` and their products are K1
+(``ops/dia_kernel.py``) on the card.
+"""
 
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import numpy as np
+import torch
+
+from schwarz_tpu_torch.config import Precond, Settings
+from schwarz_tpu_torch.ops.spmv import ell_spmv_batched
 
 
 def extract_diagonal(vals: np.ndarray, cols: np.ndarray) -> np.ndarray:
@@ -20,3 +37,264 @@ def jacobi_inverse(vals: np.ndarray, cols: np.ndarray) -> np.ndarray:
     d = extract_diagonal(vals, cols)
     return np.where(np.abs(d) > 0, 1.0 / np.where(d != 0, d, 1), 1.0).astype(
         vals.dtype)
+
+
+def extract_diag_blocks(vals: np.ndarray, cols: np.ndarray,
+                        bs: int) -> np.ndarray:
+    """Dense diagonal blocks (S, R//bs, bs, bs) of the batched ELL operator,
+    in the dtype of ``vals``."""
+    vals = np.asarray(vals)
+    cols = np.asarray(cols, np.int64)
+    S, R, W = vals.shape
+    if R % bs:
+        raise ValueError(f"block size {bs} must divide padded rows {R}")
+    rows = np.broadcast_to(np.arange(R)[None, :, None], (S, R, W))
+    same_block = (cols // bs) == (rows // bs)
+    contrib = np.where(same_block, vals, 0)
+    # entries outside the block add a zero on the diagonal slot
+    ci = np.where(same_block, cols % bs, rows % bs)
+    s_idx = np.broadcast_to(np.arange(S)[:, None, None], (S, R, W))
+    out = np.zeros((S, R // bs, bs, bs), dtype=vals.dtype)
+    np.add.at(out, (s_idx, rows // bs, rows % bs, ci), contrib)
+    return out
+
+
+def block_jacobi_inverse(vals: np.ndarray, cols: np.ndarray,
+                         bs: int) -> np.ndarray:
+    """Inverses of the diagonal blocks, on the host in the dtype of
+    ``vals``; a row with no entries in its block gets a one on its
+    diagonal, so padded blocks stay invertible."""
+    blocks = extract_diag_blocks(vals, cols, bs)
+    absent = np.all(blocks == 0.0, axis=-1, keepdims=True)
+    return np.linalg.inv(blocks + absent * np.eye(bs, dtype=blocks.dtype))
+
+
+def build_fsai(vals, cols):
+    """FSAI(0) factors of a batched ELL operator (host numpy, setup time).
+
+    For every row i with lower pattern ``J = {j : A[i,j] != 0, j <= i}``,
+    solve ``A[J,J] g = e_i`` and scale ``g /= sqrt(g_i)``; then
+    ``G A G^T ~= I`` and ``M = G^T G`` is an SPD approximate inverse.
+    Returns ``(gl_vals, gl_cols, gu_vals, gu_cols)`` float64/int64 numpy:
+    G in batched ELL on the lower pattern and G^T on the upper pattern
+    (padded entries carry value 0 with column == row).  Rows with no true
+    entries (padding rows of the batched layout) get an identity G row.
+    """
+    vals = np.asarray(vals, np.float64)
+    cols = np.asarray(cols, np.int64)
+    S, R, W = vals.shape
+    rows = np.arange(R, dtype=np.int64)
+    real = vals != 0
+    lower = real & (cols <= rows[None, :, None])
+    wl = max(int(lower.sum(axis=2).max()), 1)
+
+    # sort the lower entries first within each row, pad with -1
+    key = np.where(lower, cols, np.iinfo(np.int64).max)
+    order = np.argsort(key, axis=2, kind="stable")
+    cols_sorted = np.take_along_axis(cols, order, 2)
+    lower_sorted = np.take_along_axis(lower, order, 2)
+    gl_cols = np.where(lower_sorted, cols_sorted, -1)[:, :, :wl]
+
+    gl_vals = np.zeros((S, R, wl), np.float64)
+    eye = np.eye(wl)[None]
+    for s in range(S):
+        J = gl_cols[s]                          # (R, wl), -1 = pad
+        padm = J < 0
+        Jc = np.where(padm, 0, J)
+        vw = vals[s][Jc]                        # (R, wl, W)
+        cw = cols[s][Jc]                        # (R, wl, W)
+        mw = real[s][Jc]
+        # AJJ[i, p, q] = A[J_p, J_q]
+        match = mw[:, :, None, :] & (cw[:, :, None, :] == Jc[:, None, :, None])
+        AJJ = (vw[:, :, None, :] * match).sum(-1)
+        pp = padm[:, :, None] | padm[:, None, :]
+        AJJ = np.where(pp, eye, AJJ)
+        e = (J == rows[:, None]).astype(np.float64)
+        try:
+            g = np.linalg.solve(AJJ, e[..., None])[..., 0]
+        except np.linalg.LinAlgError:
+            # a singular lower principal submatrix: pseudo-inverse rows; the
+            # gi > 0 guard below turns unusable rows into identity rows
+            g = (np.linalg.pinv(AJJ) @ e[..., None])[..., 0]
+        gi = (g * e).sum(1)
+        ok = gi > 0
+        g = np.where(ok[:, None],
+                     g / np.sqrt(np.where(ok, gi, 1.0))[:, None], 0.0)
+        g = np.where(padm, 0.0, g)
+        gl_vals[s] = g
+        # rows with no true entries: identity G row keeps M nonsingular
+        empty = ~ok
+        if empty.any():
+            gl_cols[s][empty, 0] = rows[empty]
+            gl_vals[s][empty, 0] = 1.0
+            gl_vals[s][empty, 1:] = 0.0
+
+    # G^T in ELL: entry (i, J[i,p]) of G becomes (J[i,p], i) of G^T
+    srows = np.broadcast_to(rows[None, :, None], (S, R, wl))
+    keep = gl_cols >= 0
+    wu = 1
+    buckets = []
+    for s in range(S):
+        tr = gl_cols[s][keep[s]]
+        tc = srows[s][keep[s]]
+        tv = gl_vals[s][keep[s]]
+        o = np.lexsort((tc, tr))
+        tr, tc, tv = tr[o], tc[o], tv[o]
+        cnt = np.bincount(tr, minlength=R)
+        wu = max(wu, int(cnt.max()) if cnt.size else 1)
+        buckets.append((tr, tc, tv, cnt))
+    gu_cols = np.broadcast_to(rows[None, :, None], (S, R, wu)).copy()
+    gu_vals = np.zeros((S, R, wu), np.float64)
+    for s, (tr, tc, tv, cnt) in enumerate(buckets):
+        slot = np.arange(tr.size) - np.repeat(
+            np.concatenate([[0], np.cumsum(cnt)[:-1]]), cnt
+        )
+        gu_cols[s][tr, slot] = tc
+        gu_vals[s][tr, slot] = tv
+    # device-ELL padding convention: value 0 at column == row
+    gl_cols = np.where(gl_cols < 0, np.broadcast_to(rows[None, :, None],
+                                                    gl_cols.shape), gl_cols)
+    return gl_vals, gl_cols, gu_vals, gu_cols
+
+
+def build_ilu0(vals, cols):
+    """ILU(0) factors on A's own sparsity pattern (host numpy, setup time).
+
+    The reference's ParILU role (solve.cpp:490-556).  Standard IKJ ILU(0):
+    for each row i and each lower entry (i, k) in ascending k,
+    ``l_ik = a_ik / u_kk`` then ``a_ij -= l_ik * u_kj`` over the row's
+    retained pattern.  Zero pivots are skipped (the row degrades toward
+    Jacobi rather than breaking down).
+
+    Returns batched ELL numpy arrays
+    ``(l_vals, l_cols, u_vals, u_cols, udiag)``: L strictly lower with unit
+    diagonal implied, U strictly upper, and the U diagonal separately
+    (padding entries carry value 0 at column == row).
+    """
+    vals = np.asarray(vals, np.float64)
+    cols = np.asarray(cols, np.int64)
+    S, R, W = vals.shape
+    rows = np.arange(R, dtype=np.int64)
+    l_vals = np.zeros((S, R, W), np.float64)
+    l_cols = np.broadcast_to(rows[None, :, None], (S, R, W)).copy()
+    u_vals = np.zeros((S, R, W), np.float64)
+    u_cols = np.broadcast_to(rows[None, :, None], (S, R, W)).copy()
+    udiag = np.ones((S, R), np.float64)
+    tiny = 1e-300
+    for s in range(S):
+        row = []           # row -> dict col -> val
+        for i in range(R):
+            d = {}
+            for w in range(W):
+                v = vals[s, i, w]
+                if v != 0.0:
+                    c = int(cols[s, i, w])
+                    d[c] = d.get(c, 0.0) + float(v)
+            row.append(d)
+        for i in range(R):
+            di = row[i]
+            for k in sorted(c for c in di if c < i):
+                ukk = row[k].get(k, 0.0)
+                if abs(ukk) <= tiny:
+                    di[k] = 0.0     # skipped pivot: degrade, don't break
+                    continue
+                lik = di[k] / ukk
+                di[k] = lik
+                for j, ukj in row[k].items():
+                    if j > k and j in di:
+                        di[j] -= lik * ukj
+        for i in range(R):
+            wl = wu = 0
+            for c in sorted(row[i]):
+                v = row[i][c]
+                if c < i:
+                    l_cols[s, i, wl] = c
+                    l_vals[s, i, wl] = v
+                    wl += 1
+                elif c == i:
+                    udiag[s, i] = v if abs(v) > tiny else 1.0
+                else:
+                    u_cols[s, i, wu] = c
+                    u_vals[s, i, wu] = v
+                    wu += 1
+    return l_vals, l_cols, u_vals, u_cols, udiag
+
+
+def ilu_apply_ell(l_vals, l_cols, u_vals, u_cols, udiag_inv, r,
+                  sweeps: int) -> torch.Tensor:
+    """z ~= U^-1 L^-1 r with each triangular inverse expanded to ``sweeps``
+    Jacobi iterations (truncated Neumann series; exact as sweeps -> R since
+    the strict factors are nilpotent).  Sparse products only."""
+    y = r
+    for _ in range(sweeps):
+        y = r - ell_spmv_batched(l_vals, l_cols, y)
+    x = udiag_inv * y
+    for _ in range(sweeps):
+        x = udiag_inv * (y - ell_spmv_batched(u_vals, u_cols, x))
+    return x
+
+
+def ell_to_dia(vals, cols):
+    """Exact batched ELL -> DIA conversion (host; for the factor applies).
+
+    Any true entry lands on its (col - row) diagonal; padded zeros vanish.
+    Returns ``(offsets, dia_vals)`` with dia_vals (S, K, R).
+    """
+    vals = np.asarray(vals)
+    cols = np.asarray(cols, np.int64)
+    S, R, W = vals.shape
+    rows = np.arange(R, dtype=np.int64)[None, :, None]
+    real = vals != 0
+    d = cols - rows
+    diffs = np.unique(d[real]) if real.any() else np.zeros(1, np.int64)
+    offsets = tuple(int(o) for o in diffs)
+    dia = np.zeros((S, len(offsets), R), vals.dtype)
+    for k, o in enumerate(offsets):
+        m = real & (d == o)
+        dia[:, k, :] = (vals * m).sum(axis=2)
+    return offsets, dia
+
+
+def make_preconditioner(
+    settings: Settings, vals: torch.Tensor, cols: torch.Tensor
+) -> Optional[Callable[[torch.Tensor], torch.Tensor]]:
+    """The apply function ``z = M^{-1} r`` (batched (S, R) -> (S, R)) of
+    ``settings.precond`` for the ELL operator ``vals``/``cols`` (S, R, W),
+    built on the host and kept on the operator's device."""
+    if settings.precond == Precond.none:
+        return None
+    dev, dt = vals.device, vals.dtype
+    v = vals.cpu().numpy()
+    c = cols.cpu().numpy()
+
+    def put(a, dtype=dt):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+
+    if settings.precond == Precond.jacobi:
+        dinv = put(jacobi_inverse(v, c))
+        return lambda r: dinv * r
+    if settings.precond == Precond.block_jacobi:
+        bs = settings.block_jacobi_block_size
+        inv_blocks = put(block_jacobi_inverse(v, c, bs))
+
+        def apply_block_jacobi(r):
+            S, R = r.shape
+            zb = torch.einsum("sbij,sbj->sbi", inv_blocks,
+                              r.reshape(S, R // bs, bs))
+            return zb.reshape(S, R)
+
+        return apply_block_jacobi
+    if settings.precond == Precond.ilu:
+        lv, lc, uv, uc, ud = build_ilu0(v, c)
+        lv, uv, udinv = put(lv), put(uv), put(1.0 / ud)
+        lc, uc = put(lc, torch.int64), put(uc, torch.int64)
+        sweeps = settings.ilu_sweeps
+        return lambda r: ilu_apply_ell(lv, lc, uv, uc, udinv, r, sweeps)
+    if settings.precond == Precond.fsai:
+        glv, glc, guv, guc = build_fsai(v, c)
+        glv, guv = put(glv), put(guv)
+        glc, guc = put(glc, torch.int64), put(guc, torch.int64)
+        # M r = G^T (G r): two sparse products, no substitution
+        return lambda r: ell_spmv_batched(guv, guc,
+                                          ell_spmv_batched(glv, glc, r))
+    raise ValueError(f"unknown preconditioner {settings.precond}")

@@ -128,12 +128,15 @@ def test_solve_without_device_raises_without_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(two_level=True),
-    dict(oras_weight="auto"),
-    dict(oras_weight=-0.5),
+    # two_level, O-RAS and the FSAI, ILU(0) and block-Jacobi
+    # preconditioners are ported; with them, what stays unported still
+    # raises
+    dict(two_level=True, local_solver=tcfg.LocalSolver.iterative_gmres),
+    dict(oras_weight="auto", comm=tcfg.CommSettings(overlap_split=True)),
+    dict(oras_weight=-0.5, local_solver=tcfg.LocalSolver.direct_cholesky),
     dict(local_solver=tcfg.LocalSolver.iterative_gmres),
     dict(local_solver=tcfg.LocalSolver.direct_cholesky),
-    dict(precond=tcfg.Precond.fsai),
+    dict(precond=tcfg.Precond.fsai, inner_operator="dia_only"),
     dict(accelerator="fgmres"),
     # a free-running metis partition reaches the general-graph tier (K7),
     # which has no fresh_read
@@ -147,10 +150,10 @@ def test_solve_without_device_raises_without_gpu(monkeypatch):
     dict(comm=tcfg.CommSettings(strategy=tcfg.HaloStrategy.rdma,
                                 stage_through_host=True)),
     dict(local_solver=tcfg.LocalSolver.direct_lu),
-    dict(precond=tcfg.Precond.block_jacobi),
-    # the metis partition is ported; its free-running two-level solve needs
-    # the coarse space
-    dict(partition=tcfg.Partition.metis, free_running=True, two_level=True),
+    dict(precond=tcfg.Precond.block_jacobi, accelerator="fgmres"),
+    # the free-running kernels run Jacobi-preconditioned local solves only
+    dict(partition=tcfg.Partition.metis, free_running=True, two_level=True,
+         precond=tcfg.Precond.fsai),
     dict(inner_operator="dia_only"),
     dict(halo_dtype="float32", write_debug_out=True),
 ])

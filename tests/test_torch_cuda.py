@@ -15,7 +15,7 @@ import torch
 
 from schwarz_tpu_torch import (CommSettings, ConvergenceSettings,
                                GlobalConvergence, HaloStrategy, Partition,
-                               Settings, solve)
+                               Precond, Settings, solve)
 from schwarz_tpu_torch import diagnostics as dg
 from schwarz_tpu_torch.core.partition import partition_metis
 from schwarz_tpu_torch.models import (advection_diffusion_2d,
@@ -736,3 +736,87 @@ def test_rdma_exchange_carries_its_sequence_words(dev):
     assert torch.equal(seq[0], (3 + 2 * widths)[:, None].expand(-1, 16))
     assert bool((seq[1] == 2).all())
     assert int(card.seq[-2]) == 5 * 16 and int(card.seq[-1]) == 0
+
+
+@pytest.mark.parametrize("offsets", [(-64, -1, 0), (0, 1, 64), (-1,), (1,)])
+@pytest.mark.parametrize("R", [1000, 22528 // 16])
+def test_dia_spmv_one_sided_offsets(dev, offsets, R):
+    """The FSAI and ILU(0) factors' offset sets (lower only, upper only) at
+    row counts that are not a multiple of K1's block."""
+    rng = np.random.default_rng(1)
+    dia = torch.tensor(_band(rng, 4, R, offsets), dtype=torch.float32,
+                       device=dev)
+    x = torch.tensor(rng.standard_normal((4, R)), dtype=torch.float32,
+                     device=dev)
+    y = dia_spmv(offsets, dia, x)
+    torch.testing.assert_close(y, dia_spmv_plain(offsets, dia, x),
+                               rtol=1e-5, atol=1e-5)
+
+
+_TWO_LEVEL = {
+    # the flagship recipe at 64^2 (bench.py:531-539 with S = 4, q = 8)
+    "flagship-analog": dict(
+        overlap=6, tolerance=1e-8, max_iters=200, dtype="float64",
+        local_compute_dtype="float32", local_tolerance=1e-6,
+        local_max_iters=20, precond=Precond.fsai, row_pad_multiple=128,
+        two_level=True, coarse_aggregates=8, coarse_space="spectral"),
+    "ilu-aggregates": dict(overlap=3, tolerance=1e-8, max_iters=400,
+                           precond=Precond.ilu, two_level=True,
+                           coarse_aggregates=4, row_pad_multiple=64),
+    "oras-fused-cg": dict(
+        overlap=2, tolerance=1e-8, max_iters=300, oras_weight="auto",
+        local_compute_dtype="float32", fused_local_cg=True,
+        precond=Precond.jacobi, row_pad_multiple=128, local_tolerance=1e-6),
+    # the second exchange of a two-level iteration through K4
+    "rdma-two-level": dict(
+        overlap=3, tolerance=1e-8, max_iters=400, two_level=True,
+        oras_weight="auto", coarse_aggregates=2,
+        comm=CommSettings(strategy=HaloStrategy.rdma)),
+    "block-jacobi-cg-coarse": dict(
+        overlap=3, tolerance=1e-8, max_iters=400, two_level=True,
+        precond=Precond.block_jacobi, coarse_solver="cg",
+        coarse_aggregates=2, row_pad_multiple=16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_TWO_LEVEL))
+def test_two_level_and_oras_solve_on_card_like_cpu(dev, case, monkeypatch):
+    """The preconditioners, O-RAS and the coarse space on the card: K1
+    carries the banded factors' products, K3 the Robin-modified operator;
+    the CPU run (the same DIA layout) gives the same iteration count."""
+    monkeypatch.delenv("SCHWARZ_TPU_COARSE_CACHE", raising=False)
+    A = laplacian_2d(64)
+    b = generate_rhs(A.n)
+    s = Settings(spmv_format="dia", **_TWO_LEVEL[case])
+    k1, k3 = dia_spmv.launches, fused_cg_solve.launches
+    k4 = rdma_cyclic_shift.launches
+    r_c = solve(A, b, s, 4, device=dev)
+    r_h = solve(A, b, s, 4, device="cpu")
+    assert dia_spmv.launches > k1
+    assert (fused_cg_solve.launches > k3) == s.fused_local_cg
+    # K4 once per exchange: two per two-level iteration, one on the exit
+    rdma = s.comm.strategy == HaloStrategy.rdma
+    assert rdma_cyclic_shift.launches - k4 == (2 * r_c.iters + 1 if rdma
+                                               else 0)
+    assert r_c.converged and r_c.iters == r_h.iters
+    assert r_c.relative_residual_norm <= 2e-8
+    np.testing.assert_allclose(r_c.global_resnorm_history,
+                               r_h.global_resnorm_history, rtol=1e-4,
+                               atol=1e-8 * r_h.global_resnorm_history.max())
+
+
+def test_two_level_refinement_on_card_like_cpu(dev):
+    """Two-level free-running refinement through K5: the CPU run's
+    restarts and residual (K5 equals its plain version bit for bit)."""
+    A = laplacian_2d(64)
+    b = np.ones(A.n)
+    kw = dict(overlap=2, tolerance=1e-4, ninner=20, chunk_rounds=16,
+              num_ranks=8)
+    n0 = async_ras_rounds.launches
+    _, i_c = AsyncRASolver(A, b, 8, **kw).run_refined(tol=1e-8,
+                                                      coarse_q=4)
+    _, i_h = AsyncRASolver(A, b, 8, device="cpu", **kw).run_refined(
+        tol=1e-8, coarse_q=4)
+    assert async_ras_rounds.launches > n0
+    assert i_c["converged"] and i_c["restarts"] == i_h["restarts"]
+    assert i_c["relative_residual_norm"] == i_h["relative_residual_norm"]
