@@ -107,9 +107,12 @@
    card (the host setup timed: decompose, the 16 eigensolves into a cache
    under ``build/coarse_cache``, the plan), cold and warm, with K1, K2 and
    K3 counted (K1 per operand from the inner iteration history) and one
-   warm run profiled; then the same on the CPU (the basis read from the
-   cache): converged to a true relative residual <= 1e-8 in the CPU run's
-   iteration count, both histories printed;
+   warm run profiled; then the second rhs of ``bench.py:550-556``
+   (``generate_rhs(n, seed=7)``) through ``set_rhs`` on the same solver,
+   which must converge in the iterations of a fresh card solver on that
+   rhs with its history within rtol 1e-10; then the same recipe on the CPU
+   (the basis read from the cache): converged to a true relative residual
+   <= 1e-8 in the CPU run's iteration count, both histories printed;
 21. holds K1 to its plain version at the flagship's shapes (the float64
    and float32 operator, K = 5, and FSAI's G and G^T, K = 3, all
    (16, ., 21504)), timed like phase 3 beside ``torch.sparse.mm``;
@@ -122,11 +125,42 @@
    coarse_q=4)``, ``laplacian_2d(64)``, 8 ranks, the 1-D tier) on the card
    and on the CPU: the same restarts and residual; then the same recipe
    through ``solve(free_running=True, two_level=True)``;
-24. prints one JSON line describing the kernels, then the fixed last line
+24. runs the reference's campaign configuration (``BASELINE.md``,
+   ``run_script:6-56``) at full width: ``laplacian_2d(512)``, METIS into 16
+   parts through the native setup library, overlap 8, float64, GMRES
+   locals (restart 40, local tolerance 0.1, at most 70 iterations) with
+   block-Jacobi, decentralized detection, tolerance 1e-8, 30 outer
+   iterations (it does not converge in 30), on the card against the CPU
+   run of the same partition (equal inner iteration counts, histories
+   within rtol 1e-8 plus 1e-12 of the largest entry), with K1 and K2
+   counted and each held to its plain version at the configuration's
+   shapes; then the same settings at 128^2 to convergence, where the card
+   must detect at the CPU run's count.  Each CPU run follows the card run
+   it is compared with, so no timing of the card's host shares its cores;
+25. runs dense Cholesky locals through the explicit inverse under FGMRES(30)
+   at full width: ``laplacian_2d(512)``, 8 x 8 blocks, overlap 4, float64,
+   tolerance 1e-8, reporting the factor's and the inverse's seconds, the
+   peak device memory, the iterations and one preconditioner apply beside
+   its bound (the 12.76 GB inverse read once), with K1 and K2 counted and
+   held to their plain versions; converged to <= 1e-8.  Then at 128^2 on
+   4 x 4 blocks: the card's FGMRES run against the CPU's (equal counts,
+   histories within the float64 bar), and the stationary ``inverse``,
+   ``trisolve``, ``blocked``, LU and ``inverse`` with ``overlap_split``,
+   each with the stationary inverse run's count and history;
+26. stops a stationary run and an FGMRES(10) run of that 128^2
+   configuration after 10 iterations with ``checkpoint_path``, resumes
+   each, and requires the uninterrupted runs' histories and solutions bit
+   for bit;
+27. partitions and decomposes the general slice's operator
+   (``anisotropic_diffusion_2d(360)``, METIS into 128 parts, overlap 2)
+   with the native setup library and with the Python loops: bit-identical,
+   both timed on the card's host;
+28. prints one JSON line describing the kernels, then the fixed last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the last line, as does a machine
-without a CUDA device or a directory without the package.
+without a CUDA device, a directory without the package, or a host where the
+native setup library does not build.
 """
 
 from __future__ import annotations
@@ -160,13 +194,14 @@ def _bound_ms(n_bytes: float, n_ops: float, dtype: str):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def _k2_bound(segs, first, S: int, r_ext: int, one_source: bool):
-    """K2's bound: x_ext (S, r_ext) float32 written once, the tables read
-    once, and each source element that a window or halo segment reads
-    counted once, however many segments read it.  With ``one_source`` (the
-    ``all_gather`` form) window and halo segments read the same array,
-    ``x_own`` flat; otherwise the halo segments read the compact halo
-    values, a second array."""
+def _k2_bound(segs, first, S: int, r_ext: int, one_source: bool,
+              itemsize: int = 4):
+    """K2's bound: x_ext (S, r_ext) written once, the tables read once, and
+    each source element that a window or halo segment reads counted once,
+    however many segments read it (``itemsize`` bytes a value).  With
+    ``one_source`` (the ``all_gather`` form) window and halo segments read
+    the same array, ``x_own`` flat; otherwise the halo segments read the
+    compact halo values, a second array."""
     import numpy as np
 
     from schwarz_tpu_torch.ops.halo_kernel import HALO, WINDOW
@@ -182,7 +217,62 @@ def _k2_bound(segs, first, S: int, r_ext: int, one_source: bool):
             np.add.at(depth, ends, -1)
             n_read += int((np.cumsum(depth) > 0).sum())
     table_bytes = (segs.numel() + first.numel()) * 4
-    return _bound_ms((S * r_ext + n_read) * 4 + table_bytes, 0, "float32")
+    return _bound_ms((S * r_ext + n_read) * itemsize + table_bytes, 0,
+                     "float32")
+
+
+def _k2_take(segs, x_own, r_ext: int):
+    """The library yardstick of K2: ``x_ext`` as one ``torch.take`` over
+    [x_own flat ; 0] through an (S, r_ext) int64 index map (the zero
+    segments point at the 0); returns the call's inputs."""
+    import numpy as np
+    import torch
+
+    from schwarz_tpu_torch.ops.halo_kernel import ZERO
+
+    S, R_int = x_own.shape
+    seg_np = segs.cpu().numpy().astype(np.int64)
+    lens = seg_np[:, 1]
+    index = np.repeat(np.where(seg_np[:, 2] == ZERO, S * R_int, seg_np[:, 3]),
+                      lens) + np.where(
+        np.repeat(seg_np[:, 2] == ZERO, lens), 0,
+        np.arange(lens.sum()) - np.repeat(np.cumsum(lens) - lens, lens))
+    index = torch.from_numpy(index.reshape(S, r_ext)).cuda()
+    return torch.cat((x_own.reshape(-1), x_own.new_zeros(1))), index
+
+
+def k2_entry(sm, solver, what: str) -> dict:
+    """K2 at ``solver``'s segment table and dtype against its plain version
+    (bit for bit), then timed beside its bound, its plain version and
+    ``torch.take``."""
+    import torch
+
+    from schwarz_tpu_torch.ops.halo_kernel import (assemble_x_ext,
+                                                   assemble_x_ext_plain)
+
+    m = solver.meta
+    S, R_int, R_ext = m.num_subdomains, m.max_interior, m.max_ext
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x_own = torch.randn((S, R_int), generator=gen, device="cuda",
+                        dtype=solver.settings.value_dtype)
+    segs, first = solver._plan["ext_segs"], solver._plan["ext_first"]
+    args = (x_own, x_own, segs, first, R_ext)
+    got = assemble_x_ext(*args)
+    torch.cuda.synchronize()
+    ref = assemble_x_ext_plain(*args)
+    err = float((got - ref).abs().max())
+    src, index = _k2_take(segs, x_own, R_ext)
+    sm.check(bool(torch.equal(got, ref))
+             and bool(torch.equal(torch.take(src, index), ref)),
+             f"K2 {what}, {segs.shape[0]} segments for {S} x {R_ext} "
+             f"{str(x_own.dtype).split('.')[-1]} slots: bit-identical to its "
+             f"plain version and to torch.take (max abs err {err})")
+    bound, by = _k2_bound(segs, first, S, R_ext, True, x_own.element_size())
+    return dict(max_abs_err=err, segments=segs.shape[0],
+                ms=sm.ms(lambda: assemble_x_ext(*args), 50),
+                plain_ms=sm.ms(lambda: assemble_x_ext_plain(*args), 5),
+                bound_ms=bound, bound_by=by,
+                library_ms=sm.ms(lambda: torch.take(src, index), 50))
 
 
 def _k3_bound(iters, S: int, K: int, R: int):
@@ -298,7 +388,7 @@ def kernel_checks(sm: Smoke, solver) -> None:
 
     from schwarz_tpu_torch.ops.fused_cg import (fused_cg_solve,
                                                 fused_cg_solve_plain)
-    from schwarz_tpu_torch.ops.halo_kernel import (ZERO, assemble_x_ext,
+    from schwarz_tpu_torch.ops.halo_kernel import (assemble_x_ext,
                                                    assemble_x_ext_plain)
 
     plan, meta = solver._plan, solver.meta
@@ -333,16 +423,7 @@ def kernel_checks(sm: Smoke, solver) -> None:
         if hd is None:
             err, out = e, got
     bound, by = _k2_bound(segs, first, S, R_ext, True)
-    # the library yardstick: one torch.take over [x_own flat ; 0] through
-    # an (S, R_ext) int64 index map (the zero segments point at the 0)
-    seg_np = segs.cpu().numpy().astype(np.int64)
-    lens = seg_np[:, 1]
-    index = np.repeat(np.where(seg_np[:, 2] == ZERO, S * R_int, seg_np[:, 3]),
-                      lens) + np.where(
-        np.repeat(seg_np[:, 2] == ZERO, lens), 0,
-        np.arange(lens.sum()) - np.repeat(np.cumsum(lens) - lens, lens))
-    index = torch.from_numpy(index.reshape(S, R_ext)).cuda()
-    src = torch.cat((x_own.reshape(-1), x_own.new_zeros(1)))
+    src, index = _k2_take(segs, x_own, R_ext)
     sm.check(bool(torch.equal(torch.take(src, index), out)),
              "K2 library yardstick (torch.take) agrees bit for bit")
     # the copy rate of the card on as many bytes: one torch copy_ of
@@ -584,52 +665,80 @@ def counted(fn):
     return res, {k: f.launches for k, f in fns.items()}
 
 
-def exchange_cost(sm: Smoke, solver, what: str, want: int,
-                  ms_per_it: float = None) -> None:
+def exchange_costs(sm: Smoke, cases) -> None:
     """Device operations (kernels, copies, memsets; the profiler's count)
-    in one ``solver._exchange``, which must be ``want``; its device time
-    (events, L2 flushed) and its host time per call, beside a warm outer
-    iteration of ``ms_per_it`` when one is given."""
+    in one ``solver._exchange`` of each case ``(solver, what, want,
+    ms_per_it)``, which must be ``want`` and equal the launches its
+    wrappers counted; then its device time (events, L2 flushed) and its
+    host time per call, beside a warm outer iteration of ``ms_per_it``
+    when one is given.
+
+    The cases share one profiler window.  The profiler keeps only the
+    device records that lie inside its window as placed on the host's
+    clock, and now and then drops a window's first launches (``PERF.md``
+    §7), so each exchange has the card idle and 20 ms on each side; those
+    idle gaps split the record into one group per exchange."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from schwarz_tpu_torch.ops.rdma_kernel import rdma_shift_finish
 
-    def finish():
-        # K4's status words are read, as at an outer iteration's sync;
-        # left unread before a profiled window, K4's launch went missing
-        # from the profiler's record
+    def finish(solver):
+        # K4's status words are read, as at an outer iteration's sync
         torch.cuda.synchronize()
         if solver._pending_shifts:
             rdma_shift_finish(solver._pending_shifts)
             solver._pending_shifts.clear()
 
-    m = solver.meta
-    x_own = torch.randn((m.num_subdomains, m.max_interior), device="cuda",
-                        dtype=solver.settings.value_dtype)
-    solver._exchange(x_own)
-    finish()
+    xs = []
+    for solver, _, _, _ in cases:
+        m = solver.meta
+        xs.append(torch.randn((m.num_subdomains, m.max_interior),
+                              device="cuda",
+                              dtype=solver.settings.value_dtype))
+        solver._exchange(xs[-1])
+        finish(solver)
+    wrapped = []
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        solver._exchange(x_own)
-        torch.cuda.synchronize()
-    finish()
-    names = [e.name for e in prof.events()
-             if "CUDA" in str(getattr(e, "device_type", ""))]
-    sm.check(len(names) == want,
-             f"{what}: one exchange is {len(names)} device operation(s) "
-             f"(want {want}): {names}")
-    ms = sm.ms(lambda: solver._exchange(x_own), 50)
-    finish()
-    t0 = time.perf_counter()
-    for _ in range(100):
-        solver._exchange(x_own)
-    host_ms = (time.perf_counter() - t0) * 10
-    finish()
-    share = ("" if ms_per_it is None else
-             f", of a warm outer iteration of {ms_per_it:.3f} ms")
-    print(f"{what}: exchange {ms:.5f} ms on the card (events), "
-          f"{host_ms:.5f} ms of host time per call{share}", flush=True)
+        for (solver, _, _, _), x in zip(cases, xs):
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+            _, c = counted(lambda: solver._exchange(x))
+            wrapped.append(sum(c.values()))
+        time.sleep(0.02)
+    for solver, _, _, _ in cases:
+        finish(solver)
+    groups = []
+    for e in sorted((e for e in prof.events()
+                     if "CUDA" in str(getattr(e, "device_type", ""))),
+                    key=lambda e: e.time_range.start):
+        if not groups or e.time_range.start - groups[-1][-1].time_range.end \
+                > 10_000:
+            groups.append([])
+        groups[-1].append(e)
+    sm.check(len(groups) == len(cases),
+             f"one profiler window of {len(cases)} exchanges, 20 ms apart: "
+             f"{len(groups)} group(s) of device operations "
+             f"{[[e.name for e in g] for g in groups]}")
+    for (solver, what, want, ms_per_it), x, n, g in zip(cases, xs, wrapped,
+                                                       groups):
+        names = [e.name for e in g]
+        sm.check(len(names) == want == n,
+                 f"{what}: one exchange is {len(names)} device "
+                 f"operation(s) (want {want}; its wrappers counted {n}): "
+                 f"{names}")
+        ms = sm.ms(lambda: solver._exchange(x), 50)
+        finish(solver)
+        t0 = time.perf_counter()
+        for _ in range(100):
+            solver._exchange(x)
+        host_ms = (time.perf_counter() - t0) * 10
+        finish(solver)
+        share = ("" if ms_per_it is None else
+                 f", of a warm outer iteration of {ms_per_it:.3f} ms")
+        print(f"{what}: exchange {ms:.5f} ms on the card (events), "
+              f"{host_ms:.5f} ms of host time per call{share}", flush=True)
 
 
 def free_running_phases(sm: Smoke) -> None:
@@ -1525,12 +1634,18 @@ def flagship_phases(sm: Smoke) -> None:
              f"{by_operand}), K2 "
              f"{launches['halo_runs']} = 2 per outer iteration + the exit "
              f"pass, K3 not at all (FSAI locals)")
-    # the profiler's view of one warm run: launches by kernel, device busy
+    # the profiler's view of one warm run: launches by kernel, device busy.
+    # The profiler keeps only the device records that lie inside its
+    # window as placed on the host's clock, so the run is kept clear of the
+    # window's edges: the card idle and 20 ms on each side
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(0.02)
         t0 = time.perf_counter()
         _, lp = counted(solver.run)
         wall = time.perf_counter() - t0
+        time.sleep(0.02)
     events = [e for e in prof.key_averages()
               if "CUDA" in str(getattr(e, "device_type", ""))]
     dev_us = sum(e.self_device_time_total for e in events)
@@ -1556,6 +1671,37 @@ def flagship_phases(sm: Smoke) -> None:
              f"flagship profile: K1 {n_k1} and K2 {n_k2} launches, as "
              f"counted by their wrappers ({lp['dia_spmv']}, "
              f"{lp['halo_runs']})")
+    # the second rhs of bench.py:550-556 on the same solver, against a
+    # fresh card solver on that rhs (its basis read from the cache): the
+    # same plan on the same card, so bit for bit is what to expect
+    b7 = generate_rhs(A.n, seed=7)
+    t0 = time.perf_counter()
+    solver.set_rhs(b7)
+    t_set = time.perf_counter() - t0
+    (r7, l7) = counted(solver.run)
+    t0 = time.perf_counter()
+    fresh = RASolver(decompose(A, b7, s, S))
+    torch.cuda.synchronize()
+    t_fresh = time.perf_counter() - t0
+    f7 = fresh.run()
+    del fresh
+    h7, hf = r7.global_resnorm_history, f7.global_resnorm_history
+    gap7 = (float(np.abs(h7 / hf - 1).max()) if len(h7) == len(hf)
+            else float("inf"))
+    print(f"flagship set_rhs(generate_rhs(n, seed=7)): set_rhs {t_set:.3f} "
+          f"s, run loop {r7.solve_time_s:.3f} s, {r7.iters} iterations, true "
+          f"relative residual {r7.relative_residual_norm:.6e}; a fresh "
+          f"solver's setup {t_fresh:.2f} s (basis from the cache), "
+          f"{f7.iters} iterations; beside the first solve's setup "
+          f"{t_dec + t_eig + t_plan:.2f} s and warm run loop "
+          f"{warm.solve_time_s:.3f} s; launches {l7}", flush=True)
+    sm.check(r7.converged and r7.relative_residual_norm <= 1e-8
+             and f7.converged and r7.iters == f7.iters and gap7 <= 1e-10
+             and l7["dia_spmv"] > 0 and l7["halo_runs"] == 2 * r7.iters + 1,
+             f"flagship set_rhs converges in the fresh solver's "
+             f"{f7.iters} iterations ({r7.iters}), histories within "
+             f"{gap7:.3e} <= 1e-10, through K1 and K2")
+    solver.set_rhs(b)
     # the CPU takes the card's DIA layout (its 'auto' picks ELL), so both
     # sides run the same local operator and the same FSAI factors
     t0 = time.perf_counter()
@@ -1701,6 +1847,313 @@ def flagship_phases(sm: Smoke) -> None:
     os.environ.pop("SCHWARZ_TPU_COARSE_CACHE")
 
 
+# the reference's measured campaign (BASELINE.md "Paper-campaign run config",
+# run_script:6-56): METIS into 16 parts, overlap 8, GMRES locals (restart
+# 40, local tolerance 0.1, at most 70 iterations) with block-Jacobi,
+# decentralized detection, tolerance 1e-8, float64.  The local operator is
+# DIA plus its ELL remainder, which "auto" picks on the card (71% of the
+# nonzeros on the diagonals); the CPU side takes it too, so both run the
+# same local operator
+def campaign_settings(max_iters: int):
+    from schwarz_tpu_torch import (ConvergenceSettings, GlobalConvergence,
+                                   LocalSolver, Partition, Precond, Settings)
+
+    return Settings(
+        partition=Partition.metis, overlap=8, dtype="float64",
+        row_pad_multiple=128, local_solver=LocalSolver.iterative_gmres,
+        restart_iter=40, local_tolerance=0.1, local_max_iters=70,
+        precond=Precond.block_jacobi,
+        convergence=ConvergenceSettings(
+            method=GlobalConvergence.decentralized),
+        tolerance=1e-8, max_iters=max_iters, spmv_format="dia")
+
+
+# dense Cholesky locals applied through the explicit inverse, under FGMRES:
+# 8 x 8 regular blocks, overlap 4, tolerance 1e-8; the DIA operator (95%
+# of the nonzeros) on both sides, as for the campaign
+def direct_settings(**kw):
+    from schwarz_tpu_torch import LocalSolver, Partition, Settings
+
+    return Settings(**{**dict(
+        partition=Partition.regular2d, overlap=4, dtype="float64",
+        row_pad_multiple=128, local_solver=LocalSolver.direct_cholesky,
+        direct_apply="inverse", accelerator="fgmres", restart_iter=30,
+        tolerance=1e-8, max_iters=600, spmv_format="dia"), **kw})
+
+
+CAMPAIGN_ITERS = 30          # the 512^2 campaign run (it does not converge)
+DIRECT_SMALL = (128, 16)     # the reduced size of the direct-locals phase
+
+
+def _within_f64(h, want) -> float:
+    """The float64 bar's reading: the largest of |h - want| / (1e-8 |want|
+    + 1e-12 max |want|); at most 1 passes (rtol 1e-8, atol 1e-12 of the
+    largest entry)."""
+    import numpy as np
+
+    if len(h) != len(want):
+        return float("inf")
+    return float((np.abs(h - want) / (1e-8 * np.abs(want)
+                                      + 1e-12 * np.abs(want).max())).max())
+
+
+def campaign_phases(sm: Smoke) -> None:
+    """Phase 24: the reference's campaign configuration at full width
+    (``laplacian_2d(512)``, native METIS into 16 parts, GMRES locals),
+    30 outer iterations on the card against the port's CPU run of the same
+    partition, then the converging 128^2 gate.  Each host cuts its own METIS
+    partition, so the CPU runs are made here, on the card's host."""
+    import numpy as np
+    import torch
+
+    from schwarz_tpu_torch import RASolver
+    from schwarz_tpu_torch.core.decompose import decompose
+    from schwarz_tpu_torch.models import generate_rhs, laplacian_2d
+
+    A = laplacian_2d(512)
+    b = generate_rhs(A.n)
+    s = campaign_settings(CAMPAIGN_ITERS)
+    t0 = time.perf_counter()
+    dec = decompose(A, b, s, 16)
+    t_dec = time.perf_counter() - t0
+    solver = RASolver(dec)
+    torch.cuda.synchronize()
+    m = solver.meta
+    print(f"campaign 512^2 setup on the host: METIS + decompose (native) "
+          f"{t_dec:.2f} s; R_int={m.max_interior} R_rows={m.max_rows} "
+          f"R_ext={m.max_ext}, DIA offsets {solver._dia_offsets}, remainder "
+          f"{solver._dia_has_remainder}", flush=True)
+    res, launches = counted(solver.run)
+    warm = solver.run()
+    n_run = len(res.global_resnorm_history)
+    inner = res.inner_iters_history
+    ms_it = 1e3 * warm.solve_time_s / n_run
+    cpu = RASolver(dec, device="cpu").run()
+    print(f"campaign 512^2 on the card: {n_run} outer iterations "
+          f"(converged={res.converged}), run loop {res.solve_time_s:.3f} s "
+          f"cold, {warm.solve_time_s:.3f} s warm ({ms_it:.2f} ms per warm "
+          f"outer iteration); inner iterations per outer iteration (max over "
+          f"subdomains) {inner.max(axis=1).tolist()}, mean "
+          f"{inner.mean():.2f}; K1 {launches['dia_spmv']} launches "
+          f"({launches['dia_spmv'] / n_run:.1f} per outer iteration), K2 "
+          f"{launches['halo_runs']} ({launches['halo_runs'] / n_run:.1f}); "
+          f"the CPU run of the same partition {cpu.solve_time_s:.1f} s",
+          flush=True)
+    h = res.global_resnorm_history
+    bar = _within_f64(h, cpu.global_resnorm_history)
+    sm.check(bool(np.isfinite(h).all()) and res.solution.shape == (A.n,)
+             and launches["dia_spmv"] > 0
+             and launches["halo_runs"] == n_run
+             and np.array_equal(inner, cpu.inner_iters_history)
+             and bar <= 1,
+             f"campaign 512^2: card and CPU inner iteration counts equal, "
+             f"global histories within the float64 bar ({bar:.3f} <= 1 of "
+             f"rtol 1e-8 + 1e-12 max), K1 launched, K2 once per outer "
+             f"iteration")
+    e1 = k1_entry(sm, solver._dia_offsets, solver._plan["dia_vals"],
+                  torch.randn((16, m.max_ext), device="cuda",
+                              dtype=torch.float64)[:, :m.max_rows],
+                  f"at the campaign's {tuple(solver._plan['dia_vals'].shape)}")
+    e1["launches"] = launches["dia_spmv"]
+    e2 = k2_entry(sm, solver, "at the campaign's shapes")
+    e2["launches"] = launches["halo_runs"]
+    sm.kernels["dia_spmv_campaign"], sm.kernels["halo_runs_campaign"] = e1, e2
+    for k, e in (("K1", e1), ("K2", e2)):
+        print(f"{k} campaign: ms={e['ms']:.5f} plain_ms={e['plain_ms']:.5f} "
+              f"bound_ms={e['bound_ms']:.5f} ({e['bound_by']}) library_ms="
+              f"{e['library_ms']:.5f}", flush=True)
+    del solver, dec
+
+    # the converging gate at 128^2 (the JAX package counted 382 on a CPU)
+    A2 = laplacian_2d(128)
+    dec2 = decompose(A2, generate_rhs(A2.n), campaign_settings(1000), 16)
+    g, lg = counted(RASolver(dec2).run)
+    gc = RASolver(dec2, device="cpu").run()
+    print(f"campaign 128^2: card {g.iters} iterations (true relative "
+          f"residual {g.relative_residual_norm:.6e}, run loop "
+          f"{g.solve_time_s:.2f} s), CPU {gc.iters} "
+          f"({gc.relative_residual_norm:.6e}, {gc.solve_time_s:.1f} s); "
+          f"launches {lg}", flush=True)
+    sm.check(g.converged and g.iters == gc.iters and gc.converged
+             and g.relative_residual_norm < 1e-7
+             and lg["dia_spmv"] > 0 and lg["halo_runs"] > 0,
+             f"campaign 128^2 detects at the CPU's count ({g.iters} / "
+             f"{gc.iters})")
+
+
+def direct_phases(sm: Smoke) -> None:
+    """Phase 25: dense Cholesky locals through the explicit inverse under
+    FGMRES at full width (``laplacian_2d(512)``, 8 x 8 blocks), then the
+    reduced size against the CPU and the other direct applies."""
+    import numpy as np
+    import torch
+
+    from schwarz_tpu_torch import CommSettings, LocalSolver, RASolver
+    from schwarz_tpu_torch.core.decompose import decompose
+    from schwarz_tpu_torch.models import generate_rhs, laplacian_2d
+    from schwarz_tpu_torch.solvers.direct import inverse_apply
+
+    A = laplacian_2d(512)
+    b = generate_rhs(A.n)
+    s = direct_settings()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dec = decompose(A, b, s, 64)
+    t_dec = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    solver = RASolver(dec)
+    torch.cuda.synchronize()
+    t_plan = time.perf_counter() - t0
+    peak_setup = torch.cuda.max_memory_allocated() / 1e9
+    m = solver.meta
+    inv = solver._plan["factor_inv"]
+    fs = solver.factor_seconds
+    print(f"direct 512^2, 64 subdomains: decompose {t_dec:.2f} s, plan "
+          f"{t_plan:.2f} s of which factor {fs['factor']:.3f} s and inverse "
+          f"{fs['inverse']:.3f} s; R_int={m.max_interior} R_rows={m.max_rows} "
+          f"R_ext={m.max_ext}; inverse {tuple(inv.shape)} "
+          f"{inv.numel() * 8 / 1e9:.2f} GB; peak device memory of the setup "
+          f"{peak_setup:.2f} GB", flush=True)
+    res, launches = counted(solver.run_accelerated)
+    n_it = max(res.iters, 1)
+    print(f"direct 512^2 under FGMRES(30): {res.iters} iterations, true "
+          f"relative residual {res.relative_residual_norm:.6e}, run loop "
+          f"{res.solve_time_s:.3f} s ({1e3 * res.solve_time_s / n_it:.3f} ms "
+          f"per FGMRES iteration); K1 {launches['dia_spmv']} launches, K2 "
+          f"{launches['halo_runs']}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    sm.check(res.converged and res.relative_residual_norm <= 1e-8
+             and bool(np.isfinite(res.solution).all())
+             and launches["dia_spmv"] > 0
+             and launches["halo_runs"] >= 2 * res.iters,
+             f"direct 512^2 converges under FGMRES: true relative residual "
+             f"{res.relative_residual_norm:.3e} <= 1e-8 in {res.iters} "
+             f"iterations, K1 and K2 (two exchanges an iteration) launched")
+    r = solver._plan["local_rhs"]
+    apply_ms = sm.ms(lambda: inverse_apply(inv, r), 10)
+    bound, _ = _bound_ms(inv.numel() * 8 + 2 * r.numel() * 8,
+                         2 * inv.numel(), "float64")
+    print(f"direct 512^2: one preconditioner apply (batched product with "
+          f"the inverse) {apply_ms:.3f} ms, bound {bound:.3f} ms (bytes)",
+          flush=True)
+    e1 = k1_entry(sm, solver._dia_offsets, solver._plan["dia_vals"],
+                  torch.randn((64, m.max_ext), device="cuda",
+                              dtype=torch.float64)[:, :m.max_rows],
+                  f"at the direct phase's "
+                  f"{tuple(solver._plan['dia_vals'].shape)}")
+    e1["launches"] = launches["dia_spmv"]
+    e2 = k2_entry(sm, solver, "at the direct phase's shapes")
+    e2["launches"] = launches["halo_runs"]
+    sm.kernels["dia_spmv_direct"], sm.kernels["halo_runs_direct"] = e1, e2
+    del solver, dec, inv, r
+    torch.cuda.empty_cache()
+
+    # the reduced size: card against CPU, then the other applies
+    n, S = DIRECT_SMALL
+    A2 = laplacian_2d(n)
+    b2 = generate_rhs(A2.n)
+    dec2 = decompose(A2, b2, s, S)
+    rs = RASolver(dec2).run_accelerated()
+    rh = RASolver(dec2, device="cpu").run_accelerated()
+    bar = _within_f64(rs.global_resnorm_history, rh.global_resnorm_history)
+    sm.check(rs.converged and rs.iters == rh.iters and bar <= 1,
+             f"direct {n}^2 on {S} subdomains under FGMRES: card {rs.iters} "
+             f"/ CPU {rh.iters} iterations, histories within the float64 "
+             f"bar ({bar:.3f} <= 1)")
+    stat = {}
+    variants = {
+        "inverse": {}, "trisolve": dict(direct_apply="trisolve"),
+        "blocked": dict(direct_apply="blocked"),
+        "lu": dict(local_solver=LocalSolver.direct_lu,
+                   direct_apply="trisolve"),
+        "inverse+overlap_split": dict(comm=CommSettings(overlap_split=True))}
+    for name, kw in variants.items():
+        st = direct_settings(accelerator="none", **kw)
+        rv, lv = counted(RASolver(decompose(A2, b2, st, S)).run)
+        stat[name] = rv
+        base = stat["inverse"]
+        bar = _within_f64(rv.global_resnorm_history,
+                          base.global_resnorm_history)
+        sm.check(rv.converged and rv.iters == base.iters and bar <= 1
+                 and lv["halo_runs"] == rv.iters + 1,
+                 f"direct {n}^2 stationary, {name}: {rv.iters} iterations "
+                 f"({base.iters} with the inverse), history within the "
+                 f"float64 bar of the inverse run's ({bar:.3f} <= 1), run "
+                 f"loop {rv.solve_time_s:.2f} s")
+
+    # --- 26. checkpoints on the card: stopped early, resumed, bit for bit --
+    full = RASolver(decompose(A2, b2, direct_settings(restart_iter=10), S))
+    short = RASolver(decompose(A2, b2, direct_settings(restart_iter=10,
+                                                       max_iters=10), S))
+    ck = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                      "smoke_checkpoint.npz")
+    os.makedirs(os.path.dirname(ck), exist_ok=True)
+    short.run(checkpoint_path=ck)
+    r0 = full.run()
+    r1 = full.run(resume_state=full.load_checkpoint(ck))
+    a_short = short.run_accelerated(checkpoint_path=ck)
+    a0 = full.run_accelerated()
+    a1 = full.run_accelerated(resume_state=full.load_accel_checkpoint(ck))
+    os.remove(ck)
+    same = [np.array_equal(x.global_resnorm_history,
+                           y.global_resnorm_history)
+            and np.array_equal(x.solution, y.solution)
+            for x, y in ((r1, r0), (a1, a0))]
+    sm.check(all(same) and r0.converged and a0.converged
+             and a_short.iters == 10,
+             f"checkpoints on the card: the stationary run stopped at 10 of "
+             f"{r0.iters} iterations and FGMRES(10) at 10 of {a0.iters}, each "
+             f"resumed, equal the uninterrupted runs bit for bit ({same})")
+
+
+def native_setup_phase(sm: Smoke) -> None:
+    """Phase 27: the partition and decompose of the general slice
+    (``anisotropic_diffusion_2d(360)``, METIS into 128 parts, overlap 2)
+    with the native library and with the Python loops: bit-identical, both
+    timed on the card's host."""
+    import numpy as np
+
+    from schwarz_tpu_torch import Partition, Settings, native
+    from schwarz_tpu_torch.core.decompose import decompose
+    from schwarz_tpu_torch.core.partition import make_partition
+    from schwarz_tpu_torch.models import anisotropic_diffusion_2d
+
+    A = anisotropic_diffusion_2d(360, eps=5.0, theta=0.3)
+    b = np.ones(A.n)
+    s = Settings(partition=Partition.metis, overlap=2)
+    out = {}
+    for tag in ("native", "python"):
+        if tag == "python":
+            os.environ["SCHWARZ_TPU_NATIVE"] = "0"
+        native.reset()
+        try:
+            sm.check(native.available() == (tag == "native"),
+                     f"the {tag} setup path is the one taken")
+            t0 = time.perf_counter()
+            part = make_partition(A, 128, s)
+            t1 = time.perf_counter()
+            dec = decompose(A, b, s, 128, partition_indices=part)
+            t2 = time.perf_counter()
+        finally:
+            os.environ.pop("SCHWARZ_TPU_NATIVE", None)
+            native.reset()
+        out[tag] = (part, dec, t1 - t0, t2 - t1)
+    (pn, dn, tpn, tdn), (pp, dp, tpp, tdp) = out["native"], out["python"]
+    fields = ("perm", "first_row", "rows_count", "ghost_count",
+              "local_to_global", "lmat_cols", "lmat_vals", "imat_cols",
+              "imat_vals", "iface_rows", "iface_cols", "iface_vals",
+              "local_rhs", "halo_src", "halo_slots", "comm_matrix")
+    same = np.array_equal(pn, pp) and all(
+        np.array_equal(getattr(dn, f), getattr(dp, f)) for f in fields)
+    print(f"native setup, general slice (129 600 rows, METIS into 128, "
+          f"overlap 2) on the card's host: partition {tpn:.2f} s native / "
+          f"{tpp:.2f} s Python, decompose {tdn:.2f} s / {tdp:.2f} s",
+          flush=True)
+    sm.check(same, "native and Python partitions and Decomposition arrays "
+             "are bit-identical")
+
+
 def main() -> int:
     import torch
 
@@ -1710,12 +2163,7 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     try:
-        import numpy as np
-
-        from schwarz_tpu_torch import (CommSettings, HaloStrategy, Precond,
-                                       RASolver, Settings)
-        from schwarz_tpu_torch.core.decompose import decompose
-        from schwarz_tpu_torch.models import generate_rhs, laplacian_2d
+        import schwarz_tpu_torch  # noqa: F401
         from schwarz_tpu_torch.ops import cuda_build
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
@@ -1731,6 +2179,24 @@ def main() -> int:
     cuda_build.build_all()
     print(f"built {len(cuda_build.KERNEL_SOURCES)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # every partition below goes through the native setup library: the
+    # card's host must never take the Python loops unseen
+    from schwarz_tpu_torch import native
+
+    if not native.available():
+        print(f"chip_smoke: {native.reason}", file=sys.stderr)
+        return 1
+    return _phases(sm, torch)
+
+
+def _phases(sm, torch) -> int:
+    """Phases 3-28."""
+    import numpy as np
+
+    from schwarz_tpu_torch import (CommSettings, HaloStrategy, Precond,
+                                   RASolver, Settings)
+    from schwarz_tpu_torch.core.decompose import decompose
+    from schwarz_tpu_torch.models import generate_rhs, laplacian_2d
 
     # --- the slice's setup ---------------------------------------------------
     t0 = time.perf_counter()
@@ -1795,18 +2261,17 @@ def main() -> int:
     sm.kernels["fused_cg"]["launches"] = launches["fused_cg"]
     # one exchange of the slice, counted with the profiler, on all_gather
     # with and without a bfloat16 halo and on rdma (the solver of phase
-    # 18); rdma comes first, so that every kernel of these windows has
-    # run before the first of them (the profiler missed kernels of a
-    # library first launched after its first window)
+    # 18), each having run once before the window (the profiler missed
+    # kernels of a library first launched after its first window)
     solver_rd = RASolver(dataclasses.replace(dec, settings=settings.replace(
         comm=CommSettings(strategy=HaloStrategy.rdma, enable_put=True,
                           enable_get=False))), num_ranks=16)
-    exchange_cost(sm, solver_rd, "rdma (K4, then K2)", 2)
     ms_it = 1e3 * warm.solve_time_s / max(n_it, 1)
-    exchange_cost(sm, solver, "all_gather", 1, ms_it)
     solver_h = RASolver(dataclasses.replace(
         dec, settings=settings.replace(halo_dtype="bfloat16")))
-    exchange_cost(sm, solver_h, "all_gather, bfloat16 halos", 1, ms_it)
+    exchange_costs(sm, [(solver_rd, "rdma (K4, then K2)", 2, None),
+                        (solver, "all_gather", 1, ms_it),
+                        (solver_h, "all_gather, bfloat16 halos", 1, ms_it)])
     del solver_h
 
     # where the card's time goes in two outer iterations of the slice
@@ -1875,7 +2340,14 @@ def main() -> int:
     # --- 20-23. the flagship recipe, O-RAS through K3, two-level refinement --
     flagship_phases(sm)
 
-    # --- 24. the kernels line and the last line ------------------------------
+    # --- 24-26. the campaign configuration, direct locals, checkpoints -------
+    campaign_phases(sm)
+    direct_phases(sm)
+
+    # --- 27. the native setup against the Python loops -----------------------
+    native_setup_phase(sm)
+
+    # --- 28. the kernels line and the last line ------------------------------
     meta_k = {
         "dia_spmv_float32": ("csrc/dia_spmv.cu",
                              "schwarz_tpu/ops/pallas_kernels.py:110"),
@@ -1898,6 +2370,12 @@ def main() -> int:
                                       "schwarz_tpu/ops/pallas_kernels.py:110")
            for k in ("A_f64", "A_f32", "G", "GT")},
         "fused_cg_oras": ("csrc/fused_cg.cu", "schwarz_tpu/ops/fused_cg.py:84"),
+        **{f"dia_spmv_{k}": ("csrc/dia_spmv.cu",
+                             "schwarz_tpu/ops/pallas_kernels.py:110")
+           for k in ("campaign", "direct")},
+        **{f"halo_runs_{k}": ("csrc/halo_runs.cu",
+                              "schwarz_tpu/ops/halo_pallas.py:142")
+           for k in ("campaign", "direct")},
     }
     line = []
     for name, (src, replaces) in meta_k.items():

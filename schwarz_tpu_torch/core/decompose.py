@@ -1,6 +1,6 @@
 """Overlap decomposition: the port's copy of ``schwarz_tpu/core/decompose.py``
-(numpy path; the native ctypes binding of ``native/setup_ops.cpp`` waits for a
-later slice).
+(numpy, with the native fast path of :mod:`schwarz_tpu_torch.native` where
+the library builds; both give the same arrays bit for bit).
 
 Reference semantics, reproduced exactly:
   - subdomain row permutation + first_row offsets  (restricted_schwarz.cpp:97-152)
@@ -123,7 +123,20 @@ class Decomposition:
 
 def _permute_matrix(mat: CSRMatrix, perm: np.ndarray, iperm: np.ndarray) -> CSRMatrix:
     """A_perm[r, c] = A[perm[r], perm[c]] with columns re-sorted
-    (cf. restricted_schwarz.cpp:135-151 + sort_by_column_index)."""
+    (cf. restricted_schwarz.cpp:135-151 + sort_by_column_index).  Uses the
+    native kernel when built (schwarz_tpu_torch/native.py), numpy otherwise."""
+    from schwarz_tpu_torch import native
+
+    if native.available() and mat.values.dtype == np.float64:
+        ip, ix, vv = native.permute_csr(
+            mat.n,
+            np.ascontiguousarray(mat.row_ptrs, np.int64),
+            np.ascontiguousarray(mat.col_idxs, np.int64),
+            np.ascontiguousarray(mat.values, np.float64),
+            np.ascontiguousarray(perm, np.int64),
+            np.ascontiguousarray(iperm, np.int64),
+        )
+        return CSRMatrix(row_ptrs=ip, col_idxs=ix, values=vv, n=mat.n)
     counts = mat.row_ptrs[perm + 1] - mat.row_ptrs[perm]
     gidx = _csr_row_gather(mat.row_ptrs, perm)
     cols = iperm[mat.col_idxs[gidx]]
@@ -204,30 +217,46 @@ def decompose(
     interior_count = np.zeros(S, dtype=np.int64)
     rows_count = np.zeros(S, dtype=np.int64)
     ghost_count = np.zeros(S, dtype=np.int64)
+    from schwarz_tpu_torch import native
+
+    use_native = native.available()
+    if use_native:
+        row_ptrs = np.ascontiguousarray(row_ptrs, np.int64)
+        col_idxs = np.ascontiguousarray(col_idxs, np.int64)
+        visited_buf = np.zeros(N, dtype=np.int8)
     for p in range(S):
-        interior = np.arange(first_row[p], first_row[p + 1], dtype=np.int64)
-        visited = np.zeros(N, dtype=bool)
-        visited[interior] = True
-        order = [interior]
-        frontier = interior
-        for _ in range(rings):
-            nbr = col_idxs[_csr_row_gather(row_ptrs, frontier)]
-            nbr = _first_occurrence_unique(nbr[~visited[nbr]])
-            if nbr.size == 0:
-                frontier = nbr
-                break
-            visited[nbr] = True
-            order.append(nbr)
-            frontier = nbr
-        closure = np.concatenate(order)
-        interior_count[p] = interior.size
-        # ghost ring: exterior columns of the overlap rows (last frontier);
-        # for rings == 0 there are no overlap rows and no interface matrix
-        if frontier.size:
-            nbr = col_idxs[_csr_row_gather(row_ptrs, frontier)]
-            ghost = _first_occurrence_unique(nbr[~visited[nbr]])
+        if use_native:
+            closure, ghost = native.closure(
+                row_ptrs, col_idxs, first_row[p], first_row[p + 1], rings,
+                visited_buf, N,
+            )
+            interior_count[p] = first_row[p + 1] - first_row[p]
         else:
-            ghost = np.empty(0, dtype=np.int64)
+            interior = np.arange(first_row[p], first_row[p + 1],
+                                 dtype=np.int64)
+            visited = np.zeros(N, dtype=bool)
+            visited[interior] = True
+            order = [interior]
+            frontier = interior
+            for _ in range(rings):
+                nbr = col_idxs[_csr_row_gather(row_ptrs, frontier)]
+                nbr = _first_occurrence_unique(nbr[~visited[nbr]])
+                if nbr.size == 0:
+                    frontier = nbr
+                    break
+                visited[nbr] = True
+                order.append(nbr)
+                frontier = nbr
+            closure = np.concatenate(order)
+            interior_count[p] = interior.size
+            # ghost ring: exterior columns of the overlap rows (last
+            # frontier); for rings == 0 there are no overlap rows and no
+            # interface matrix
+            if frontier.size:
+                nbr = col_idxs[_csr_row_gather(row_ptrs, frontier)]
+                ghost = _first_occurrence_unique(nbr[~visited[nbr]])
+            else:
+                ghost = np.empty(0, dtype=np.int64)
         rows_count[p] = closure.size
         ghost_count[p] = ghost.size
         closures.append(closure)
@@ -263,11 +292,23 @@ def decompose(
     Wl_max = 0
     Wi_max = 0
     per_sub = []
+    g2l_list = []
+    values_f64 = (
+        np.ascontiguousarray(values, np.float64) if use_native else values
+    )
     for p in range(S):
         g2l = np.full(N, -1, dtype=np.int64)
         g2l[closures[p]] = np.arange(rows_count[p], dtype=np.int64)
         g2l[ghosts[p]] = R_rows + np.arange(ghost_count[p], dtype=np.int64)
         rows_p = closures[p]
+        if use_native:
+            g2l_list.append(g2l)
+            wl, wi = native.row_widths(
+                row_ptrs, col_idxs, g2l, rows_p, rows_count[p]
+            )
+            Wl_max, Wi_max = max(Wl_max, wl), max(Wi_max, wi)
+            per_sub.append(None)
+            continue
         gidx = _csr_row_gather(row_ptrs, rows_p)
         counts = row_ptrs[rows_p + 1] - row_ptrs[rows_p]
         seg = np.repeat(np.arange(rows_p.size, dtype=np.int64), counts)
@@ -297,6 +338,26 @@ def decompose(
     local_rhs = np.zeros((S, R_rows), dtype=dtype)
 
     for p in range(S):
+        if use_native:
+            lc = np.ascontiguousarray(lmat_cols[p])
+            lv = np.zeros((R_rows, Wl), dtype=np.float64)
+            ic = np.zeros((R_rows, Wi), dtype=np.int32)
+            iv = np.zeros((R_rows, Wi), dtype=np.float64)
+            native.ell_fill(
+                row_ptrs, col_idxs, values_f64, g2l_list[p], closures[p],
+                rows_count[p], lc, lv, ic, iv,
+            )
+            lmat_cols[p] = lc
+            lmat_vals[p] = lv
+            imat_cols[p] = ic
+            imat_vals[p] = iv
+            prange = np.arange(rows_count[p], R_rows)
+            lmat_vals[p, prange, 0] = 1.0
+            lmat_cols[p, prange, 0] = prange.astype(np.int32)
+            local_to_global[p, : rows_count[p]] = closures[p]
+            local_to_global[p, R_rows: R_rows + ghost_count[p]] = ghosts[p]
+            local_rhs[p, : rows_count[p]] = rhs_p[closures[p]]
+            continue
         l_rows, l_cols, l_vals, i_rows, i_cols, i_vals = per_sub[p]
         # ELL slot position = running index within each row (entries arrive in
         # column-sorted CSR order, so slots stay column-sorted)

@@ -200,7 +200,16 @@ def _refine_boundary(row_ptrs, col_idxs, vertices, mask0, rounds: int = 8):
 
 def _heavy_edge_matching(row_ptrs, col_idxs, weights):
     """One coarsening level: greedy heavy-edge matching.  Returns (coarse_map,
-    n_coarse) where coarse_map[v] is v's coarse vertex id."""
+    n_coarse) where coarse_map[v] is v's coarse vertex id.  Uses the native
+    kernel when built (the python loop dominates setup at 10^6 vertices)."""
+    from schwarz_tpu_torch import native
+
+    if native.available():
+        order = np.argsort(weights).astype(np.int64)
+        return native.heavy_edge_matching(
+            row_ptrs.astype(np.int64), col_idxs.astype(np.int64),
+            np.asarray(weights, np.int64), order,
+        )
     n = row_ptrs.shape[0] - 1
     matched = np.full(n, -1, dtype=np.int64)
     order = np.argsort(weights)          # match light vertices first (METIS HEM)
@@ -477,6 +486,16 @@ def _refine_side(ptr, cols, side, target_frac, rounds: int = 24,
     # the refinement METIS itself runs per uncoarsening level (the round-1
     # greedy positive-gain-only batch version plateaued at ~1.6x the METIS
     # cut; FM reaches ~1.1-1.3x on grid benchmarks).
+    from schwarz_tpu_torch import native
+
+    if native.available():
+        # the native kernel is bit-identical to the heapq loop below
+        # (tests/test_torch_native.py); the python FM is the setup
+        # bottleneck at 10^5-10^6-row partitions
+        side8 = side.astype(np.int8)
+        wts = np.ones(n, np.int64) if w is None else w
+        native.fm_refine(ptr, cols, side8, wts, lo, hi, size0, rounds)
+        return side8.astype(bool)
     for _ in range(rounds):
         gain = np.zeros(n, dtype=np.int64)
         np.add.at(gain, rows, np.where(side[rows] == side[cols], -1, 1))

@@ -14,21 +14,31 @@ with all S subdomains batched on one device:
   - check_convergence  -> local residual through the DIA SpMV (K1) + protocol round
   - coarse correction  -> restriction, coarse solve, prolongation, then a
                           second exchange                    (coarse_correction.py)
-  - local_solve        -> batched CG with a local preconditioner (Jacobi,
-                          block-Jacobi, ILU(0), FSAI(0); their banded
-                          factors through K1), or the fused CG kernel (K3)
+  - local_solve        -> batched CG or GMRES with a local preconditioner
+                          (Jacobi, block-Jacobi, ILU(0), FSAI(0); their
+                          banded factors through K1), the fused CG kernel
+                          (K3), or a dense Cholesky / LU factor applied by
+                          triangular solves or an explicit inverse
+                          (solvers/direct.py)
   - local_to_global    -> interior-window write                (communicate.cpp:64-94)
 
 Optimized Schwarz (``oras_weight``) adds a Robin term to the local solve
 operator's boundary rows and the matching trace term to its rhs.
+``comm.overlap_split`` hoists the loop-invariant half of the local solve,
+``z_base = A_loc^-1 b_loc``, out of the iteration.  ``run_accelerated``
+(and ``solve`` with ``accelerator='fgmres'``) solves the global system by
+flexible GMRES with one RAS application as its preconditioner.  ``run``
+saves and resumes checkpoints in the JAX package's ``.npz`` format, and
+``set_rhs`` puts a new right-hand side on a built solver.
 
 :class:`RASolver` and :func:`solve` run on the CUDA device unless the caller
 passes ``device="cpu"``, where every kernel wrapper takes its plain PyTorch
 version.  With no GPU and no explicit device they raise.  ``num_ranks``
 takes the place of the JAX package's device mesh: the neighbour strategies
 pack one buffer per pair of ranks, each rank owning ``S / num_ranks``
-consecutive subdomains (one by default).  Settings whose path is not ported
-yet raise ``NotImplementedFeature``.
+consecutive subdomains (one by default).  ``free_running`` belongs to the
+free-running solvers, which :func:`solve` dispatches to; the synchronous
+solver raises ``NotImplementedFeature`` on it.
 """
 
 from __future__ import annotations
@@ -65,7 +75,8 @@ from schwarz_tpu_torch.ops.dia import dia_ell_spmv, dia_spmv, split_dia_ell
 from schwarz_tpu_torch.ops.fused_cg import fused_cg_solve, fused_cg_supported
 from schwarz_tpu_torch.ops.rdma_kernel import rdma_shift_finish
 from schwarz_tpu_torch.ops.spmv import ell_spmv_batched
-from schwarz_tpu_torch.parallel.convergence import conv_step, init_conv_state
+from schwarz_tpu_torch.parallel.convergence import (ConvState, conv_step,
+                                                    init_conv_state)
 from schwarz_tpu_torch.parallel.exchange import (
     exchange_halo_allgather,
     segments_of,
@@ -76,12 +87,30 @@ from schwarz_tpu_torch.parallel.neighbor_exchange import (
     exchange_rounds,
 )
 from schwarz_tpu_torch.solvers.cg import cg_solve
+from schwarz_tpu_torch.solvers.direct import (block_diag_inverses,
+                                              blocked_cholesky_solve,
+                                              cholesky_factor,
+                                              cholesky_inverse,
+                                              cholesky_solve, inverse_apply,
+                                              lu_factor, lu_solve,
+                                              pick_trisolve_block)
+from schwarz_tpu_torch.solvers.global_krylov import fgmres
+from schwarz_tpu_torch.solvers.gmres import gmres_solve
 from schwarz_tpu_torch.solvers.precond import (block_jacobi_inverse,
                                               build_fsai, build_ilu0,
                                               ell_to_dia, ilu_apply_ell,
                                               jacobi_inverse)
 
 DIVERGENCE_LIMIT = 1e12  # schwarz_base.cpp:424: abort when ||r|| exceeds this
+ITERATIVE = (LocalSolver.iterative_cg, LocalSolver.iterative_gmres)
+# the state's entries in the order of the JAX package's checkpoint files
+# (``jax.tree.flatten`` of its state dict: keys sorted, ConvState's fields
+# in their order)
+STATE_KEYS = ("conv", "diverged", "grn", "hist_global", "hist_inner",
+              "hist_inner_rel", "hist_local", "it", "it_stop", "local_rn0",
+              "nconv", "x_ext", "x_own", "z")
+_HOST_SCALARS = {"diverged": np.bool_, "it": np.int32, "it_stop": np.int32,
+                 "nconv": np.int32}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -179,14 +208,20 @@ class RASolver:
         if (s.local_compute_dtype is not None
                 and s.local_compute_dtype != s.dtype):
             self._lc_dtype = getattr(torch, s.local_compute_dtype)
+        self._check_local_solver()
+        # seconds of the direct factorization on the device, by step
+        self.factor_seconds: Dict[str, float] = {}
         self._plan = self._build_plan()
         # the neighbour strategies' round tables, kept with K4's state
         self._rounds = (exchange_rounds(self._neighbor_plan, self.device)
                         if self._neighbor_plan is not None else None)
+        if self._overlap_split:
+            self._plan["z_base"] = self._split_z_base()
 
     def _check_supported(self) -> None:
-        """Fail loudly on every setting this slice does not port (and on
-        the JAX package's own invalid combinations)."""
+        """Fail loudly on the JAX package's own invalid combinations, on
+        the reference's settings that have no function here, and on
+        ``free_running``."""
         s = self.settings
         if s.two_level and (
             s.comm.overlap_comm or (s.comm.onesided and s.comm.staleness > 1)
@@ -225,6 +260,16 @@ class RASolver:
             raise ValueError(
                 f"inner_operator must be 'exact' or 'dia_only', got "
                 f"{s.inner_operator!r}")
+        if (s.inner_operator == "dia_only"
+                and s.convergence.criterion == LocalCriterion.solution_based):
+            # the perturbed inner operator shifts the solution-based fixed
+            # point and the exact global check stalls; the correction form
+            # keeps the fixed point
+            raise ValueError(
+                "inner_operator='dia_only' requires the residual-based local "
+                "criterion (local_convergence_crit='residual-based'): "
+                "solution-based updates take the perturbed operator's fixed "
+                "point and the exact convergence check never detects")
         self._oras_c = oras_weight(s)
         if not -1.0 <= self._oras_c <= 0.0:
             raise ValueError(
@@ -233,19 +278,57 @@ class RASolver:
                 "beyond -1 make the local solve operator indefinite and the "
                 "iteration diverges, and positive weights stiffen it in "
                 "the wrong direction")
-        unported = {
-            f"local_solver={s.local_solver.value!r}":
-                s.local_solver != LocalSolver.iterative_cg,
-            f"accelerator={s.accelerator!r}": s.accelerator != "none",
-            "free_running": s.free_running,
-            "comm.overlap_split": s.comm.overlap_split,
-            "write_debug_out": s.write_debug_out,
-            "inner_operator='dia_only'": s.inner_operator == "dia_only",
-        }
-        missing = [name for name, on in unported.items() if on]
-        if missing:
+        if s.free_running:
             raise NotImplementedFeature(
-                "not ported to schwarz_tpu_torch yet: " + ", ".join(missing))
+                "free_running is the free-running solvers' mode: solve() "
+                "dispatches it to them (make_free_running_solver); the "
+                "synchronous RASolver does not run it")
+
+    def _check_local_solver(self) -> None:
+        """The JAX package's gates on the direct applies and on
+        ``comm.overlap_split`` (``schwarz_tpu/ras.py:873-952``).  The
+        float64 LU refusal there is a TPU limit and has no counterpart."""
+        s = self.settings
+        if s.direct_apply not in ("trisolve", "inverse", "blocked"):
+            raise ValueError(
+                f"direct_apply must be 'trisolve', 'inverse' or 'blocked', "
+                f"got {s.direct_apply!r}")
+        if (s.direct_apply in ("inverse", "blocked")
+                and s.local_solver == LocalSolver.direct_lu):
+            raise ValueError(
+                f"direct_apply={s.direct_apply!r} requires "
+                "local_solver='cholesky' (both paths build on the SPD "
+                "Cholesky factor)")
+        # exact comm/compute overlap (the reference's enable_overlap without
+        # changing the iterate, restricted_schwarz.cpp:886-943): the
+        # loop-invariant half z_base = A_loc^-1 b_loc is hoisted out of the
+        # iteration; the explicit inverse keeps only the (R x Oi) boundary
+        # correction, iterative locals take the correction form
+        self._overlap_split = bool(s.comm.overlap_split)
+        self._split_iterative = (self._overlap_split
+                                 and s.local_solver in ITERATIVE)
+        if not self._overlap_split:
+            return
+        missing = []
+        if not (self._split_iterative
+                or (s.local_solver == LocalSolver.direct_cholesky
+                    and s.direct_apply == "inverse")):
+            missing.append(
+                "local_solver='cholesky' with direct_apply='inverse', or an "
+                "iterative local solver (cg/gmres take the correction-form "
+                "split; the split is a linearity identity of the solve)")
+        if self._oras_c != 0:
+            missing.append("no O-RAS (Robin rhs data is dense)")
+        if (s.convergence.criterion == LocalCriterion.residual_based
+                or self._lc_dtype is not None):
+            missing.append(
+                "solution-based updates (residual_based / "
+                "local_compute_dtype solve the dense correction system; a "
+                "low-precision hoisted z_base would also cap the achievable "
+                "outer residual at inner-dtype accuracy)")
+        if missing:
+            raise ValueError(
+                "comm.overlap_split requires: " + "; ".join(missing))
 
     # ------------------------------------------------------------------ setup --
     def _build_plan(self) -> Dict[str, torch.Tensor]:
@@ -323,14 +406,17 @@ class RASolver:
                 arrays["lmat_vals_solve"] = lv_solve.astype(dtype)
                 if lc_np is not None:
                     arrays["lmat_vals_solve_lc"] = lv_solve.astype(lc_np)
-        arrays.update(self._precond_arrays(lv_solve.astype(dtype),
-                                           lc_np or dtype))
+        if s.local_solver in ITERATIVE:
+            arrays.update(self._precond_arrays(lv_solve.astype(dtype),
+                                               lc_np or dtype))
         if s.two_level:
             arrays.update(coarse_arrays(dec, s, dtype, lc_np))
         # fused whole-solve CG kernel: opt-in and gated; an unsatisfiable
         # request fails loudly with the recipe
         self._use_fused_cg = False
         if s.fused_local_cg:
+            if s.local_solver != LocalSolver.iterative_cg:
+                raise ValueError("fused_local_cg requires local_solver='cg'")
             if self._dia_offsets is None:
                 raise ValueError(
                     "fused_local_cg requires the DIA operator "
@@ -359,7 +445,68 @@ class RASolver:
             self._neighbor_plan = build_neighbor_plan(
                 dec, self.num_ranks, process_of=[0] * self.num_ranks)
         arrays["ext_segs"], arrays["ext_first"] = segments_of(dec, compact)
-        return plan_from_numpy(arrays, self.device)
+        plan = plan_from_numpy(arrays, self.device)
+        if s.local_solver not in ITERATIVE:
+            # the factors of the (O-RAS solve) operator, in the inner dtype
+            fac = lv_solve.astype(dtype).astype(lc_np or dtype)
+            plan.update(self._direct_factors(
+                torch.from_numpy(fac).to(self.device),
+                torch.from_numpy(dec.lmat_cols.astype(np.int64)).to(
+                    self.device)))
+        if self._overlap_split and not self._split_iterative:
+            # the inverse's columns at the interface rows; padding entries
+            # (row index R) give zero columns
+            inv = plan["factor_inv"]
+            rows = plan["iface_rows"][:, None, :]
+            R = inv.shape[-1]
+            cols = torch.gather(inv, 2, rows.clamp(max=R - 1).expand(
+                inv.shape[0], R, rows.shape[-1]))
+            plan["factor_inv_iface"] = torch.where(rows < R, cols,
+                                                   torch.zeros_like(cols))
+        return plan
+
+    def _direct_factors(self, vals: torch.Tensor,
+                        cols: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Dense factors of every local matrix, once at setup
+        (solve.cpp:237-238), on the device.  With ``direct_apply=
+        'inverse'`` only the explicit inverse stays: the densified operator
+        and the factor are freed as soon as it exists.  The seconds of each
+        step go to ``factor_seconds``."""
+        s = self.settings
+
+        def timed(name, fn):
+            t0 = time.perf_counter()
+            out = fn()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.factor_seconds[name] = time.perf_counter() - t0
+            return out
+
+        if s.local_solver == LocalSolver.direct_lu:
+            lu, piv = timed("factor", lambda: lu_factor(vals, cols))
+            return {"factor_lu": lu, "factor_piv": piv}
+        L = timed("factor", lambda: cholesky_factor(vals, cols))
+        if s.direct_apply == "inverse":
+            return {"factor_inv": timed("inverse",
+                                        lambda: cholesky_inverse(L))}
+        if s.direct_apply == "blocked":
+            blk = pick_trisolve_block(int(L.shape[-1]))
+            return {"factor_L": L, "factor_Dinv": timed(
+                "inverse", lambda: block_diag_inverses(L, blk))}
+        return {"factor_L": L}
+
+    def _split_z_base(self) -> torch.Tensor:
+        """The hoisted half of ``overlap_split``, ``z_base = A_loc^-1
+        b_loc``: one product with the explicit inverse, or for iterative
+        locals the production local solve with an uncapped budget (the
+        per-iteration solves keep ``local_max_iters``)."""
+        rhs = self._plan["local_rhs"]
+        if not self._split_iterative:
+            inv = self._plan["factor_inv"]
+            return inverse_apply(inv, rhs.to(inv.dtype))
+        zb, _, _ = self._local_solve(rhs, torch.zeros_like(rhs),
+                                     budget=self.meta.max_rows)
+        return zb
 
     def _precond_arrays(self, pv: np.ndarray, pdtype) -> Dict[str, np.ndarray]:
         """The local preconditioner's plan entries, built on the host from
@@ -436,7 +583,9 @@ class RASolver:
         """y = A_local @ x for the whole batch: DIA (K1) + remainder when
         extracted, ELL otherwise.  ``inner`` selects the local solve's copy
         of the operator: in the local-compute dtype, and with the Robin
-        term under O-RAS; the residual and the check keep the true A."""
+        term under O-RAS; the residual and the check keep the true A.
+        ``inner_operator='dia_only'`` drops the ELL remainder from the inner
+        copy only."""
         plan = self._plan
         lc = "_lc" if (inner and self._lc_dtype is not None) else ""
         solve = "_solve" if (inner and self._oras) else ""
@@ -444,7 +593,8 @@ class RASolver:
             offsets = self._dia_offsets
             dv, rr, rv, rc = (plan["dia_vals" + solve + lc], plan["rem_rows"],
                               plan["rem_vals" + lc], plan["rem_cols"])
-            has_rem = self._dia_has_remainder
+            has_rem = self._dia_has_remainder and not (
+                inner and self.settings.inner_operator == "dia_only")
             return lambda x: dia_ell_spmv(offsets, dv, rr, rv, rc, x,
                                           has_remainder=has_rem)
         lv, lcols = plan["lmat_vals" + solve + lc], plan["lmat_cols"]
@@ -507,24 +657,31 @@ class RASolver:
         win = torch.gather(z, 1, plan["int_cols"])
         return torch.where(plan["interior_mask"], win, torch.zeros_like(win))
 
-    def _interface_update(self, x_ext: torch.Tensor) -> torch.Tensor:
-        """rhs_eff = local_rhs - A_interface @ x_ext (update_boundary,
-        restricted_schwarz.cpp:991-1017), in the gather form."""
+    def _interface_update(self, x_ext: torch.Tensor):
+        """``(rhs_eff, g)``: rhs_eff = local_rhs - A_interface @ x_ext
+        (update_boundary, restricted_schwarz.cpp:991-1017) in the gather
+        form, and g the (S, Oi) interface contribution."""
         g = _interface_contrib(self._plan, x_ext)
-        return _interface_scatter(self._plan, -g, self._plan["local_rhs"])
+        return (_interface_scatter(self._plan, -g, self._plan["local_rhs"]),
+                g)
 
     def _local_solve(self, rhs_eff, z_prev, outer_it: Optional[int] = None,
-                     robin_trace: Optional[torch.Tensor] = None):
-        """Batched local CG (solve.cpp:666-792).  ``reset_local_crit_iter``
+                     robin_trace: Optional[torch.Tensor] = None,
+                     budget: Optional[int] = None):
+        """The batched local solve (solve.cpp:666-792): CG (unfused or K3),
+        GMRES, or a direct factor's apply.  ``reset_local_crit_iter``
         (solve.cpp:729-742): outer iterations beyond it switch the inner
-        budget from the subdomain size to ``local_max_iters``.  Under O-RAS
-        the solution form passes the neighbours' trace (``robin_trace``,
-        the exchanged iterate on the local rows), whose Robin term joins
-        the rhs; the correction form carries no Robin data (None)."""
+        budget from the subdomain size to ``local_max_iters``; ``budget``
+        overrides both.  Under O-RAS the solution form passes the
+        neighbours' trace (``robin_trace``, the exchanged iterate on the
+        local rows), whose Robin term joins the rhs; the correction form
+        carries no Robin data (None)."""
         s = self.settings
         R = self.meta.max_rows
         max_it = s.local_max_iters if s.local_max_iters > 0 else R
-        if (s.reset_local_crit_iter >= 0 and s.local_max_iters > 0
+        if budget is not None:
+            max_it = budget
+        elif (s.reset_local_crit_iter >= 0 and s.local_max_iters > 0
                 and outer_it is not None):
             max_it = (s.local_max_iters if outer_it > s.reset_local_crit_iter
                       else R)
@@ -543,11 +700,31 @@ class RASolver:
                 self._dia_offsets, plan["dia_vals" + solve + lc],
                 rhs_eff.contiguous(), z_prev.contiguous(),
                 plan.get("precond_dinv"), s.local_tolerance, max_it)
-        else:
+        elif s.local_solver == LocalSolver.iterative_cg:
             res = cg_solve(
                 None, None, rhs_eff, z_prev, s.local_tolerance, max_it,
                 precond=self._precond_fn(),
                 apply_fn=self._apply_local(inner=True))
+        elif s.local_solver == LocalSolver.iterative_gmres:
+            res = gmres_solve(
+                None, None, rhs_eff, z_prev, s.local_tolerance, max_it,
+                restart=s.restart_iter, precond=self._precond_fn(),
+                apply_fn=self._apply_local(inner=True))
+        else:
+            if "factor_inv" in plan:
+                z = inverse_apply(plan["factor_inv"], rhs_eff)
+            elif "factor_Dinv" in plan:
+                z = blocked_cholesky_solve(plan["factor_L"],
+                                           plan["factor_Dinv"], rhs_eff)
+            elif "factor_L" in plan:
+                z = cholesky_solve(plan["factor_L"], rhs_eff)
+            else:
+                z = lu_solve((plan["factor_lu"], plan["factor_piv"]),
+                             rhs_eff)
+            S = rhs_eff.shape[0]
+            return (z.to(out_dtype),
+                    torch.ones(S, dtype=torch.int32, device=z.device),
+                    torch.zeros(S, dtype=out_dtype, device=z.device))
         return (res.x.to(out_dtype), res.iters,
                 res.rel_resnorm.to(out_dtype))
 
@@ -577,7 +754,7 @@ class RASolver:
         else:
             x_ext = x_ext_carry = self._exchange(x_own)
         # --- update_boundary: rhs_eff = b_loc - A_interface x_ext --------
-        rhs_eff = self._interface_update(x_ext)
+        rhs_eff, g = self._interface_update(x_ext)
         # --- local residual (solve.cpp:795-856) --------------------------
         r = rhs_eff - self._apply_local()(x_ext[:, :R_rows])
         local_rn = torch.sqrt(torch.sum(r * r, dim=-1))
@@ -617,20 +794,40 @@ class RASolver:
                     conv_state.detected[:, None] | ~plan["interior_mask"],
                     torch.zeros_like(cfield), cfield)
                 x_ext2 = self._exchange(x_own)
-                rhs_eff = self._interface_update(x_ext2)
+                rhs_eff, g = self._interface_update(x_ext2)
                 x_trace = x_ext2[:, :R_rows]
                 r = rhs_eff - self._apply_local()(x_trace)
+            sol_field = None    # differs from the carry only when split
             if residual_update:
                 # solve the correction equation A_local z = r, x += z
                 z, inner, inner_rel = self._local_solve(
                     r, torch.zeros_like(z_prev), outer_it=it)
+            elif self._overlap_split and not self._split_iterative:
+                # exact overlap: z = z_base - A_loc^-1[:, iface] g, the
+                # only exchange-dependent work an (R x Oi) product
+                zb = self._plan["z_base"]
+                z = (zb - inverse_apply(self._plan["factor_inv_iface"],
+                                        g.to(zb.dtype))).to(rhs_eff.dtype)
+                inner = torch.ones(S, dtype=torch.int32, device=self.device)
+                inner_rel = torch.zeros(S, dtype=rhs_eff.dtype,
+                                        device=self.device)
+            elif self._overlap_split:
+                # correction-form split for iterative locals: only
+                # A_loc w = G(x_ext) waits on the exchange (warm-started
+                # from the carried w); z = z_base - w
+                g_field = _interface_scatter(self._plan, g,
+                                             torch.zeros_like(rhs_eff))
+                w, inner, inner_rel = self._local_solve(g_field, z_prev,
+                                                        outer_it=it)
+                sol_field = (self._plan["z_base"] - w).to(rhs_eff.dtype)
+                z = w           # the carry warm-starts the next w-solve
             else:
                 z, inner, inner_rel = self._local_solve(
                     rhs_eff, z_prev, outer_it=it, robin_trace=x_trace)
             # freeze subdomains that already detected global convergence
             frozen = conv_state.detected[:, None]
             z = torch.where(frozen, z_prev, z)
-            z_int = self._extract_int(z)
+            z_int = self._extract_int(z if sol_field is None else sol_field)
             x_new = x_own + z_int if residual_update else z_int
             x_own = torch.where(frozen, x_own, x_new)
         else:
@@ -685,15 +882,117 @@ class RASolver:
         S = self.meta.num_subdomains
         return np.ones((S, S), dtype=bool)
 
+    def set_rhs(self, rhs) -> None:
+        """Re-target the solver at a new right-hand side of the same
+        operator (``schwarz_tpu/ras.py:433-464``).  The decomposition, the
+        factors, the preconditioner, the coarse space and the plan stay;
+        ``local_rhs`` and ``global_rhs`` are replaced.  Under
+        ``comm.overlap_split`` the hoisted ``z_base`` is recomputed from
+        the new rhs (the JAX package keeps the old one, and its split
+        solve then iterates towards the old system)."""
+        dec = self.dec
+        N = dec.meta.global_size
+        rhs = np.asarray(rhs).reshape(-1)
+        if rhs.shape[0] != N:
+            raise ValueError(
+                f"rhs has {rhs.shape[0]} entries, operator has {N} rows")
+        rhs_p = rhs.astype(np.float64)[dec.perm]
+        local_rhs = np.zeros_like(dec.local_rhs)
+        for p in range(dec.meta.num_subdomains):
+            rc = int(dec.rows_count[p])
+            local_rhs[p, :rc] = rhs_p[dec.local_to_global[p, :rc]]
+        dec.local_rhs = local_rhs
+        dec.global_rhs = rhs_p.astype(dec.global_rhs.dtype)
+        self._plan["local_rhs"] = torch.from_numpy(
+            local_rhs.astype(np.dtype(self.settings.dtype))).to(self.device)
+        if self._overlap_split:
+            self._plan["z_base"] = self._split_z_base()
+
+    # ------------------------------------------------------------ checkpoints --
+    def save_checkpoint(self, state: Dict[str, Any], path: str) -> None:
+        """Write a solver state (iterate, counters, histories) as the JAX
+        package's ``.npz``: ``arr_i`` in its ``jax.tree.flatten`` order
+        (:data:`STATE_KEYS`), so either package resumes the other's."""
+        flat = []
+        for k in STATE_KEYS:
+            v = state[k]
+            if k == "conv":
+                flat += [t.cpu().numpy() for t in v]
+            elif k in _HOST_SCALARS:
+                flat.append(np.asarray(_HOST_SCALARS[k](v)))
+            else:
+                flat.append(v.cpu().numpy())
+        np.savez_compressed(path, *flat)
+
+    def load_checkpoint(self, path: str) -> Dict[str, Any]:
+        """A state saved by :meth:`save_checkpoint` (or by the JAX
+        package).  History arrays are re-fitted when this solver's
+        ``max_iters`` differs from the writer's (resume with a larger
+        budget)."""
+        template = self.init_state()
+        leaves = []
+        for k in STATE_KEYS:
+            v = template[k]
+            leaves += list(v) if k == "conv" else [v]
+        with np.load(path) as data:
+            arrs = [np.asarray(data[f"arr_{i}"]) for i in range(len(leaves))]
+        loaded = []
+        for i, (arr, tmpl) in enumerate(zip(arrs, leaves)):
+            t = (tmpl.cpu().numpy() if isinstance(tmpl, torch.Tensor)
+                 else np.asarray(tmpl))
+            if arr.shape != t.shape:
+                if arr.ndim != t.ndim or arr.shape[1:] != t.shape[1:]:
+                    raise ValueError(
+                        f"checkpoint leaf {i} shape {arr.shape} "
+                        f"incompatible with {t.shape}")
+                n = min(arr.shape[0], t.shape[0])
+                t = t.copy()
+                t[:n] = arr[:n]
+                arr = t
+            if isinstance(tmpl, torch.Tensor):
+                # np.array, not np.ascontiguousarray: that lifts a 0-d
+                # leaf to shape (1,)
+                loaded.append(torch.from_numpy(np.array(arr)).to(
+                    tmpl.dtype).to(self.device))
+            else:
+                loaded.append(type(tmpl)(arr[()]))
+        st = {}
+        n_conv = len(ConvState._fields)
+        pos = 0
+        for k in STATE_KEYS:
+            if k == "conv":
+                st[k] = ConvState(*loaded[pos:pos + n_conv])
+                pos += n_conv
+            else:
+                st[k] = loaded[pos]
+                pos += 1
+        return st
+
     def run(self, x0: Optional[np.ndarray] = None,
+            resume_state: Optional[Dict[str, Any]] = None,
+            checkpoint_path: Optional[str] = None,
             chunk_iters: Optional[int] = None) -> RASResult:
         """Solve; returns the solution in the original row ordering plus
         the true-residual oracle (cf. SchwarzBase::run +
-        compute_residual_norm).  ``chunk_iters`` caps the outer iterations
-        per chunk (``it_stop``); results equal the unchunked run."""
+        compute_residual_norm).
+
+        ``resume_state`` (from :meth:`load_checkpoint`) continues a
+        partially converged solve; ``checkpoint_path`` saves the final
+        state for later resumption; ``write_debug_out`` saves it to
+        ``schwarz_debug_out.npz`` in the working directory.
+        ``chunk_iters`` caps the outer iterations per chunk (``it_stop``);
+        results equal the unchunked run."""
         S = self.meta.num_subdomains
         max_iters = self.settings.max_iters
-        st = self.init_state(x0)
+        if resume_state is not None:
+            # the steps write into the state's tensors: work on a copy
+            st = {k: (ConvState(*(t.clone() for t in v)) if k == "conv"
+                      else v.clone() if isinstance(v, torch.Tensor) else v)
+                  for k, v in resume_state.items()}
+        else:
+            st = self.init_state(x0)
+        # a resumed state carries the previous run's stop marker
+        st["it_stop"] = max_iters
         t0 = time.perf_counter()
         while True:
             if chunk_iters is not None:
@@ -712,6 +1011,12 @@ class RASolver:
                 break
         x_own = st["x_own"].cpu().numpy()
         elapsed = time.perf_counter() - t0
+        if checkpoint_path is not None:
+            self.save_checkpoint(st, checkpoint_path)
+        if self.settings.write_debug_out:
+            # the reference's write_debug_out role (settings.hpp:127-207):
+            # the whole final solver state
+            self.save_checkpoint(st, "schwarz_debug_out.npz")
 
         it = st["it"]
         converged = st["nconv"] >= S and not st["diverged"]
@@ -758,6 +1063,129 @@ class RASolver:
             solve_time_s=elapsed,
             comm_matrix=dec.comm_matrix,
         )
+
+    # ------------------------------------------------- Krylov acceleration --
+    def _accel_closures(self):
+        """The global FGMRES's operator and RAS preconditioner on the
+        interior layout (S, R_int): each one exchange (K2), the operator
+        through K1 plus the interface couplings, the preconditioner one
+        local solve from a zero start plus the coarse correction."""
+        plan = self._plan
+        S, R_rows = self.meta.num_subdomains, self.meta.max_rows
+        dtype = self.settings.value_dtype
+
+        def drain():
+            # the card is idle at the caller's host read anyway: raise now
+            # if a K4 wait timed out
+            if self._pending_shifts:
+                shifts, self._pending_shifts[:] = list(self._pending_shifts), []
+                rdma_shift_finish(shifts)
+
+        def matvec(v):
+            v_ext = self._exchange(v)
+            av = self._apply_local()(v_ext[:, :R_rows])
+            # interface couplings scattered onto their rows: with overlap 1
+            # interior rows carry interface entries, and dropping them would
+            # make the operator block-diagonal
+            av = _interface_scatter(plan, _interface_contrib(plan, v_ext), av)
+            drain()
+            return self._extract_int(av)
+
+        def precond(r):
+            r_ext = self._exchange(r)
+            z, _, _ = self._local_solve(
+                r_ext[:, :R_rows],
+                torch.zeros((S, R_rows), dtype=dtype, device=self.device))
+            mr = self._extract_int(z)
+            if self.settings.two_level:
+                mask = plan["interior_mask"]
+                cfield = coarse_correct(plan, torch.where(
+                    mask, r, torch.zeros_like(r)))
+                mr = mr + torch.where(mask, cfield, torch.zeros_like(cfield))
+            return mr
+
+        return matvec, precond
+
+    def run_accelerated(self, x0: Optional[np.ndarray] = None,
+                        resume_state=None,
+                        checkpoint_path: Optional[str] = None,
+                        chunk_iters: Optional[int] = None,
+                        instrument: bool = False) -> RASResult:
+        """Solve the global system by flexible GMRES preconditioned by one
+        RAS application (``schwarz_tpu/ras.py:2112-2211``): ``restart_iter``
+        is the Krylov restart, ``tolerance`` the relative-residual target,
+        and the configured local solver, preconditioner, exchange strategy
+        and coarse space make up the preconditioner.
+
+        ``chunk_iters`` caps the Krylov iterations per chunk, rounded up to
+        restart cycles (results equal the unchunked run);
+        ``checkpoint_path`` saves the resumable cycle state as the JAX
+        package's six-leaf ``.npz``; ``resume_state`` (from
+        :meth:`load_accel_checkpoint`) continues it."""
+        if instrument:
+            raise NotImplementedFeature(
+                "run_accelerated(instrument=True) and its stage timings "
+                "belong to the instruments slice (run_instrumented, "
+                "utils/timing); not ported to schwarz_tpu_torch yet")
+        s = self.settings
+        dec = self.dec
+        S, R_int = self.meta.num_subdomains, self.meta.max_interior
+        dtype = np.dtype(s.dtype)
+        m = max(s.restart_iter, 2)
+        max_cycles = -(-s.max_iters // m)
+        budget = None if chunk_iters is None else max(1, -(-chunk_iters // m))
+        matvec, precond = self._accel_closures()
+
+        b_own = np.zeros((S, R_int), dtype)
+        for p in range(S):
+            lo, hi = dec.first_row[p], dec.first_row[p + 1]
+            b_own[p, : hi - lo] = dec.global_rhs[lo:hi]
+        b_dev = torch.from_numpy(b_own).to(self.device)
+        bnorm = float(np.linalg.norm(b_own))
+
+        t0 = time.perf_counter()
+        # a carry (resumed, or the previous chunk's) overrides the start
+        carry = resume_state
+        if carry is not None:
+            x_start = carry[0]
+        elif x0 is None:
+            x_start = torch.zeros((S, R_int), dtype=s.value_dtype,
+                                  device=self.device)
+        else:
+            x_start = torch.as_tensor(np.asarray(x0), dtype=s.value_dtype,
+                                      device=self.device)
+        while True:
+            carry = fgmres(matvec, precond, b_dev, x_start, s.tolerance,
+                           s.max_iters, m, state=carry,
+                           cycle_budget=budget).state
+            if budget is None or not carry[4] or int(carry[3]) >= max_cycles:
+                break
+        x = carry[0].cpu().numpy()
+        elapsed = time.perf_counter() - t0
+
+        if checkpoint_path is not None:
+            x_c, rnorm, it, cycles, active, hist = carry
+            np.savez_compressed(
+                checkpoint_path, x_c.cpu().numpy(), np.asarray(rnorm),
+                np.asarray(it, np.int32), np.asarray(cycles, np.int32),
+                np.asarray(active, np.bool_), np.asarray(hist))
+        iters = int(carry[2])
+        rel_v = float(carry[1]) / max(bnorm, 1e-300)
+        hist_g = np.asarray(carry[5])[: iters + 1]
+        return self._assemble_result(
+            x, rel_v <= s.tolerance, bool(np.isnan(rel_v)), iters,
+            np.zeros((len(hist_g), S)), hist_g,
+            np.zeros((len(hist_g), S), np.int32), elapsed)
+
+    def load_accel_checkpoint(self, path: str):
+        """A resumable FGMRES cycle state saved by ``checkpoint_path`` (by
+        either package)."""
+        with np.load(path) as data:
+            leaves = [np.asarray(data[f"arr_{i}"]) for i in range(6)]
+        x = torch.from_numpy(np.ascontiguousarray(leaves[0])).to(
+            self.settings.value_dtype).to(self.device)
+        return (x, leaves[1][()], np.int32(leaves[2]), np.int32(leaves[3]),
+                np.bool_(leaves[4]), leaves[5])
 
 
 def _tier_2d_applies(mat, px: int, py: int, overlap: int, oras_c: float,
@@ -926,7 +1354,8 @@ def solve(
     scipy-sparse-convertible matrix.  Runs on CUDA unless ``device`` names
     another device; raises when there is no GPU and no device is given.
     ``settings.free_running`` takes the free-running asynchronous path
-    (:func:`make_free_running_solver`).  ``num_ranks`` stands where the JAX
+    (:func:`make_free_running_solver`), ``accelerator='fgmres'`` the
+    Krylov-accelerated one (:meth:`RASolver.run_accelerated`).  ``num_ranks`` stands where the JAX
     package takes a device mesh: the ranks the subdomains are dealt to, one
     per subdomain by default; it must divide ``num_subdomains``.
     """
@@ -943,4 +1372,7 @@ def solve(
         mat, rhs, settings, num_subdomains or 1, partition_indices,
         cell_weights=cell_weights,
     )
-    return RASolver(dec, device=device, num_ranks=num_ranks).run()
+    solver = RASolver(dec, device=device, num_ranks=num_ranks)
+    if settings.accelerator == "fgmres":
+        return solver.run_accelerated()
+    return solver.run()

@@ -14,7 +14,7 @@ import schwarz_tpu.config as jcfg
 import schwarz_tpu.models as jmodels
 import schwarz_tpu_torch.config as tcfg
 import schwarz_tpu_torch.models as tmodels
-from schwarz_tpu_torch import NotImplementedFeature, Settings
+from schwarz_tpu_torch import Settings
 from schwarz_tpu_torch.ras import solve
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -128,9 +128,9 @@ def test_solve_without_device_raises_without_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    # two_level, O-RAS and the FSAI, ILU(0) and block-Jacobi
-    # preconditioners are ported; with them, what stays unported still
-    # raises
+    # settings that were unported before the local solvers, the Krylov
+    # acceleration, overlap_split, dia_only and the checkpoints were; each
+    # case now holds the port to what the JAX package does with them
     dict(two_level=True, local_solver=tcfg.LocalSolver.iterative_gmres),
     dict(oras_weight="auto", comm=tcfg.CommSettings(overlap_split=True)),
     dict(oras_weight=-0.5, local_solver=tcfg.LocalSolver.direct_cholesky),
@@ -143,23 +143,52 @@ def test_solve_without_device_raises_without_gpu(monkeypatch):
     dict(free_running=True, num_subdomains=4,
          partition=tcfg.Partition.metis,
          comm=tcfg.CommSettings(fresh_read=True)),
-    # the neighbour and one-sided strategies, the stale-halo modes, a halo
-    # dtype and the tree and decentralized protocols are ported; these are
-    # what the same lines of the solver still refuse
     dict(comm=tcfg.CommSettings(overlap_split=True)),
     dict(comm=tcfg.CommSettings(strategy=tcfg.HaloStrategy.rdma,
                                 stage_through_host=True)),
     dict(local_solver=tcfg.LocalSolver.direct_lu),
-    dict(precond=tcfg.Precond.block_jacobi, accelerator="fgmres"),
+    # (blocks of 8: the default 16 does not divide the 40 padded rows,
+    # which the port refuses with a ValueError and the JAX package with an
+    # AssertionError, before either reaches FGMRES)
+    dict(precond=tcfg.Precond.block_jacobi, accelerator="fgmres",
+         block_jacobi_block_size=8),
     # the free-running kernels run Jacobi-preconditioned local solves only
     dict(partition=tcfg.Partition.metis, free_running=True, two_level=True,
          precond=tcfg.Precond.fsai),
     dict(inner_operator="dia_only"),
     dict(halo_dtype="float32", write_debug_out=True),
 ])
-def test_unported_settings_raise(kw):
+def test_unported_settings_raise(kw, tmp_path, monkeypatch):
+    """Each setting does in the port what it does in the JAX package: the
+    same error class where the JAX package refuses it (O-RAS with
+    ``overlap_split``, ``dia_only`` with the solution-based criterion, the
+    free-running kernels' limits, host staging), else a solve with the
+    same outcome and iteration count."""
+    from schwarz_tpu.ras import solve as jsolve
+
+    monkeypatch.chdir(tmp_path)     # write_debug_out writes to the cwd
     kw = dict(kw)
     S = kw.pop("num_subdomains", 2)
     A = tmodels.laplacian_2d(8)
-    with pytest.raises(NotImplementedFeature):
-        solve(A, tmodels.generate_rhs(A.n), Settings(**kw), S, device="cpu")
+    b = tmodels.generate_rhs(A.n)
+    jkw = {k: (getattr(jcfg, type(v).__name__)(v.value)
+               if hasattr(v, "value") else v) for k, v in kw.items()}
+    if "comm" in kw:
+        jkw["comm"] = jcfg.CommSettings(**{
+            f.name: (getattr(jcfg, type(v).__name__)(v.value)
+                     if hasattr(v, "value") else v)
+            for f in dataclasses.fields(kw["comm"])
+            for v in [getattr(kw["comm"], f.name)]})
+    try:
+        rj = jsolve(A, b, jcfg.Settings(**jkw), S)
+    except Exception as e:      # the JAX package refuses: so must the port
+        with pytest.raises(Exception) as got:
+            solve(A, b, Settings(**kw), S, device="cpu")
+        assert type(got.value).__name__ == type(e).__name__, got.value
+        return
+    rt = solve(A, b, Settings(**kw), S, device="cpu")
+    assert (rt.converged, rt.iters) == (rj.converged, rj.iters)
+    np.testing.assert_allclose(rt.relative_residual_norm,
+                               rj.relative_residual_norm, rtol=1e-5)
+    if kw.get("write_debug_out"):
+        assert (tmp_path / "schwarz_debug_out.npz").exists()

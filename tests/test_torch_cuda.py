@@ -14,8 +14,9 @@ import pytest
 import torch
 
 from schwarz_tpu_torch import (CommSettings, ConvergenceSettings,
-                               GlobalConvergence, HaloStrategy, Partition,
-                               Precond, Settings, solve)
+                               GlobalConvergence, HaloStrategy,
+                               LocalCriterion, LocalSolver, Partition,
+                               Precond, RASolver, Settings, solve)
 from schwarz_tpu_torch import diagnostics as dg
 from schwarz_tpu_torch.core.partition import partition_metis
 from schwarz_tpu_torch.models import (advection_diffusion_2d,
@@ -820,3 +821,140 @@ def test_two_level_refinement_on_card_like_cpu(dev):
     assert async_ras_rounds.launches > n0
     assert i_c["converged"] and i_c["restarts"] == i_h["restarts"]
     assert i_c["relative_residual_norm"] == i_h["relative_residual_norm"]
+
+
+# the local solvers, dia_only and overlap_split on the card; float64, so
+# card and CPU give equal counts and histories within 1e-8.  GMRES runs on
+# 16^2 advection: on 32^2 the solution form amplifies a rounding-level
+# difference three- to fourfold an outer iteration over 24 of them, to 1e-7
+# even with locals solved to 1e-10 and to 1e-5 at 1e-6, where inner counts
+# part late; the CPU against itself with the rhs perturbed by 1e-16 reads
+# so too (tests/torch_card_readings.py)
+_LOCAL = {
+    "gmres": dict(local_solver="gmres", restart_iter=20, local_max_iters=40,
+                  local_tolerance=1e-6, precond=Precond.jacobi),
+    "cholesky": dict(local_solver="cholesky"),
+    "cholesky-inverse": dict(local_solver="cholesky", direct_apply="inverse"),
+    "cholesky-blocked": dict(local_solver="cholesky",
+                             direct_apply="blocked", row_pad_multiple=64),
+    "lu": dict(local_solver="lu"),
+    "dia-only": dict(inner_operator="dia_only", partition=Partition.regular2d,
+                     local_max_iters=20,
+                     convergence=ConvergenceSettings(
+                         criterion=LocalCriterion.residual_based)),
+    "split-inverse": dict(local_solver="cholesky", direct_apply="inverse",
+                          comm=CommSettings(overlap_split=True)),
+    "split-cg": dict(local_max_iters=30,
+                     comm=CommSettings(overlap_split=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_LOCAL))
+def test_local_solvers_on_card_like_cpu(dev, case):
+    """GMRES locals (K1 in the inner operator), the dense direct locals
+    (torch.linalg on the card), dia_only and both overlap splits: the CPU
+    run's counts and histories; K1 and K2 launch."""
+    kw = dict(_LOCAL[case])
+    problem = advection_diffusion_2d if case in ("gmres", "lu") else \
+        laplacian_2d
+    if "local_solver" in kw:
+        kw["local_solver"] = LocalSolver(kw["local_solver"])
+    A = problem(16 if case == "gmres" else 32)
+    b = generate_rhs(A.n)
+    s = Settings(overlap=3, tolerance=1e-6, max_iters=400, spmv_format="dia",
+                 **kw)
+    k1, k2 = dia_spmv.launches, assemble_x_ext.launches
+    r_c = solve(A, b, s, 4, device=dev)
+    r_h = solve(A, b, s, 4, device="cpu")
+    assert dia_spmv.launches > k1 and assemble_x_ext.launches > k2
+    assert r_c.converged and r_c.iters == r_h.iters
+    np.testing.assert_allclose(r_c.global_resnorm_history,
+                               r_h.global_resnorm_history, rtol=1e-8,
+                               atol=1e-12 * r_h.global_resnorm_history.max())
+
+
+@pytest.mark.parametrize("case", ["cg", "fused-cg", "rdma", "cholesky"])
+def test_fgmres_on_card_like_cpu(dev, case):
+    """FGMRES with its two exchanges an iteration: CG locals, the fused CG
+    kernel (K3) in the preconditioner, the one-sided exchange (K4), and
+    dense Cholesky locals; the CPU run's count and history."""
+    kw = {"cg": {},
+          "fused-cg": dict(local_compute_dtype="float32",
+                           fused_local_cg=True, precond=Precond.jacobi,
+                           row_pad_multiple=128, local_tolerance=1e-6),
+          "rdma": dict(comm=CommSettings(strategy=HaloStrategy.rdma)),
+          "cholesky": dict(local_solver=LocalSolver.direct_cholesky,
+                           direct_apply="inverse")}[case]
+    A = laplacian_2d(48)
+    b = generate_rhs(A.n)
+    s = Settings(overlap=3, tolerance=1e-8, max_iters=300, restart_iter=20,
+                 spmv_format="dia", accelerator="fgmres", **kw)
+    before = {f: f.launches for f in (dia_spmv, assemble_x_ext,
+                                      fused_cg_solve, rdma_cyclic_shift)}
+    r_c = solve(A, b, s, 8, device=dev, num_ranks=8)
+    r_h = solve(A, b, s, 8, device="cpu", num_ranks=8)
+    grew = {f: f.launches > n for f, n in before.items()}
+    assert grew[dia_spmv] and grew[assemble_x_ext]
+    assert grew[fused_cg_solve] == (case == "fused-cg")
+    assert grew[rdma_cyclic_shift] == (case == "rdma")
+    assert r_c.converged and r_c.iters == r_h.iters
+    assert r_c.relative_residual_norm <= 1e-8
+    rtol = 1e-4 if case == "fused-cg" else 1e-8
+    np.testing.assert_allclose(r_c.global_resnorm_history,
+                               r_h.global_resnorm_history, rtol=rtol,
+                               atol=1e-12 * r_h.global_resnorm_history.max())
+
+
+def test_checkpoints_resume_bit_for_bit_on_card(dev, tmp_path):
+    """A stationary run and an FGMRES run stopped early with a checkpoint
+    and resumed equal the uninterrupted runs bit for bit."""
+    A = laplacian_2d(48)
+    b = generate_rhs(A.n)
+    s = Settings(overlap=3, tolerance=1e-8, max_iters=400, restart_iter=10,
+                 spmv_format="dia")
+    dec = decompose(A, b, s, 8)
+    full = RASolver(dec, device=dev)
+    short = RASolver(decompose(A, b, s.replace(max_iters=20), 8), device=dev)
+    p = str(tmp_path / "st.npz")
+    short.run(checkpoint_path=p)
+    r0, r1 = full.run(), full.run(resume_state=full.load_checkpoint(p))
+    np.testing.assert_array_equal(r1.global_resnorm_history,
+                                  r0.global_resnorm_history)
+    np.testing.assert_array_equal(r1.solution, r0.solution)
+    pa = str(tmp_path / "fg.npz")
+    short.run_accelerated(checkpoint_path=pa)
+    a0 = full.run_accelerated()
+    a1 = full.run_accelerated(resume_state=full.load_accel_checkpoint(pa))
+    np.testing.assert_array_equal(a1.global_resnorm_history,
+                                  a0.global_resnorm_history)
+    np.testing.assert_array_equal(a1.solution, a0.solution)
+
+
+def test_direct_factors_on_card_like_cpu(dev):
+    """torch.linalg's factors and applies on the card against the CPU's,
+    float64, within 1e-12 normwise."""
+    from schwarz_tpu_torch.solvers import direct as d
+
+    A = laplacian_2d(32)
+    dec = decompose(A, generate_rhs(A.n), Settings(overlap=3), 4)
+    vals = torch.from_numpy(dec.lmat_vals)
+    cols = torch.from_numpy(dec.lmat_cols.astype(np.int64))
+    b = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        dec.local_rhs.shape))
+    L_h = d.cholesky_factor(vals, cols)
+    L_c = d.cholesky_factor(vals.to(dev), cols.to(dev))
+
+    def close(c, h):
+        return float((c.cpu() - h).norm() / h.norm()) <= 1e-12
+
+    assert close(L_c, L_h)
+    inv_h, inv_c = d.cholesky_inverse(L_h), d.cholesky_inverse(L_c)
+    assert close(inv_c, inv_h)
+    assert close(d.inverse_apply(inv_c, b.to(dev)), d.inverse_apply(inv_h, b))
+    blk = d.pick_trisolve_block(L_h.shape[-1])
+    assert close(d.blocked_cholesky_solve(L_c, d.block_diag_inverses(L_c, blk),
+                                          b.to(dev)),
+                 d.cholesky_solve(L_h, b))
+    lu_h, lu_c = d.lu_factor(vals, cols), d.lu_factor(vals.to(dev),
+                                                      cols.to(dev))
+    assert close(d.lu_solve(lu_c, b.to(dev)), d.lu_solve(lu_h, b))

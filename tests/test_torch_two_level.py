@@ -246,6 +246,28 @@ def test_run_refined_two_level_matches_jax(tier):
     np.testing.assert_allclose(xt, xj, rtol=0, atol=1e-8 * np.abs(xj).max())
 
 
+def test_run_refined_two_level_stalled_restart_matches_jax():
+    """Two-level refinement whose restarts do not halve the residual: one
+    round a restart on the 1-D tier.  With the coarse step the plateau
+    test does not stop the loop in the JAX package
+    (``schwarz_tpu/ops/async_ras.py:1093``); the restart budget does.  The
+    port stopped after the first restart (at 1.53 where the JAX package
+    reaches 8.3e-6 in 12)."""
+    A = tmodels.laplacian_2d(32)
+    b = tmodels.generate_rhs(A.n, random=False)
+    kw = dict(num_subdomains=4, overlap=2, tolerance=1e-2, staleness=1,
+              ninner=16, chunk_rounds=1)
+    js = JAsync(A, b, mesh=make_mesh(jax.devices()[:4]), **kw)
+    ts = AsyncRASolver(A, b, num_ranks=4, device="cpu", **kw)
+    _, ij = js.run_refined(tol=1e-9, max_rounds=1, coarse_q=4,
+                           max_restarts=12)
+    _, it = ts.run_refined(tol=1e-9, max_rounds=1, coarse_q=4,
+                           max_restarts=12)
+    assert it["restarts"] == ij["restarts"] == 12
+    np.testing.assert_allclose(it["relative_residual_norm"],
+                               ij["relative_residual_norm"], rtol=0.2)
+
+
 @pytest.mark.parametrize("strategy,comm", [
     ("neighbor", {}),
     ("rdma", dict(enable_put=True, enable_get=False)),

@@ -1,0 +1,191 @@
+"""Readings behind choices of the card's checks, printed as text.
+
+``gmres``: GMRES locals on ``advection_diffusion_2d`` (4 subdomains,
+overlap 3, restart 20, at most 40 inner iterations, Jacobi, outer tolerance
+1e-6) at 32^2 with local tolerance 1e-6 and 1e-10, and at 16^2 with 1e-6
+(the form of the card's parity case in ``test_torch_cuda.py``): the largest
+relative gap between two runs' global residual histories and its reading
+against the float64 bar, and at 32^2 the gap outer iteration by outer
+iteration beside the number of subdomains whose inner iteration counts
+differ.  The pairs are the card against the CPU, and the CPU against the
+CPU with the rhs perturbed at the rounding level (each entry times
+1 + 1e-16 u, u standard normal, five seeds), which stands for another
+summation order.  Without a card only the CPU pairs run.
+
+``profile``: how often the profiler's record of one solve misses a K1 or K2
+launch that the wrappers counted, over many windows, with the counted run
+placed at the window's edges (``bare``: it starts and ends the window) and
+away from them (``padded``: a synchronize and a 20 ms wait on each side),
+each for 40 s of windows, twice in turn.  Card only.
+
+``exchange``: the same for one exchange (one K2 launch) padded so, the form
+of ``chip_smoke.py``'s exchange count, for 120 s of windows; for a window
+that misses its launch, how many host-side records (operators and CUDA
+runtime calls) it still holds.  Card only.
+
+    python tests/torch_card_readings.py [gmres] [profile] [exchange]
+"""
+
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from schwarz_tpu_torch import LocalSolver, Precond, Settings, solve  # noqa
+from schwarz_tpu_torch.core.decompose import decompose  # noqa: E402
+from schwarz_tpu_torch.models import (advection_diffusion_2d,  # noqa: E402
+                                      generate_rhs, laplacian_2d)
+from schwarz_tpu_torch.ops.dia_kernel import dia_spmv  # noqa: E402
+from schwarz_tpu_torch.ops.halo_kernel import assemble_x_ext  # noqa: E402
+
+
+def _gmres_settings(local_tolerance):
+    return Settings(overlap=3, tolerance=1e-6, max_iters=400,
+                    spmv_format="dia", local_solver=LocalSolver.iterative_gmres,
+                    restart_iter=20, local_max_iters=40,
+                    local_tolerance=local_tolerance, precond=Precond.jacobi)
+
+
+def _compare(tag, ra, rb, detail):
+    """The largest relative gap of two global residual histories and its
+    reading against the float64 bar (rtol 1e-8 plus 1e-12 of the largest
+    entry; at most 1 passes)."""
+    ha, hb = ra.global_resnorm_history, rb.global_resnorm_history
+    if len(ha) != len(hb):
+        print(f"{tag}: iterations {ra.iters} / {rb.iters}", flush=True)
+        return
+    gap = np.abs(ha / hb - 1)
+    bar = (np.abs(ha - hb) / (1e-8 * hb + 1e-12 * hb.max())).max()
+    print(f"{tag}: iterations {ra.iters} / {rb.iters}, largest history gap "
+          f"{gap.max():.3e}, float64 bar {bar:.4f}", flush=True)
+    if detail:
+        differ = (ra.inner_iters_history != rb.inner_iters_history).sum(1)
+        print("  by outer iteration (gap / subdomains whose inner counts "
+              "differ): " + " ".join(f"{k}:{g:.1e}/{d}" for k, (g, d)
+                                     in enumerate(zip(gap, differ))),
+              flush=True)
+
+
+def gmres_readings():
+    for n, lt in ((32, 1e-6), (32, 1e-10), (16, 1e-6)):
+        A = advection_diffusion_2d(n)
+        b = generate_rhs(A.n)
+        s = _gmres_settings(lt)
+        cpu = solve(A, b, s, 4, device="cpu")
+        for seed in range(5):
+            u = np.random.default_rng(seed).standard_normal(A.n)
+            _compare(f"{n}^2, local tolerance {lt:g}: CPU against CPU with "
+                     f"the rhs perturbed by 1e-16 (seed {seed})",
+                     solve(A, b * (1 + 1e-16 * u), s, 4, device="cpu"), cpu,
+                     detail=seed == 0 and n == 32)
+        if torch.cuda.is_available():
+            _compare(f"{n}^2, local tolerance {lt:g}: card against CPU",
+                     solve(A, b, s, 4, device="cuda"), cpu, detail=n == 32)
+
+
+def profile_readings(seconds=40.0, pad_s=0.02):
+    from torch.profiler import ProfilerActivity, profile
+
+    from schwarz_tpu_torch import RASolver
+
+    # a short solve keeps the profiler's record, and so each window, small
+    A = laplacian_2d(64)
+    s = Settings(overlap=3, tolerance=1e-8, max_iters=4, local_max_iters=4,
+                 spmv_format="dia")
+    solver = RASolver(decompose(A, generate_rhs(A.n), s, 4))
+    solver.run()
+
+    def counted():
+        dia_spmv.launches = assemble_x_ext.launches = 0
+        torch.cuda.synchronize()
+        solver.run()
+        torch.cuda.synchronize()
+        return dia_spmv.launches, assemble_x_ext.launches
+
+    # each variant runs for a fixed time, twice, in turn
+    for variant in ("bare", "padded", "bare", "padded"):
+        windows, misses, where = 0, 0, []
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                if variant == "padded":
+                    torch.cuda.synchronize()
+                    time.sleep(pad_s)
+                want = counted()
+                if variant == "padded":
+                    time.sleep(pad_s)
+            events = [e for e in prof.key_averages()
+                      if "CUDA" in str(getattr(e, "device_type", ""))]
+            got = (sum(e.count for e in events if "dia_spmv_kernel" in e.key),
+                   sum(e.count for e in events if "assemble_kernel" in e.key))
+            windows += 1
+            if got != want:
+                misses += 1
+                seq = ["K1" if "dia_spmv" in e.name else "K2"
+                       for e in sorted(
+                           (e for e in prof.events()
+                            if "dia_spmv_kernel" in e.name
+                            or "assemble_kernel" in e.name),
+                           key=lambda e: e.time_range.start)]
+                where.append(f"{got} of {want}, the record starts "
+                             f"{seq[:3]} and ends {seq[-3:]}")
+        print(f"profile {variant}: {misses} of {windows} windows miss a "
+              f"launch ({time.perf_counter() - t0:.1f} s); {where[:6]}",
+              flush=True)
+
+
+def exchange_readings(seconds=120.0, pad_s=0.02):
+    from torch.profiler import ProfilerActivity, profile
+
+    from schwarz_tpu_torch import RASolver
+
+    A = laplacian_2d(64)
+    s = Settings(overlap=3, tolerance=1e-8, max_iters=4, spmv_format="dia")
+    solver = RASolver(decompose(A, generate_rhs(A.n), s, 4))
+    m = solver.meta
+    x = torch.randn((m.num_subdomains, m.max_interior), device="cuda",
+                    dtype=solver.settings.value_dtype)
+    solver._exchange(x)
+    windows, misses, where = 0, 0, []
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            time.sleep(pad_s)
+            assemble_x_ext.launches = 0
+            solver._exchange(x)
+            torch.cuda.synchronize()
+            want = assemble_x_ext.launches
+            time.sleep(pad_s)
+        events = prof.events()
+        dev = [e.name for e in events
+               if "CUDA" in str(getattr(e, "device_type", ""))]
+        windows += 1
+        if len(dev) != want:
+            misses += 1
+            runtime = sum("Launch" in e.name or "Synchronize" in e.name
+                          for e in events)
+            where.append(f"window {windows}: {len(dev)} device records of "
+                         f"{want} launch(es), {len(events)} records in all, "
+                         f"{runtime} of them CUDA runtime calls")
+    print(f"exchange padded: {misses} of {windows} windows miss the launch "
+          f"({time.perf_counter() - t0:.1f} s); {where[:8]}", flush=True)
+
+
+if __name__ == "__main__":
+    what = sys.argv[1:] or ["gmres", "profile"]
+    print(torch.cuda.get_device_name(0) if torch.cuda.is_available()
+          else "no card: the CPU readings only", flush=True)
+    if "gmres" in what:
+        gmres_readings()
+    if "profile" in what and torch.cuda.is_available():
+        profile_readings()
+    if "exchange" in what and torch.cuda.is_available():
+        exchange_readings()
