@@ -155,7 +155,28 @@
    (``anisotropic_diffusion_2d(360)``, METIS into 128 parts, overlap 2)
    with the native setup library and with the Python loops: bit-identical,
    both timed on the card's host;
-28. prints one JSON line describing the kernels, then the fixed last line
+28. runs ``python -m schwarz_tpu_torch`` in a subprocess, in a temporary
+   directory, on the flagship recipe through its flags (``--instrument
+   --timings_file t.csv --write_iters_and_residuals --write_comm_data
+   --baseline_direct``; the bases read from phase 20's cache): exit code 0,
+   converged to <= 1e-8, the seven stage rows in ``t.csv``, sixteen
+   ``iter_res_XX.csv`` of one row per pass and a ``comm_data.csv``; prints
+   the per-stage split of the outer iteration; then ``RASolver.run()`` in
+   this process on ``settings_from_args`` of the same argv must take the
+   CLI's iteration count, K1 and K2 counted;
+29. runs ``run_instrumented`` and ``run()`` on the slice of phase 3 for 5
+   outer iterations (histories within 1e-6 relative), with the launches of
+   each stage counted: K2 once per ``boundary_exchange``, K1 in each
+   ``convergence_check``, K3 once per ``local_solve``; then
+   ``run_accelerated(instrument=True)`` at phase 25's 128^2 size;
+30. runs the CLI in this process (its output captured): ``--free_running``
+   on phase 10's configuration on 8 ranks (the 2-D tier, K6) and on 7 (the
+   1-D tier, K5), and ``--comm_strategy rdma --fused_local_cg --dtype
+   float32 --profile_dir`` on a converging 32^2 problem, whose Chrome trace
+   must name K4, K2 and K3; then ``gather_values`` / ``scatter_values`` on
+   the card against the CPU, and ``native_probe`` of K2 against its plain
+   version;
+31. prints one JSON line describing the kernels, then the fixed last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the last line, as does a machine
@@ -1597,6 +1618,7 @@ def flagship_phases(sm: Smoke) -> None:
           f"remainder={solver._dia_has_remainder}", flush=True)
     res, launches = counted(solver.run)
     by_operand = dict(dia_spmv.launches_by)    # before any other K1 launch
+    sm.flagship_iters = res.iters
     warm = solver.run()
     n_run = len(warm.global_resnorm_history)
     ms_it = 1e3 * warm.solve_time_s / max(n_run, 1)
@@ -2154,6 +2176,323 @@ def native_setup_phase(sm: Smoke) -> None:
              "are bit-identical")
 
 
+# phase 28's argv: the flagship recipe of bench.py:531-539 through the
+# command line (it has no row_pad_multiple flag, so rows pad to 8)
+CLI_FLAGSHIP = [
+    "--set_1d_laplacian_size", "512", "--num_subdomains", "16", "--overlap",
+    "6", "--set_tol", "1e-8", "--num_iters", "200", "--local_compute_dtype",
+    "float32", "--local_tol", "1e-6", "--local_max_iters", "20",
+    "--use_precond", "--precond", "fsai", "--two_level", "--coarse_space",
+    "spectral", "--coarse_aggregates", "32", "--instrument",
+    "--timings_file", "t.csv", "--write_iters_and_residuals",
+    "--write_comm_data", "--baseline_direct"]
+CLI_STAGES = ("boundary_exchange", "boundary_update", "convergence_check",
+              "coarse_correction", "residual_recompute", "local_solve",
+              "expand_local_vec")
+
+
+def _json_line(text: str):
+    """The CLI's one JSON line, or None."""
+    lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+    return json.loads(lines[-1]) if len(lines) == 1 else None
+
+
+def _in_process_cli(argv, where):
+    """``cli.main(argv)`` in ``where`` with its stdout and stderr captured
+    (no CLI JSON line reaches this script's stdout): ``(rc, json, err)``."""
+    import contextlib
+    import io
+
+    from schwarz_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    here = os.getcwd()
+    os.chdir(where)
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+    finally:
+        os.chdir(here)
+    return rc, _json_line(out.getvalue()), err.getvalue()
+
+
+def cli_flagship_phase(sm: Smoke) -> None:
+    """Phase 28: ``python -m schwarz_tpu_torch`` on the flagship recipe, in
+    a subprocess in a temporary directory, instrumented, with its CSV
+    files; then ``RASolver.run()`` in this process on ``settings_from_args``
+    of the same argv, with its launches counted."""
+    import csv
+    import tempfile
+
+    import numpy as np
+
+    from schwarz_tpu_torch import RASolver, cli
+    from schwarz_tpu_torch.core.decompose import decompose
+    from schwarz_tpu_torch.models import generate_rhs, laplacian_2d
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    # phase 20 cached the 16 eigenbases of this partition: the CLI's setup
+    # reads them, as a second run of the recipe would
+    cache = os.path.join(here, "build", "coarse_cache")
+    env = dict(os.environ, SCHWARZ_TPU_COARSE_CACHE=cache,
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (here, os.environ.get("PYTHONPATH")) if p))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(
+                [sys.executable, "-m", "schwarz_tpu_torch", *CLI_FLAGSHIP],
+                cwd=tmp, env=env, capture_output=True, text=True,
+                timeout=600)
+            rc, out, err = proc.returncode, proc.stdout, proc.stderr
+        except subprocess.TimeoutExpired as e:
+            rc, out, err = None, e.stdout or "", f"timed out: {e}"
+        wall = time.perf_counter() - t0
+        for ln in err.splitlines()[-12:]:
+            print(f"  cli: {ln}", flush=True)
+        res = _json_line(out)
+        sm.check(rc == 0 and res is not None,
+                 f"CLI subprocess on the flagship recipe: exit code {rc}, "
+                 f"one JSON line on its stdout, {wall:.1f} s")
+        if res is None:
+            return
+        sm.check(res["converged"] and res["relative_residual_norm"] <= 1e-8,
+                 f"CLI flagship converged={res['converged']} in "
+                 f"{res['iters']} iterations, relative residual "
+                 f"{res['relative_residual_norm']:.6e} <= 1e-8")
+        with open(os.path.join(tmp, "t.csv")) as f:
+            rows = {r["func"]: r for r in csv.DictReader(f)}
+        sm.check(set(rows) == set(CLI_STAGES),
+                 f"t.csv holds the seven stage rows ({sorted(rows)})")
+        files = sorted(f for f in os.listdir(tmp) if f.startswith("iter_res_"))
+        n_rows = []
+        for name in files:
+            with open(os.path.join(tmp, name)) as f:
+                n_rows.append(sum(1 for _ in f) - 1)
+        passes = res["iters"] + 1       # the detecting pass has its row
+        S = int(CLI_FLAGSHIP[CLI_FLAGSHIP.index("--num_subdomains") + 1])
+        sm.check(files == [f"iter_res_{p:02d}.csv" for p in range(S)]
+                 and all(n == passes for n in n_rows)
+                 and os.path.exists(os.path.join(tmp, "comm_data.csv")),
+                 f"{S} iter_res_XX.csv with one row per pass ({passes}: "
+                 f"{sorted(set(n_rows))}) and a comm_data.csv")
+    # the split of the loop by stage (host clock, synchronized per stage).
+    # The CLI's one run is cold: a stage's first call pays one-time loads,
+    # so the warm split takes each stage's median call times its calls
+    it = max(res["iters"], 1)
+    calls = {k: float(v["total"]) / float(v["avg"]) for k, v in rows.items()}
+    warm = {k: float(rows[k]["med"]) * calls[k] / it for k in CLI_STAGES}
+    loop = sum(float(v["total"]) for v in rows.values())
+    print(f"flagship through the CLI, per-stage split of the instrumented "
+          f"loop ({_card_line()}): {res['iters']} outer iterations, loop "
+          f"{1e3 * res['solve_time_s']:.2f} ms (cold), stages "
+          f"{1e3 * loop:.2f} ms, warm estimate "
+          f"{1e3 * sum(warm.values()):.3f} ms per outer iteration", flush=True)
+    print(f"  {'stage':20s} calls/it  med ms/call  warm ms/it  warm share  "
+          f"cold ms/it", flush=True)
+    for k in CLI_STAGES:
+        print(f"  {k:20s} {calls[k] / it:8.2f} "
+              f"{1e3 * float(rows[k]['med']):12.4f} {1e3 * warm[k]:11.4f} "
+              f"{100 * warm[k] / sum(warm.values()):10.1f}% "
+              f"{1e3 * float(rows[k]['total']) / it:10.4f}", flush=True)
+    print(f"  {'outside the stages':20s} cold "
+          f"{1e3 * (res['solve_time_s'] - loop) / it:.4f} ms per outer "
+          f"iteration (host reads, histories)", flush=True)
+    # run() in this process on the CLI's own Settings: the same count
+    args = cli.build_parser().parse_args(CLI_FLAGSHIP)
+    settings = cli.settings_from_args(args)
+    A = laplacian_2d(args.set_1d_laplacian_size)
+    os.environ["SCHWARZ_TPU_COARSE_CACHE"] = cache
+    try:
+        solver = RASolver(decompose(A, generate_rhs(A.n, random=False),
+                                    settings, args.num_subdomains))
+    finally:
+        os.environ.pop("SCHWARZ_TPU_COARSE_CACHE")
+    r, launches = counted(solver.run)
+    del solver
+    print(f"flagship iterations: CLI (run_instrumented) {res['iters']}, "
+          f"in-process run() on settings_from_args {r.iters}, phase 20 "
+          f"(row_pad_multiple 128, random rhs) "
+          f"{getattr(sm, 'flagship_iters', None)}; run() launches "
+          f"{launches}", flush=True)
+    sm.check(r.converged and r.iters == res["iters"]
+             and launches["dia_spmv"] > 0
+             and launches["halo_runs"] == 2 * r.iters + 1
+             and bool(np.isfinite(r.solution).all()),
+             f"in-process run() on the CLI's Settings: {r.iters} iterations "
+             f"= the CLI's {res['iters']}, K1 {launches['dia_spmv']} and K2 "
+             f"{launches['halo_runs']} = 2 per outer iteration + 1")
+
+
+def instrumented_phase(sm: Smoke, dec, settings) -> None:
+    """Phase 29: ``run_instrumented`` against ``run()`` on phase 3's 1M-row
+    slice (float32, K3), with the launches of each stage counted, and
+    ``run_accelerated(instrument=True)`` on phase 25's 128^2 form."""
+    import numpy as np
+    import torch
+
+    from schwarz_tpu_torch import RASolver
+    from schwarz_tpu_torch.core.decompose import decompose
+    from schwarz_tpu_torch.models import generate_rhs, laplacian_2d
+
+    solver = RASolver(dataclasses.replace(
+        dec, settings=settings.replace(max_iters=5)))
+    plain = solver.run()
+    fns = _counters()
+    calls = {}
+
+    def counting(name, fn):
+        def stage(*args):
+            before = {k: f.launches for k, f in fns.items()}
+            out = fn(*args)
+            calls.setdefault(name, []).append(
+                {k: f.launches - before[k] for k, f in fns.items()})
+            return out
+        return stage
+
+    solver._stages.update({k: counting(k, f)
+                           for k, f in solver._stages.items()})
+    inst, launches = counted(solver.run_instrumented)
+    del solver
+    torch.cuda.empty_cache()
+    h, hp = inst.global_resnorm_history, plain.global_resnorm_history
+    gap = (float(np.abs(h / hp - 1).max()) if len(h) == len(hp)
+           else float("inf"))
+    avg_ms = {k: round(1e3 * v["avg"], 4)
+              for k, v in inst.stage_timings.items()}
+    print(f"instrumented on the 1M-row slice, 5 outer iterations: histories "
+          f"against run() max rel diff {gap:.3e}; mean ms by stage "
+          f"{avg_ms}; launches {launches}", flush=True)
+
+    def each(name, kernel, want):
+        got = [c[kernel] for c in calls.get(name, [])]
+        others = [sum(v for k, v in c.items() if k != kernel)
+                  for c in calls.get(name, [])]
+        return bool(got) and all(want(g) for g in got), got, others
+
+    ok_x, gx, ox = each("boundary_exchange", "halo_runs", lambda g: g == 1)
+    ok_c, gc, _ = each("convergence_check", "dia_spmv", lambda g: g >= 1)
+    ok_s, gs, os_ = each("local_solve", "fused_cg", lambda g: g == 1)
+    sm.check(gap <= 1e-6 and len(h) == 5,
+             f"run_instrumented equals run() on the card: {len(h)} entries, "
+             f"max rel diff {gap:.3e} <= 1e-6")
+    sm.check(ok_x and ok_c and ok_s and not any(ox) and not any(os_),
+             f"each boundary_exchange launched K2 once {gx} (nothing else "
+             f"{ox}), each convergence_check K1 {gc}, each local_solve K3 "
+             f"once {gs} (nothing else {os_})")
+    # FGMRES with dense Cholesky locals at phase 25's reduced size
+    n, S = DIRECT_SMALL
+    A = laplacian_2d(n)
+    r = RASolver(decompose(A, generate_rhs(A.n), direct_settings(), S)
+                 ).run_accelerated(instrument=True)
+    st = r.stage_timings or {}
+    print(f"run_accelerated(instrument=True), {n}^2 on {S} subdomains: "
+          f"{r.iters} iterations, " + ", ".join(
+              f"{k} med {1e3 * v['med']:.4f} ms (min {1e3 * v['min']:.4f}, "
+              f"max {1e3 * v['max']:.4f})" for k, v in st.items()),
+          flush=True)
+    sm.check(r.converged and set(st) == {"accel_matvec", "accel_precond"}
+             and all(v["min"] > 0 for v in st.values()),
+             "run_accelerated(instrument=True) converges and times "
+             "accel_matvec and accel_precond")
+
+
+def cli_branch_phase(sm: Smoke) -> None:
+    """Phase 30: the CLI's free-running and one-sided fused branches
+    in-process through ``cli.main``, with a profiled run, then the
+    gather/scatter ops on the card and one probe of K2."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from schwarz_tpu_torch.ops import (GatherOp, gather_values,
+                                       scatter_values)
+    from schwarz_tpu_torch.ops import native_gate
+    from schwarz_tpu_torch.ops.halo_kernel import (assemble_x_ext,
+                                                   assemble_x_ext_plain,
+                                                   build_segments)
+
+    free = ["--set_1d_laplacian_size", "64", "--overlap", "2", "--set_tol",
+            "1e-4", "--num_iters", "800", "--free_running", "--async_ninner",
+            "20", "--async_chunk_rounds", "16"]
+    # phase 10's configuration on 8 ranks, which the dispatch gives the
+    # 2-D tier, and on 7, which it gives the 1-D tier
+    for S, kernel, tier in ((8, "async_ras_2d", "AsyncRASolver2D"),
+                            (7, "async_ras", "AsyncRASolver")):
+        with tempfile.TemporaryDirectory() as tmp:
+            (rc, res, err), launches = counted(lambda: _in_process_cli(
+                free + ["--num_subdomains", str(S)], tmp))
+        res = res or {"converged": False, "done_at": None,
+                      "relative_residual_norm": float("nan")}
+        sm.check(rc == 0 and res["converged"]
+                 and f"free-running kernel: {tier}" in err
+                 and launches[kernel] > 0,
+                 f"CLI --free_running, 64^2 on {S} ranks: {tier}, exit "
+                 f"{rc}, done_at {res['done_at']}, relative residual "
+                 f"{res['relative_residual_norm']:.3e}, {kernel} launched "
+                 f"{launches[kernel]} times")
+    rd = ["--set_1d_laplacian_size", "32", "--num_subdomains", "4",
+          "--overlap", "3", "--dtype", "float32", "--set_tol", "1e-5",
+          "--comm_strategy", "rdma", "--fused_local_cg", "--local_tol",
+          "1e-6", "--local_max_iters", "50", "--profile_dir", "prof"]
+    with tempfile.TemporaryDirectory() as tmp:
+        (rc, res, err), launches = counted(lambda: _in_process_cli(rd, tmp))
+        trace = os.path.join(tmp, "prof", "trace.json")
+        names = set()
+        if os.path.exists(trace):
+            with open(trace) as f:
+                names = {e.get("name", "") for e in json.load(f).get(
+                    "traceEvents", []) if e.get("cat") == "kernel"}
+        size = os.path.getsize(trace) if os.path.exists(trace) else 0
+    found = {k: any(n in e for e in names) for k, n in (
+        ("K4", "rdma_exchange_kernel"), ("K2", "assemble_kernel"),
+        ("K3", "fused_cg_kernel"))}
+    res = res or {"converged": False, "iters": -1,
+                  "relative_residual_norm": float("nan")}
+    sm.check(rc == 0 and res["converged"]
+             and launches["rdma_shift"] == launches["halo_runs"] > 0
+             and launches["fused_cg"] == res["iters"] and all(found.values()),
+             f"CLI --comm_strategy rdma --fused_local_cg --profile_dir: exit "
+             f"{rc}, {res['iters']} iterations, relative residual "
+             f"{res['relative_residual_norm']:.3e}; launches K4 "
+             f"{launches['rdma_shift']}, K2 {launches['halo_runs']}, K3 "
+             f"{launches['fused_cg']}; the {size}-byte Chrome trace names "
+             f"{found}")
+    # the gather/scatter ops on the card against the CPU
+    gen = np.random.default_rng(5)
+    idx = torch.from_numpy(gen.integers(0, 4096, size=3000))
+    uniq = torch.from_numpy(gen.permutation(4096)[:3000])
+    frm = torch.from_numpy(gen.standard_normal(4096))
+    into = torch.from_numpy(gen.standard_normal(4096))
+    worst = 0.0
+    for op in GatherOp:
+        for num in (None, 1234):
+            ix = uniq if op in (GatherOp.copy, GatherOp.avg) else idx
+            for fn in (gather_values, scatter_values):
+                cpu = fn(num, ix, frm, into, op)
+                card = fn(num, ix.cuda(), frm.cuda(), into.cuda(), op).cpu()
+                worst = max(worst, float((card - cpu).abs().max()))
+    sm.check(worst <= 1e-12,
+             f"gather_values / scatter_values, 4 ops x num None/1234, card "
+             f"against CPU: max abs diff {worst:.3e} <= 1e-12")
+    # one probe of K2 against its plain version: each of 4 rows takes its
+    # window and the next row's first 64 entries as its halo
+    S, R, E = 4, 1024, 1088
+    segs, first = build_segments(
+        np.zeros(S, np.int64), R, E, np.tile(np.arange(R, E), (S, 1)),
+        ((np.arange(S)[:, None] + 1) % S) * R + np.arange(E - R)[None, :],
+        S * R)
+    x_own = torch.randn((S, R), device="cuda", dtype=torch.float64)
+    native_gate.reset_cache()
+    ok, why = native_gate.native_probe(
+        ("K2", "smoke"), assemble_x_ext, x_own, x_own,
+        torch.from_numpy(segs).cuda(), torch.from_numpy(first).cuda(), E,
+        compare=assemble_x_ext_plain)
+    sm.check(ok, f"native_probe of K2 against its plain version: ({ok}, "
+             f"{why})")
+
+
 def main() -> int:
     import torch
 
@@ -2190,7 +2529,7 @@ def main() -> int:
 
 
 def _phases(sm, torch) -> int:
-    """Phases 3-28."""
+    """Phases 3-31."""
     import numpy as np
 
     from schwarz_tpu_torch import (CommSettings, HaloStrategy, Precond,
@@ -2347,7 +2686,19 @@ def _phases(sm, torch) -> int:
     # --- 27. the native setup against the Python loops -----------------------
     native_setup_phase(sm)
 
-    # --- 28. the kernels line and the last line ------------------------------
+    # --- 28-30. the command line, the instrumented run, the CLI's branches ---
+    torch.cuda.empty_cache()
+    for what, phase in (
+            ("28 (the CLI on the flagship)", lambda: cli_flagship_phase(sm)),
+            ("29 (instrumented on the card)",
+             lambda: instrumented_phase(sm, dec, settings)),
+            ("30 (the CLI's other branches)", lambda: cli_branch_phase(sm))):
+        t0 = time.perf_counter()
+        phase()
+        print(f"phase {what} took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+    # --- 31. the kernels line and the last line ------------------------------
     meta_k = {
         "dia_spmv_float32": ("csrc/dia_spmv.cu",
                              "schwarz_tpu/ops/pallas_kernels.py:110"),

@@ -30,6 +30,7 @@ from schwarz_tpu_torch.config import (
     Precond,
     Settings,
 )
+from schwarz_tpu_torch.core.decompose import decompose
 from schwarz_tpu_torch.core.partition import (
     partition_metis,
     partition_regular_2d,
@@ -38,6 +39,10 @@ from schwarz_tpu_torch.exceptions import NotImplementedFeature, SchwarzError
 from schwarz_tpu_torch.models import (
     CSRMatrix,
     advection_diffusion_2d,
+    anisotropic_diffusion_2d,
+    fem_p1_advection,
+    fem_p1_elasticity,
+    fem_p1_poisson,
     generate_rhs,
     laplacian_2d,
     laplacian_3d,
@@ -74,6 +79,10 @@ __all__ = [
     "SchwarzError",
     "CSRMatrix",
     "advection_diffusion_2d",
+    "anisotropic_diffusion_2d",
+    "fem_p1_poisson",
+    "fem_p1_advection",
+    "fem_p1_elasticity",
     "generate_rhs",
     "laplacian_2d",
     "laplacian_3d",
@@ -86,6 +95,7 @@ __all__ = [
     "build_general_plan",
     "partition_metis",
     "partition_regular_2d",
+    "decompose",
     "RASolver",
     "RASResult",
     "make_free_running_solver",

@@ -104,9 +104,13 @@ def test_mtx_round_trip(tmp_path):
 def test_port_imports_no_jax():
     code = (
         "import sys, importlib, pkgutil, schwarz_tpu_torch\n"
-        "for m in pkgutil.walk_packages(schwarz_tpu_torch.__path__, "
-        "'schwarz_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "import schwarz_tpu_torch.cli, schwarz_tpu_torch.utils\n"
+        "import schwarz_tpu_torch.__main__\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "schwarz_tpu_torch.__path__, 'schwarz_tpu_torch.')]\n"
+        "assert 'schwarz_tpu_torch.__main__' in names, names\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'schwarz_tpu' or "
         "k.startswith('schwarz_tpu.'))\n"
