@@ -176,7 +176,27 @@
    must name K4, K2 and K3; then ``gather_values`` / ``scatter_values`` on
    the card against the CPU, and ``native_probe`` of K2 against its plain
    version;
-31. prints one JSON line describing the kernels, then the fixed last line
+31. runs the synchronous solve across processes (``parallel/mesh.py``): this
+   script started again as child processes (``--mesh-child``) on the one
+   card, joined in a gloo group on localhost, their CUDA tensors staged
+   through pinned host memory, the kernels already built by this process.
+   (a) the flagship recipe of phase 20 on 2 processes of 8 strips each (16
+   ranks): 18 iterations, true relative residual <= 1e-8, every process the
+   same result, its history against phase 20's card history, K1 and K2
+   launched in each process at phase 20's rate (2 residuals and 3 (n + 1)
+   inner products an outer iteration of n inner iterations, K2 twice); (b)
+   the configuration of ``tests/distributed_worker.py`` on 4 processes of 4
+   subdomains (16 ranks): the ``neighbor`` strategy, float64, overlap 3,
+   tolerance 1e-7, one-level at 64^2, two-level spectral (q = 2, the CG
+   coarse solve) at 64^2 and at 256^2, and two-level at 64^2 with float32
+   locals through K3 (counted in each process), each at the iteration count
+   of this process's single-process card run of the same Settings, below
+   1e-5, the two-level count no more than the one-level one; each
+   process's warm ms
+   per outer iteration and the host ms of its cross-process traffic are
+   printed; then ``python -m schwarz_tpu_torch.examples.poisson_basic``'s
+   ``main`` on the card (converged, K1 and K2 counted);
+32. prints one JSON line describing the kernels, then the fixed last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the last line, as does a machine
@@ -1619,9 +1639,11 @@ def flagship_phases(sm: Smoke) -> None:
     res, launches = counted(solver.run)
     by_operand = dict(dia_spmv.launches_by)    # before any other K1 launch
     sm.flagship_iters = res.iters
+    sm.flagship_hist = res.global_resnorm_history
     warm = solver.run()
     n_run = len(warm.global_resnorm_history)
     ms_it = 1e3 * warm.solve_time_s / max(n_run, 1)
+    sm.flagship_ms_it = ms_it
     print(f"flagship on the card: {res.iters} iterations, converged="
           f"{res.converged}, true relative residual (float64, host) "
           f"{res.relative_residual_norm:.6e}; run loop {res.solve_time_s:.3f}"
@@ -2493,6 +2515,291 @@ def cli_branch_phase(sm: Smoke) -> None:
              f"{why})")
 
 
+# phase 31: the flagship on 2 processes, the JAX multi-process worker's
+# configuration on 4 (tests/distributed_worker.py:46-50, 79-81) at 16 ranks
+MESH_RANKS = 16
+# the 2-process flagship's history against phase 20's, both on the card:
+# each process's batched products and sums run over 8 subdomains instead
+# of 16 and may add in another order.  Read 1.106e-7 after the first outer
+# iteration and 5.128e-4 over the 19 entries on an H100; gated at twice
+# that
+MESH_FIRST_RTOL = 2.2e-7
+MESH_HISTORY_RTOL = 1e-3
+# (name, n, two-level, float32 locals through K3)
+MESH_WORKER_RUNS = (("one-level 64^2", 64, False, False),
+                    ("two-level 64^2", 64, True, False),
+                    ("two-level 256^2", 256, True, False),
+                    ("two-level 64^2, K3 locals", 64, True, True))
+
+
+def mesh_worker_settings(two_level: bool, fused: bool = False):
+    from schwarz_tpu_torch import (CommSettings, HaloStrategy, Precond,
+                                   Settings)
+
+    s = Settings(overlap=3, tolerance=1e-7, max_iters=3000, dtype="float64",
+                 comm=CommSettings(strategy=HaloStrategy.neighbor))
+    if two_level:
+        s = s.replace(two_level=True, coarse_aggregates=2,
+                      coarse_space="spectral", coarse_solver="cg")
+    if fused:
+        s = s.replace(local_compute_dtype="float32", spmv_format="dia",
+                      row_pad_multiple=128, fused_local_cg=True,
+                      precond=Precond.jacobi, local_tolerance=1e-6)
+    return s
+
+
+def _mesh_run(mesh, fn):
+    """``fn()`` with its launches counted and the mesh's traffic read: the
+    result, the launches, and the mesh's calls, host seconds and bytes."""
+    mesh.stats.update(calls=0, seconds=0.0, wait_seconds=0.0, bytes=0)
+    res, launches = counted(fn)
+    return res, launches, dict(mesh.stats)
+
+
+def _mesh_record(res, launches, stats) -> dict:
+    n = max(len(res.global_resnorm_history), 1)
+    return {"iters": res.iters, "converged": bool(res.converged),
+            "rel": res.relative_residual_norm,
+            "hist": res.global_resnorm_history.tolist(),
+            "inner": res.inner_iters_history.tolist(),
+            "solution_norm": float((res.solution ** 2).sum() ** 0.5),
+            "finite": bool((res.solution == res.solution).all()),
+            "ms_it": 1e3 * res.solve_time_s / n,
+            "comm_ms_it": 1e3 * stats["seconds"] / n,
+            "comm_wait_ms_it": 1e3 * stats["wait_seconds"] / n,
+            "comm_calls_it": stats["calls"] / n,
+            "comm_bytes_it": stats["bytes"] / n,
+            "launches": launches}
+
+
+def _mesh_child_flagship(mesh) -> dict:
+    """Phase 31 (a) in one process: the flagship's solver on this
+    process's 8 strips, a cold run counted, a warm run timed."""
+    import torch
+
+    from schwarz_tpu_torch import Partition, Precond, RASolver, Settings
+    from schwarz_tpu_torch.core.decompose import decompose
+    from schwarz_tpu_torch.models import generate_rhs, laplacian_2d
+
+    A = laplacian_2d(512)
+    b = generate_rhs(A.n)
+    s = Settings(partition=Partition.regular, precond=Precond.fsai,
+                 **FLAGSHIP)
+    t0 = time.perf_counter()
+    solver = RASolver(decompose(A, b, s, MESH_RANKS), mesh=mesh)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cold = _mesh_record(*_mesh_run(mesh, solver.run))
+    warm = _mesh_record(*_mesh_run(mesh, solver.run))
+    return {"setup_s": setup_s, "cold": cold, "warm": warm,
+            "block": [mesh.block(MESH_RANKS).start,
+                      mesh.block(MESH_RANKS).stop]}
+
+
+def _mesh_child_worker(mesh) -> dict:
+    """Phase 31 (b) in one process: MESH_WORKER_RUNS through ``solve``."""
+    from schwarz_tpu_torch import solve
+    from schwarz_tpu_torch.models import generate_rhs, laplacian_2d
+
+    out = {}
+    for name, n, two, fused in MESH_WORKER_RUNS:
+        A = laplacian_2d(n)
+        b = generate_rhs(A.n, random=False)
+        s = mesh_worker_settings(two, fused)
+        out[name] = _mesh_record(*_mesh_run(
+            mesh, lambda: solve(A, b, s, mesh=mesh)))
+    return out
+
+
+def mesh_child(argv) -> int:
+    """One process of a phase 31 group: ``--mesh-child CASE DIR PID NPROC
+    PORT``; writes its result to DIR/p<PID>.json."""
+    import traceback
+
+    case, out_dir, pid, nproc, port = (argv[0], argv[1], int(argv[2]),
+                                       int(argv[3]), argv[4])
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from schwarz_tpu_torch.parallel import mesh as pmesh
+
+    try:
+        pmesh.initialize(f"localhost:{port}", nproc, pid, timeout_s=240)
+        mesh = pmesh.make_mesh(num_ranks=MESH_RANKS)
+        res = {"flagship": _mesh_child_flagship,
+               "worker": _mesh_child_worker}[case](mesh)
+        with open(os.path.join(out_dir, f"p{pid}.json"), "w") as f:
+            json.dump(res, f)
+        pmesh.shutdown()
+    except Exception:                     # noqa: BLE001 - the parent reads it
+        traceback.print_exc()
+        return 1
+    return 0
+
+
+def _mesh_group(case: str, nproc: int, timeout_s: float) -> list:
+    """Run phase 31's ``case`` in ``nproc`` child processes of this script
+    (the kernels are built: the children load them); their results in
+    process order.  The first child to fail, or a group outlasting
+    ``timeout_s``, has every child killed, and the call raises with the
+    ends of their logs (``mesh.launch``)."""
+    import shutil
+
+    from schwarz_tpu_torch.parallel import mesh as pmesh
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = os.path.join(here, "build", "mesh_runs", case)
+    shutil.rmtree(tmp, ignore_errors=True)
+    pmesh.launch([sys.executable, os.path.abspath(__file__), "--mesh-child",
+                  case, tmp], nproc, tmp, timeout_s)
+    outs = []
+    for pid in range(nproc):
+        with open(os.path.join(tmp, f"p{pid}.json")) as f:
+            outs.append(json.load(f))
+    return outs
+
+
+def _same_everywhere(outs, key) -> bool:
+    return all(o[key] == outs[0][key] for o in outs[1:])
+
+
+def mesh_phases(sm: Smoke) -> None:
+    """Phase 31: the synchronous solve across processes on the one card,
+    and the first example on the card."""
+    import numpy as np
+    import torch
+
+    from schwarz_tpu_torch import solve
+    from schwarz_tpu_torch.examples import poisson_basic
+    from schwarz_tpu_torch.models import generate_rhs, laplacian_2d
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    # the flagship's bases are in phase 20's cache; the children inherit it
+    os.environ["SCHWARZ_TPU_COARSE_CACHE"] = os.path.join(
+        here, "build", "coarse_cache")
+    torch.cuda.empty_cache()
+    card = _card_line()
+
+    # --- (a) the flagship on 2 processes ------------------------------------
+    t0 = time.perf_counter()
+    outs = _mesh_group("flagship", 2, 600)
+    t_a = time.perf_counter() - t0
+    want_it = getattr(sm, "flagship_iters", 18)
+    h20 = np.asarray(getattr(sm, "flagship_hist", []))
+    for pid, o in enumerate(outs):
+        c, w = o["cold"], o["warm"]
+        lo, hi = o["block"]
+        n_inner = np.asarray(c["inner"])[:c["iters"], lo:hi].max(axis=1)
+        k1_rate = 2 * c["iters"] + 1 + 3 * int((n_inner + 1).sum())
+        o["k1_rate"] = k1_rate
+        print(f"flagship, process {pid} of 2 (subdomains {lo}-{hi - 1}): "
+              f"setup {o['setup_s']:.2f} s, {c['iters']} iterations, true "
+              f"relative residual {c['rel']:.6e}; warm {w['ms_it']:.2f} ms "
+              f"per outer iteration (phase 20 in one process: "
+              f"{getattr(sm, 'flagship_ms_it', float('nan')):.2f}), of "
+              f"which cross-process traffic {w['comm_ms_it']:.3f} ms of "
+              f"host time ({w['comm_wait_ms_it']:.3f} of it waiting for the "
+              f"card's queued work) in {w['comm_calls_it']:.1f} collectives "
+              f"({w['comm_bytes_it'] / 1e3:.1f} KB); cold {c['ms_it']:.2f} "
+              f"ms, traffic {c['comm_ms_it']:.3f}; launches {c['launches']}"
+              f" (K1 at phase 20's rate: {k1_rate}); {card}", flush=True)
+    c0 = outs[0]["cold"]
+    h = np.asarray(c0["hist"])
+    if len(h) == len(h20) and len(h) > 1:
+        gaps = np.abs(h / h20 - 1)
+        first, over = float(gaps[1]), float(gaps.max())
+    else:
+        first = over = float("inf")
+    print("flagship on 2 processes, history: " + " ".join(
+        f"{v:.9e}" for v in h), flush=True)
+    print(f"flagship on 2 processes against phase 20's card history: "
+          f"{first:.3e} after the first outer iteration, {over:.3e} over "
+          f"the history; phase (a) took {t_a:.1f} s", flush=True)
+    sm.check(_same_everywhere([o["cold"] for o in outs], "hist")
+             and _same_everywhere([o["cold"] for o in outs], "iters")
+             and c0["iters"] == want_it and c0["converged"]
+             and c0["rel"] <= 1e-8 and c0["finite"],
+             f"flagship on 2 processes: {c0['iters']} iterations (phase "
+             f"20: {want_it}), true relative residual {c0['rel']:.3e} <= "
+             f"1e-8, the same result in every process")
+    sm.check(first <= MESH_FIRST_RTOL and over <= MESH_HISTORY_RTOL,
+             f"flagship on 2 processes against phase 20's card history: "
+             f"{first:.3e} <= {MESH_FIRST_RTOL:g} after the first outer "
+             f"iteration, {over:.3e} <= {MESH_HISTORY_RTOL:g} over it")
+    sm.check(all(o["cold"]["launches"]["dia_spmv"] == o["k1_rate"]
+                 and o["cold"]["launches"]["halo_runs"]
+                 == 2 * o["cold"]["iters"] + 1
+                 and o["cold"]["launches"]["fused_cg"] == 0 for o in outs),
+             "flagship on 2 processes: K1 and K2 launched in each process at "
+             "phase 20's rate (K1 " + ", ".join(
+                 f"{o['cold']['launches']['dia_spmv']} = {o['k1_rate']}"
+                 for o in outs) + "; K2 " + ", ".join(
+                 str(o["cold"]["launches"]["halo_runs"]) for o in outs)
+             + " = 2 per outer iteration + the exit pass)")
+
+    # --- (b) the JAX worker's configuration on 4 processes -------------------
+    t0 = time.perf_counter()
+    single = {}
+    for name, n, two, fused in MESH_WORKER_RUNS:
+        A = laplacian_2d(n)
+        r = solve(A, generate_rhs(A.n, random=False),
+                  mesh_worker_settings(two, fused), MESH_RANKS)
+        single[name] = r
+        n_run = max(len(r.global_resnorm_history), 1)
+        print(f"{name}, 16 subdomains, one process on the card: {r.iters} "
+              f"iterations, true relative residual "
+              f"{r.relative_residual_norm:.3e}, "
+              f"{1e3 * r.solve_time_s / n_run:.2f} ms per outer iteration",
+              flush=True)
+    t_single = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    outs = _mesh_group("worker", 4, 600)
+    t_b = time.perf_counter() - t0
+    for name, n, two, fused in MESH_WORKER_RUNS:
+        per = [o[name] for o in outs]
+        r0, ref = per[0], single[name]
+        href = ref.global_resnorm_history
+        hm = np.asarray(r0["hist"])
+        gap = (float(np.max(np.abs(hm - href)) / href.max())
+               if len(hm) == len(href) else float("inf"))
+        for pid, r in enumerate(per):
+            print(f"{name}, process {pid} of 4: warm-up included "
+                  f"{r['ms_it']:.2f} ms per outer iteration, of which "
+                  f"cross-process traffic {r['comm_ms_it']:.3f} ms of host "
+                  f"time ({r['comm_wait_ms_it']:.3f} of it waiting for the "
+                  f"card's queued work) in {r['comm_calls_it']:.1f} "
+                  f"collectives "
+                  f"({r['comm_bytes_it'] / 1e3:.1f} KB); launches "
+                  f"{r['launches']}", flush=True)
+        sm.check(_same_everywhere(per, "hist") and r0["converged"]
+                 and r0["iters"] == ref.iters and r0["rel"] < 1e-5
+                 and all(r["launches"]["halo_runs"] > 0
+                         and r["launches"]["dia_spmv"] > 0
+                         and (r["launches"]["fused_cg"] > 0) == fused
+                         for r in per),
+                 f"{name} on 4 processes x 4 subdomains (neighbor, float64,"
+                 f" tolerance 1e-7): {r0['iters']} iterations, the single-"
+                 f"process card run's {ref.iters}, true relative residual "
+                 f"{r0['rel']:.3e} < 1e-5, the same in every process, K1 and "
+                 f"K2{' and K3' if fused else ''} launched in each; history "
+                 f"within {gap:.3e} of the largest entry of the "
+                 f"single-process one")
+    it1 = outs[0]["one-level 64^2"]["iters"]
+    it2 = outs[0]["two-level 64^2"]["iters"]
+    sm.check(it2 <= it1,
+             f"two-level on 4 processes takes no more iterations than "
+             f"one-level at 64^2 ({it2} <= {it1})")
+    print(f"phase 31 (b): single-process runs {t_single:.1f} s, the "
+          f"4-process group {t_b:.1f} s; {card}", flush=True)
+
+    # --- the first example on the card --------------------------------------
+    res, launches = counted(poisson_basic.main)
+    sm.check(res.converged and res.relative_residual_norm <= 1e-8
+             and launches["dia_spmv"] > 0 and launches["halo_runs"] > 0,
+             f"examples.poisson_basic on the card: {res.iters} iterations, "
+             f"true relative residual {res.relative_residual_norm:.3e}, "
+             f"launches {launches}")
+    os.environ.pop("SCHWARZ_TPU_COARSE_CACHE")
+
+
 def main() -> int:
     import torch
 
@@ -2529,7 +2836,7 @@ def main() -> int:
 
 
 def _phases(sm, torch) -> int:
-    """Phases 3-31."""
+    """Phases 3-32."""
     import numpy as np
 
     from schwarz_tpu_torch import (CommSettings, HaloStrategy, Precond,
@@ -2698,7 +3005,16 @@ def _phases(sm, torch) -> int:
         print(f"phase {what} took {time.perf_counter() - t0:.1f} s",
               flush=True)
 
-    # --- 31. the kernels line and the last line ------------------------------
+    # --- 31. the solve across processes, the first example ------------------
+    t0 = time.perf_counter()
+    try:
+        mesh_phases(sm)
+    except RuntimeError as e:
+        sm.check(False, f"phase 31: {e}")
+    print(f"phase 31 (across processes) took {time.perf_counter() - t0:.1f} "
+          f"s", flush=True)
+
+    # --- 32. the kernels line and the last line ------------------------------
     meta_k = {
         "dia_spmv_float32": ("csrc/dia_spmv.cu",
                              "schwarz_tpu/ops/pallas_kernels.py:110"),
@@ -2753,4 +3069,6 @@ def _phases(sm, torch) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-child"]:
+        sys.exit(mesh_child(sys.argv[2:]))
     sys.exit(main())

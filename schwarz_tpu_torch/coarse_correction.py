@@ -13,6 +13,16 @@ batched products (``torch.einsum`` / ``torch.matmul``), as the JAX package
 computes them outside any Pallas kernel.  Under mixed-precision locals the
 basis and the inverse are stored in the inner dtype, as the JAX package
 stores them, so the numbers agree.
+
+Across processes (a :class:`~schwarz_tpu_torch.parallel.mesh.Mesh` of
+several) the coarse residual is gathered once a solve
+(``schwarz_tpu/ras.py:161``).  Each process holds its row block ``(Sl q,
+S q)`` of the dense inverse, as each JAX device does (:95), and applies it
+to the gathered residual.  ``A_c`` stays whole on every process, which
+runs the single-process CG on it and keeps its own rows: the JAX
+package's row-sharded CG (:90-143) makes three collectives a CG
+iteration, each a round trip through the host, against this one a solve,
+for the (S q)^2 entries every process already holds on the host.
 """
 
 from __future__ import annotations
@@ -60,17 +70,22 @@ def coarse_cg(Am: torch.Tensor, r_c: torch.Tensor) -> torch.Tensor:
     return x.reshape(r_c.shape)
 
 
-def coarse_correct(plan, r_int_win: torch.Tensor) -> torch.Tensor:
+def coarse_correct(plan, r_int_win: torch.Tensor,
+                   mesh=None) -> torch.Tensor:
     """Coarse correction field (S, R_int) from the interior residual
     ``r_int_win`` (zero on the padding slots, so partially padded
-    aggregates restrict correctly)."""
+    aggregates restrict correctly); under a ``mesh`` of several processes,
+    the process's rows."""
     shard = plan.get("coarse_inv", plan.get("coarse_mat"))
     S, R_int = r_int_win.shape
-    q = shard.shape[0] // S
+    q = shard.shape[1] // (S * (1 if mesh is None else mesh.num_processes))
 
     def solve_c(r_c):
+        if mesh is not None:
+            r_c = mesh.all_gather(r_c)                 # (S_all, q)
         if "coarse_mat" in plan:
-            return coarse_cg(plan["coarse_mat"], r_c)
+            c = coarse_cg(plan["coarse_mat"], r_c)
+            return c if mesh is None else c[mesh.block(c.shape[0])]
         # the JAX package's type promotion: a float32 inverse applied to a
         # float64 coarse residual computes in float64
         dt = torch.promote_types(shard.dtype, r_c.dtype)

@@ -3,7 +3,9 @@
 include/conv_tools.hpp).  Each protocol is one transition per outer
 iteration on a small bool/int state.  With every subdomain on one device the
 mesh collectives are plain reductions and gathers over the subdomain axis,
-so the result does not depend on the rank count.
+so the result does not depend on the rank count.  Across processes the
+solver gathers the (S,) inputs once an iteration and every process takes
+the same transition on the same replicated state.
 
 Protocols:
   - ``allgather``:     sum of local norms against the global tolerance

@@ -16,6 +16,11 @@ whole ``x_ext`` from it in one launch.
 Neighbouring halo slots with neighbouring sources merge into one segment,
 so a contiguous partition's halo is a handful of segments without the JAX
 package's run plan (``RunPlan``, a TPU layout for its per-run copies).
+
+Across processes (a :class:`~schwarz_tpu_torch.parallel.mesh.Mesh` of
+several) a process holds only its block of subdomains: ``all_gather`` is
+then the mesh's, and the halo segments read the gathered ``(S, R_int)``
+interiors while the window reads the process's own.
 """
 
 from __future__ import annotations
@@ -28,19 +33,23 @@ import torch
 from schwarz_tpu_torch.ops.halo_kernel import assemble_x_ext, build_segments
 
 
-def segments_of(dec, compact: bool = False) -> Tuple[np.ndarray, np.ndarray]:
-    """K2's tables for a decomposition: the halo read from the gathered
-    interiors (the ``all_gather`` strategy), or, with ``compact``, from the
-    neighbour strategies' compact halo values, entry (s, h) at ``s * H +
-    h``."""
+def segments_of(dec, compact: bool = False,
+                rows: slice = slice(None)) -> Tuple[np.ndarray, np.ndarray]:
+    """K2's tables for a decomposition's subdomains ``rows`` (all by
+    default): the halo read from the gathered interiors of all S subdomains
+    (the ``all_gather`` strategy), or, with ``compact``, from the neighbour
+    strategies' compact halo values of these rows, entry (s, h) at ``s * H
+    + h`` with s counted from the first row."""
     meta = dec.meta
-    S, H = dec.halo_slots.shape
+    slots = dec.halo_slots[rows]
+    Sr, H = slots.shape
     if compact:
-        src, n_src = np.arange(S * H).reshape(S, H), S * H
+        src, n_src = np.arange(Sr * H).reshape(Sr, H), Sr * H
     else:
-        src, n_src = dec.halo_src_halo, S * meta.max_interior
-    return build_segments(dec.interior_offset, meta.max_interior,
-                          meta.max_ext, dec.halo_slots, src, n_src)
+        src = dec.halo_src_halo[rows]
+        n_src = dec.halo_slots.shape[0] * meta.max_interior
+    return build_segments(dec.interior_offset[rows], meta.max_interior,
+                          meta.max_ext, slots, src, n_src)
 
 
 def exchange_halo_allgather(
@@ -48,13 +57,16 @@ def exchange_halo_allgather(
     segments,                   # (segs, first): segments_of(dec)
     r_ext: int,
     halo_dtype: Optional[torch.dtype] = None,
+    mesh=None,                  # a Mesh of several processes, or None
 ) -> torch.Tensor:
     """x_ext (S, r_ext) in the compute dtype: one K2 launch.  With all
     subdomains on one device the all_gather is the interior array itself,
-    so the halo segments read ``x_own`` flat.
+    so the halo segments read ``x_own`` flat; across processes they read
+    ``mesh.all_gather(x_own)``.
 
     With a ``halo_dtype`` the halo values are rounded to it and back (the
     values of a halo that travelled in ``halo_dtype``); the subdomain's own
     interior window never passes through the reduced precision
     (restricted_schwarz.cpp:898-908)."""
-    return assemble_x_ext(x_own, x_own, *segments, r_ext, halo_dtype)
+    src = x_own if mesh is None else mesh.all_gather(x_own)
+    return assemble_x_ext(x_own, src, *segments, r_ext, halo_dtype)

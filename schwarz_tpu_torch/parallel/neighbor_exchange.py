@@ -9,11 +9,15 @@ instead of the whole interior block as in the ``all_gather`` strategy.
 
 The JAX package's mesh of D devices becomes D *ranks* on one card, each
 owning ``Sl = S / D`` consecutive subdomains; all ranks are handled at once,
-with the rank as a leading axis.  In round ``r`` every rank ``d`` sends one
+with the rank as a leading axis.  Across processes (a
+:class:`~schwarz_tpu_torch.parallel.mesh.Mesh` of several) a process
+handles its own D / P ranks the same way, with the tables sliced to them
+(:func:`exchange_rounds`).  In round ``r`` every rank ``d`` sends one
 packed buffer to rank ``(d + r) % D``, a pure cyclic shift: ``torch.roll``
 for the two-sided ``neighbor`` strategy (a plain collective in the JAX
-package), kernel K4 (:func:`schwarz_tpu_torch.ops.rdma_kernel.
-rdma_cyclic_shift`) for the one-sided ``rdma`` strategy, where one K4
+package; ``Mesh.shift`` across processes), kernel K4
+(:func:`schwarz_tpu_torch.ops.rdma_kernel.rdma_cyclic_shift`) for the
+one-sided ``rdma`` strategy, where one K4
 launch runs every round of an exchange with its pack and unpack.  Only
 offsets with any traffic get a round: a regular 1-D partition needs 2
 rounds, a 2-D grid partition about 8, whatever the rank count.
@@ -169,17 +173,26 @@ def build_neighbor_plan(
     )
 
 
-def exchange_rounds(nx: NeighborPlan, device) -> ExchangeRounds:
+def exchange_rounds(nx: NeighborPlan, device, mesh=None) -> ExchangeRounds:
     """The plan's round tables as tensors on ``device``, built once per
-    solver: K4 keeps its own tables and sequence words with them."""
+    solver: K4 keeps its own tables and sequence words with them.  Under a
+    ``mesh`` of several processes, the send tables of the process's ranks
+    and the receive tables of its subdomains."""
+    ranks = subs = slice(None)
+    n_ranks = nx.n_devices
+    if mesh is not None:
+        ranks = mesh.block(nx.n_devices)
+        subs = mesh.block(nx.is_local.shape[0])
+        n_ranks = mesh.ranks_per_process
+
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     i64 = lambda a: t(a.astype(np.int64))  # noqa: E731
     return ExchangeRounds(
-        [i64(s) for s in nx.send_idx], nx.offsets, i64(nx.recv_round),
-        i64(nx.recv_pos), i64(nx.local_src), t(nx.is_local), nx.n_devices,
-        nx.max_h)
+        [i64(s[ranks]) for s in nx.send_idx], nx.offsets,
+        i64(nx.recv_round[subs]), i64(nx.recv_pos[subs]),
+        i64(nx.local_src[subs]), t(nx.is_local[subs]), n_ranks, nx.max_h)
 
 
 def exchange_halo_neighbor(
@@ -193,6 +206,7 @@ def exchange_halo_neighbor(
     rdma_one_by_one: bool = False,  # per-element transfers (hpp:58-89)
     rdma_flush_local: bool = False,  # per-transfer completion (hpp:128-149)
     pending: Optional[list] = None,  # collects the K4 launches' status words
+    shift=None,                     # Mesh.shift across processes
 ) -> torch.Tensor:
     """Run the offset rounds of all D ranks and assemble x_ext (S, R_ext).
 
@@ -204,7 +218,8 @@ def exchange_halo_neighbor(
     passes a ``pending`` list, left in it for the caller to hand to
     ``rdma_shift_finish`` at its own next sync, so that the host can run
     ahead of the card.  x_ext is then one K2 launch over the compact halo
-    values: window, halo and zeros.
+    values: window, halo and zeros.  ``shift`` moves a round's buffers on
+    the two-sided transport (``torch.roll`` over the ranks by default).
     """
     if transport == "rdma":
         halo_vals, status = rdma_exchange_launch(
@@ -216,5 +231,6 @@ def exchange_halo_neighbor(
             pending.append(status)
     else:
         halo_vals = exchange_rounds_plain(
-            x_own, rounds, halo_dtype, lambda buf, r: torch.roll(buf, r, 0))
+            x_own, rounds, halo_dtype,
+            shift or (lambda buf, r: torch.roll(buf, r, 0)))
     return assemble_x_ext(x_own, halo_vals, *segments, r_ext)

@@ -41,6 +41,17 @@ pack one buffer per pair of ranks, each rank owning ``S / num_ranks``
 consecutive subdomains (one by default).  ``free_running`` belongs to the
 free-running solvers, which :func:`solve` dispatches to; the synchronous
 solver raises ``NotImplementedFeature`` on it.
+
+``mesh`` (:class:`~schwarz_tpu_torch.parallel.mesh.Mesh`) spreads the ranks
+over the processes of a ``torch.distributed`` group, the JAX package's
+multi-controller mesh.  Every process builds the host setup whole (the
+partition, the decomposition, the coarse bases) from the same inputs and
+keeps its block of S / P subdomains of every plan array; the exchange, the
+convergence round, the coarse solve and FGMRES's inner products then cross
+the processes through the mesh's collectives, and every process returns
+the same :class:`RASResult`.  A mesh of one process is the single-process
+path.  Across processes the one-sided ``rdma`` strategy, ``free_running``
+and the checkpoints raise ``NotImplementedFeature``.
 """
 
 from __future__ import annotations
@@ -83,6 +94,7 @@ from schwarz_tpu_torch.parallel.exchange import (
     exchange_halo_allgather,
     segments_of,
 )
+from schwarz_tpu_torch.parallel.mesh import Mesh
 from schwarz_tpu_torch.parallel.neighbor_exchange import (
     build_neighbor_plan,
     exchange_halo_neighbor,
@@ -193,7 +205,14 @@ class RASolver:
     """Set up once, run many times (cf. SolverRAS construct/initialize/run)."""
 
     def __init__(self, dec: Decomposition, device=None,
-                 num_ranks: Optional[int] = None):
+                 num_ranks: Optional[int] = None, mesh: Optional[Mesh] = None):
+        if mesh is not None:
+            if num_ranks is not None and int(num_ranks) != mesh.num_ranks:
+                raise ValueError(
+                    f"num_ranks {num_ranks} differs from the mesh's "
+                    f"{mesh.num_ranks} ranks")
+            num_ranks = mesh.num_ranks
+            device = mesh.device if device is None else device
         self.device = resolve_device(device)
         self.dec = dec
         self.settings = dec.settings
@@ -205,6 +224,14 @@ class RASolver:
                 f"num_subdomains {S} must be divisible by mesh size {D}")
         self.num_ranks = D
         self.Sl = S // D
+        self.mesh = mesh
+        # the collectives across processes; None in one process, whose path
+        # is the single-process one
+        self._mesh = (mesh if mesh is not None and mesh.num_processes > 1
+                      else None)
+        # this process's subdomains
+        self._sub = slice(None) if self._mesh is None else self._mesh.block(S)
+        self.S_local = S if self._mesh is None else S // mesh.num_processes
         self._check_supported()
         s = self.settings
         # status words of K4 launches not yet checked (read at the outer
@@ -225,7 +252,8 @@ class RASolver:
         self.factor_seconds: Dict[str, float] = {}
         self._plan = self._build_plan()
         # the neighbour strategies' round tables, kept with K4's state
-        self._rounds = (exchange_rounds(self._neighbor_plan, self.device)
+        self._rounds = (exchange_rounds(self._neighbor_plan, self.device,
+                                        self._mesh)
                         if self._neighbor_plan is not None else None)
         if self._overlap_split:
             self._plan["z_base"] = self._split_z_base()
@@ -296,6 +324,22 @@ class RASolver:
                 "free_running is the free-running solvers' mode: solve() "
                 "dispatches it to them (make_free_running_solver); the "
                 "synchronous RASolver does not run it")
+        if self._mesh is not None and s.comm.strategy == HaloStrategy.rdma:
+            raise NotImplementedFeature(
+                "the rdma strategy across processes: K4 runs every rank in "
+                "one cooperative launch on one card and would need the "
+                "other processes' receive windows mapped into it (CUDA IPC "
+                "on one card, peer memory across cards); use "
+                "strategy='neighbor', which moves the same packed buffers "
+                "two-sided through the mesh")
+
+    def _refuse_checkpoint(self, what: str) -> None:
+        """Raise when a checkpoint is asked for across processes."""
+        if self._mesh is not None:
+            raise NotImplementedFeature(
+                f"{what} across processes: a checkpoint holds the whole "
+                "solver state, and each process holds only its block of "
+                "subdomains; run it in one process")
 
     def _check_local_solver(self) -> None:
         """The JAX package's gates on the direct applies and on
@@ -449,23 +493,35 @@ class RASolver:
             self._use_fused_cg = True
         # K2's segments of x_ext: the halo as runs of the gathered
         # interiors, or as the neighbour strategies' compact halo values,
-        # whose packed per-rank-pair tables come with them; every rank
-        # lives on this host, so every round is intra-host
+        # whose packed per-rank-pair tables come with them; rounds within a
+        # process run before rounds that cross processes
         self._neighbor_plan = None
         compact = s.comm.strategy in (HaloStrategy.neighbor,
                                       HaloStrategy.rdma)
         if compact:
+            process_of = (self.mesh.process_of if self.mesh is not None
+                          else [0] * self.num_ranks)
             self._neighbor_plan = build_neighbor_plan(
-                dec, self.num_ranks, process_of=[0] * self.num_ranks)
-        arrays["ext_segs"], arrays["ext_first"] = segments_of(dec, compact)
+                dec, self.num_ranks, process_of=process_of)
+        if self._mesh is not None:
+            # this process's block of every per-subdomain array: rows
+            # [lo k, hi k) of one whose leading axis is S k (the coarse
+            # inverse, (S q, S q), keeps its row block); the halo graph
+            # stays whole for the convergence protocols, and A_c for the
+            # coarse CG (coarse_correction.py)
+            arrays = {k: (v if k in ("adj_in", "coarse_mat")
+                          else self._local_rows(v))
+                      for k, v in arrays.items()}
+        arrays["ext_segs"], arrays["ext_first"] = segments_of(
+            dec, compact, self._sub)
         plan = plan_from_numpy(arrays, self.device)
         if s.local_solver not in ITERATIVE:
             # the factors of the (O-RAS solve) operator, in the inner dtype
             fac = lv_solve.astype(dtype).astype(lc_np or dtype)
             plan.update(self._direct_factors(
-                torch.from_numpy(fac).to(self.device),
-                torch.from_numpy(dec.lmat_cols.astype(np.int64)).to(
-                    self.device)))
+                torch.from_numpy(self._local_rows(fac)).to(self.device),
+                torch.from_numpy(self._local_rows(
+                    dec.lmat_cols.astype(np.int64))).to(self.device)))
         if self._overlap_split and not self._split_iterative:
             # the inverse's columns at the interface rows; padding entries
             # (row index R) give zero columns
@@ -477,6 +533,28 @@ class RASolver:
             plan["factor_inv_iface"] = torch.where(rows < R, cols,
                                                    torch.zeros_like(cols))
         return plan
+
+    def _local_rows(self, a: np.ndarray) -> np.ndarray:
+        """This process's rows of a plan array whose leading axis is S k."""
+        if self._mesh is None:
+            return a
+        S = self.meta.num_subdomains
+        k, rem = divmod(a.shape[0], S)
+        if rem or not k:
+            raise ValueError(f"plan array of {a.shape[0]} rows is not dealt "
+                             f"by {S} subdomains")
+        return a[self._sub.start * k:self._sub.stop * k]
+
+    def _global(self, t: torch.Tensor, axis: int = 0) -> np.ndarray:
+        """The whole of a per-subdomain array on the host: the processes'
+        blocks along ``axis`` gathered, or the tensor itself in one
+        process."""
+        if self._mesh is None:
+            return t.cpu().numpy()
+        if axis == 0:
+            return self._mesh.process_allgather(t.contiguous())
+        return self._mesh.process_allgather(
+            t.movedim(axis, 0).contiguous()).swapaxes(0, axis)
 
     def _direct_factors(self, vals: torch.Tensor,
                         cols: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -586,10 +664,12 @@ class RASolver:
                 rdma_one_by_one=s.comm.enable_one_by_one,
                 rdma_flush_local=s.comm.flush_type == "flush-local",
                 pending=self._pending_shifts,
+                shift=None if self._mesh is None else self._mesh.shift,
             )
         return exchange_halo_allgather(x_own.contiguous(), segments,
                                        self.meta.max_ext,
-                                       halo_dtype=halo_dtype)
+                                       halo_dtype=halo_dtype,
+                                       mesh=self._mesh)
 
     def _apply_local(self, inner: bool = False):
         """y = A_local @ x for the whole batch: DIA (K1) + remainder when
@@ -750,6 +830,7 @@ class RASolver:
         timed copies."""
         s = self.settings
         S = self.meta.num_subdomains
+        Sp = self.S_local
         R_rows = self.meta.max_rows
         residual_update = self._residual_update
 
@@ -758,9 +839,15 @@ class RASolver:
             r = rhs_eff - self._apply_local()(x_ext[:, :R_rows])
             local_rn = torch.sqrt(torch.sum(r * r, dim=-1))
             rn0 = torch.where(rn0_in < 0, local_rn, rn0_in)
-            locally_conv = ((local_rn * local_rn)
-                            < (s.tolerance ** 2) * (rn0 * rn0))
-            conv, nconv, grn = conv_step(s, S, conv, local_rn, rn0,
+            rn_all, rn0_all = local_rn, rn0
+            if self._mesh is not None:
+                # every subdomain's norms, one gather an iteration; each
+                # process then takes the same transition on the same state
+                both = self._mesh.all_gather(torch.stack((local_rn, rn0), 1))
+                rn_all, rn0_all = both[:, 0], both[:, 1]
+            locally_conv = ((rn_all * rn_all)
+                            < (s.tolerance ** 2) * (rn0_all * rn0_all))
+            conv, nconv, grn = conv_step(s, S, conv, rn_all, rn0_all,
                                          locally_conv, self._plan["adj_in"])
             return r, local_rn, rn0, conv, nconv, grn
 
@@ -768,7 +855,7 @@ class RASolver:
             # two-level (multiplicative): coarse-correct x from the fresh
             # residual; subdomains that detected keep their iterate
             plan = self._plan
-            cfield = coarse_correct(plan, self._extract_int(r))
+            cfield = coarse_correct(plan, self._extract_int(r), self._mesh)
             return x_own + torch.where(
                 detected[:, None] | ~plan["interior_mask"],
                 torch.zeros_like(cfield), cfield)
@@ -790,8 +877,8 @@ class RASolver:
                 zb = self._plan["z_base"]
                 z = (zb - inverse_apply(self._plan["factor_inv_iface"],
                                         g.to(zb.dtype))).to(rhs_eff.dtype)
-                inner = torch.ones(S, dtype=torch.int32, device=self.device)
-                inner_rel = torch.zeros(S, dtype=rhs_eff.dtype,
+                inner = torch.ones(Sp, dtype=torch.int32, device=self.device)
+                inner_rel = torch.zeros(Sp, dtype=rhs_eff.dtype,
                                         device=self.device)
             elif self._overlap_split:
                 # correction-form split for iterative locals: only
@@ -882,7 +969,7 @@ class RASolver:
         # --- local_solve + local_to_global (skipped on the exit pass) ----
         z_prev = st["z"]
         if nconv_h < S and not div_h:
-            detected = conv_state.detected
+            detected = conv_state.detected[self._sub]
             x_trace = x_ext[:, :R_rows]     # Robin data under O-RAS
             if s.two_level:
                 # coarse-correct, exchange again, and let the local solves
@@ -899,8 +986,9 @@ class RASolver:
         else:
             # exit pass: leave the iterate exactly as it was detected
             z = z_prev
-            inner = torch.zeros(S, dtype=torch.int32, device=self.device)
-            inner_rel = torch.zeros(S, dtype=s.value_dtype,
+            inner = torch.zeros(self.S_local, dtype=torch.int32,
+                                device=self.device)
+            inner_rel = torch.zeros(self.S_local, dtype=s.value_dtype,
                                     device=self.device)
         st["hist_inner"][it] = inner
         st["hist_inner_rel"][it] = inner_rel
@@ -910,10 +998,14 @@ class RASolver:
         return st
 
     def init_state(self, x0=None) -> Dict[str, Any]:
-        """Fresh solver state; device tensors plus host loop counters."""
+        """Fresh solver state; device tensors plus host loop counters.
+        ``x0`` is the (S, R_int) interior start of every subdomain; across
+        processes the state holds the process's subdomains, and the
+        protocol state all of them."""
         meta = self.meta
         s = self.settings
         S = meta.num_subdomains
+        Sp = self.S_local
         dtype = s.value_dtype
         dev = self.device
         n_hist = s.max_iters + 1
@@ -921,32 +1013,36 @@ class RASolver:
         def zeros(*shape, dt=dtype):
             return torch.zeros(shape, dtype=dt, device=dev)
 
-        x_own = (zeros(S, meta.max_interior) if x0 is None
-                 else torch.as_tensor(np.asarray(x0), dtype=dtype,
+        x_own = (zeros(Sp, meta.max_interior) if x0 is None
+                 else torch.as_tensor(np.asarray(x0)[self._sub], dtype=dtype,
                                       device=dev).clone())
         return {
             "x_own": x_own,
-            "x_ext": zeros(S, meta.max_ext),
-            "z": zeros(S, meta.max_rows),
-            "local_rn0": -torch.ones(S, dtype=dtype, device=dev),
+            "x_ext": zeros(Sp, meta.max_ext),
+            "z": zeros(Sp, meta.max_rows),
+            "local_rn0": -torch.ones(Sp, dtype=dtype, device=dev),
             "conv": init_conv_state(S, dtype, dev),
             "nconv": 0,
             "grn": zeros(),
             "diverged": False,
             "it": 0,
             "it_stop": s.max_iters,
-            "hist_local": zeros(n_hist, S),
+            "hist_local": zeros(n_hist, Sp),
             "hist_global": zeros(n_hist),
-            "hist_inner": zeros(n_hist, S, dt=torch.int32),
-            "hist_inner_rel": zeros(n_hist, S),
+            "hist_inner": zeros(n_hist, Sp, dt=torch.int32),
+            "hist_inner_rel": zeros(n_hist, Sp),
         }
 
     def neighbor_locality(self) -> np.ndarray:
-        """(S, S) bool: True where the two subdomains' ranks share a host
-        (the reference's check_subd_locality, utils.cpp:52-66).  Every rank
-        of this solver lives on one card, so all of it is True."""
+        """(S, S) bool: True where the two subdomains' ranks live in one
+        process (the reference's check_subd_locality, utils.cpp:52-66, via
+        MPI_Comm_split_type(SHARED); ``schwarz_tpu/ras.py:2271-2279``).
+        Without a mesh every rank lives on one card: all True."""
         S = self.meta.num_subdomains
-        return np.ones((S, S), dtype=bool)
+        if self.mesh is None:
+            return np.ones((S, S), dtype=bool)
+        proc = np.asarray(self.mesh.process_of)[np.arange(S) // self.Sl]
+        return proc[:, None] == proc[None, :]
 
     def set_rhs(self, rhs) -> None:
         """Re-target the solver at a new right-hand side of the same
@@ -969,8 +1065,8 @@ class RASolver:
             local_rhs[p, :rc] = rhs_p[dec.local_to_global[p, :rc]]
         dec.local_rhs = local_rhs
         dec.global_rhs = rhs_p.astype(dec.global_rhs.dtype)
-        self._plan["local_rhs"] = torch.from_numpy(
-            local_rhs.astype(np.dtype(self.settings.dtype))).to(self.device)
+        self._plan["local_rhs"] = torch.from_numpy(self._local_rows(
+            local_rhs.astype(np.dtype(self.settings.dtype)))).to(self.device)
         if self._overlap_split:
             self._plan["z_base"] = self._split_z_base()
 
@@ -979,6 +1075,7 @@ class RASolver:
         """Write a solver state (iterate, counters, histories) as the JAX
         package's ``.npz``: ``arr_i`` in its ``jax.tree.flatten`` order
         (:data:`STATE_KEYS`), so either package resumes the other's."""
+        self._refuse_checkpoint("save_checkpoint")
         flat = []
         for k in STATE_KEYS:
             v = state[k]
@@ -995,6 +1092,7 @@ class RASolver:
         package).  History arrays are re-fitted when this solver's
         ``max_iters`` differs from the writer's (resume with a larger
         budget)."""
+        self._refuse_checkpoint("load_checkpoint")
         template = self.init_state()
         leaves = []
         for k in STATE_KEYS:
@@ -1050,6 +1148,10 @@ class RASolver:
         results equal the unchunked run."""
         S = self.meta.num_subdomains
         max_iters = self.settings.max_iters
+        if (resume_state is not None or checkpoint_path is not None
+                or self.settings.write_debug_out):
+            self._refuse_checkpoint("checkpoints (resume_state, "
+                                 "checkpoint_path, write_debug_out)")
         if resume_state is not None:
             # the steps write into the state's tensors: work on a copy
             st = {k: (ConvState(*(t.clone() for t in v)) if k == "conv"
@@ -1075,7 +1177,7 @@ class RASolver:
             if (chunk_iters is None or st["nconv"] >= S or st["diverged"]
                     or st["it"] >= max_iters):
                 break
-        x_own = st["x_own"].cpu().numpy()
+        x_own = self._global(st["x_own"])
         elapsed = time.perf_counter() - t0
         if checkpoint_path is not None:
             self.save_checkpoint(st, checkpoint_path)
@@ -1090,9 +1192,9 @@ class RASolver:
         # histories hold rows 0..it-1 (the detecting pass is the last one)
         return self._assemble_result(
             x_own, converged, st["diverged"], iters,
-            st["hist_local"][:it].cpu().numpy(),
+            self._global(st["hist_local"][:it], axis=1),
             st["hist_global"][:it].cpu().numpy(),
-            st["hist_inner"][:it].cpu().numpy(),
+            self._global(st["hist_inner"][:it], axis=1),
             elapsed,
         )
 
@@ -1180,7 +1282,7 @@ class RASolver:
         through K1 plus the interface couplings, the preconditioner one
         local solve from a zero start plus the coarse correction."""
         plan = self._plan
-        S, R_rows = self.meta.num_subdomains, self.meta.max_rows
+        S, R_rows = self.S_local, self.meta.max_rows
         dtype = self.settings.value_dtype
 
         def matvec(v):
@@ -1203,7 +1305,7 @@ class RASolver:
             if self.settings.two_level:
                 mask = plan["interior_mask"]
                 cfield = coarse_correct(plan, torch.where(
-                    mask, r, torch.zeros_like(r)))
+                    mask, r, torch.zeros_like(r)), self._mesh)
                 mr = mr + torch.where(mask, cfield, torch.zeros_like(cfield))
             return mr
 
@@ -1227,6 +1329,9 @@ class RASolver:
         :meth:`load_accel_checkpoint`) continues it.  ``instrument`` adds
         ``stage_timings`` for ``accel_matvec`` and ``accel_precond``
         (:meth:`_accel_stage_timings`)."""
+        if resume_state is not None or checkpoint_path is not None:
+            self._refuse_checkpoint("FGMRES checkpoints (resume_state, "
+                                 "checkpoint_path)")
         s = self.settings
         dec = self.dec
         S, R_int = self.meta.num_subdomains, self.meta.max_interior
@@ -1240,7 +1345,7 @@ class RASolver:
         for p in range(S):
             lo, hi = dec.first_row[p], dec.first_row[p + 1]
             b_own[p, : hi - lo] = dec.global_rhs[lo:hi]
-        b_dev = torch.from_numpy(b_own).to(self.device)
+        b_dev = torch.from_numpy(self._local_rows(b_own)).to(self.device)
         bnorm = float(np.linalg.norm(b_own))
 
         t0 = time.perf_counter()
@@ -1249,18 +1354,19 @@ class RASolver:
         if carry is not None:
             x_start = carry[0]
         elif x0 is None:
-            x_start = torch.zeros((S, R_int), dtype=s.value_dtype,
+            x_start = torch.zeros((self.S_local, R_int), dtype=s.value_dtype,
                                   device=self.device)
         else:
-            x_start = torch.as_tensor(np.asarray(x0), dtype=s.value_dtype,
-                                      device=self.device)
+            x_start = torch.as_tensor(np.asarray(x0)[self._sub],
+                                      dtype=s.value_dtype, device=self.device)
+        psum = None if self._mesh is None else self._mesh.psum
         while True:
             carry = fgmres(matvec, precond, b_dev, x_start, s.tolerance,
                            s.max_iters, m, state=carry,
-                           cycle_budget=budget).state
+                           cycle_budget=budget, psum=psum).state
             if budget is None or not carry[4] or int(carry[3]) >= max_cycles:
                 break
-        x = carry[0].cpu().numpy()
+        x = self._global(carry[0])
         elapsed = time.perf_counter() - t0
 
         if checkpoint_path is not None:
@@ -1307,6 +1413,7 @@ class RASolver:
     def load_accel_checkpoint(self, path: str):
         """A resumable FGMRES cycle state saved by ``checkpoint_path`` (by
         either package)."""
+        self._refuse_checkpoint("load_accel_checkpoint")
         with np.load(path) as data:
             leaves = [np.asarray(data[f"arr_{i}"]) for i in range(6)]
         x = torch.from_numpy(np.ascontiguousarray(leaves[0])).to(
@@ -1474,6 +1581,7 @@ def solve(
     partition_indices: Optional[np.ndarray] = None,
     cell_weights: Optional[np.ndarray] = None,
     num_ranks: Optional[int] = None,
+    mesh: Optional[Mesh] = None,
 ) -> RASResult:
     """One-call API: decompose + setup + run (cf. bench_ras.cpp:161-180).
 
@@ -1484,22 +1592,38 @@ def solve(
     (:func:`make_free_running_solver`), ``accelerator='fgmres'`` the
     Krylov-accelerated one (:meth:`RASolver.run_accelerated`).  ``num_ranks`` stands where the JAX
     package takes a device mesh: the ranks the subdomains are dealt to, one
-    per subdomain by default; it must divide ``num_subdomains``.
+    per subdomain by default; it must divide ``num_subdomains``.  ``mesh``
+    deals them to the processes of a group instead (every process calls
+    ``solve`` with the same inputs and gets the same result);
+    ``num_subdomains`` then defaults to its rank count, the role of
+    ``len(jax.devices())`` in the JAX package.
     """
     from schwarz_tpu_torch.core.decompose import decompose
     from schwarz_tpu_torch.models import CSRMatrix
 
+    if mesh is not None:
+        if num_subdomains is None:
+            num_subdomains = mesh.num_ranks
+        if device is None:
+            device = mesh.device
+        if num_ranks is None:
+            num_ranks = mesh.num_ranks
     device = resolve_device(device)
     if not isinstance(mat, CSRMatrix) and hasattr(mat, "tocsr"):
         mat = CSRMatrix.from_scipy(mat)
     if settings.free_running:
+        if mesh is not None and mesh.num_processes > 1:
+            raise NotImplementedFeature(
+                "free_running across processes: the free-running kernels "
+                "(K5-K7) run every rank inside one launch on one card, "
+                "their rings in its memory; run them in one process")
         return _solve_free_running(mat, rhs, settings, num_subdomains or 1,
                                    partition_indices, num_ranks, device)
     dec = decompose(
         mat, rhs, settings, num_subdomains or 1, partition_indices,
         cell_weights=cell_weights,
     )
-    solver = RASolver(dec, device=device, num_ranks=num_ranks)
+    solver = RASolver(dec, device=device, num_ranks=num_ranks, mesh=mesh)
     if settings.accelerator == "fgmres":
         return solver.run_accelerated()
     return solver.run()

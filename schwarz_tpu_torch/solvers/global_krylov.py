@@ -9,7 +9,10 @@ preconditioner.
 
 Vectors are in the interior layout (S, R_int) on the solver's device;
 every subdomain lives there, so a global inner product is one sum over all
-of them (the JAX package's ``psum`` over its mesh).  The small Hessenberg
+of them (the JAX package's ``psum`` over its mesh).  Across processes each
+holds its block of subdomains, and the caller's ``psum`` adds the
+processes' sums; the Hessenberg problem is then the same on every
+process.  The small Hessenberg
 least-squares problem (Givens rotations, stopping test, back substitution)
 runs on the host in numpy, in the vectors' dtype: one read of the new
 Hessenberg column per iteration.  The JAX loops run to ``restart`` with
@@ -35,8 +38,9 @@ class FGMRESResult(NamedTuple):
                             # active, hist): chunked runs and checkpoints
 
 
-def _gdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.sum(a * b)
+def _gdot(a: torch.Tensor, b: torch.Tensor, psum=None) -> torch.Tensor:
+    d = torch.sum(a * b)
+    return d if psum is None else psum(d)
 
 
 def fgmres(
@@ -49,6 +53,7 @@ def fgmres(
     restart: int,
     state: Optional[tuple] = None,
     cycle_budget: Optional[int] = None,
+    psum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> FGMRESResult:
     """Right-preconditioned flexible GMRES(restart).
 
@@ -60,7 +65,8 @@ def fgmres(
     The carry is ``(x, rnorm, it_total, cycles, active, hist)``: ``x`` a
     device tensor, ``rnorm`` a numpy scalar of the vectors' dtype,
     ``it_total`` and ``cycles`` numpy int32, ``active`` a numpy bool and
-    ``hist`` a host array.
+    ``hist`` a host array.  ``psum`` (``Mesh.psum``) completes each inner
+    product across processes.
     """
     m = int(restart)
     dt = b.detach()[:0].cpu().numpy().dtype
@@ -70,14 +76,14 @@ def fgmres(
     def host(t):
         return t.detach().cpu().numpy()
 
-    bnorm = np.sqrt(host(_gdot(b, b)))
+    bnorm = np.sqrt(host(_gdot(b, b, psum)))
     target = tol * np.maximum(bnorm, tiny)
     max_cycles = -(-max_iters // m)
 
     def cycle(carry):
         x, rnorm, it_total, cycles, active, hist = carry
         r = b - matvec(x)
-        beta_d = torch.sqrt(_gdot(r, r))
+        beta_d = torch.sqrt(_gdot(r, r, psum))
         V = [r / torch.clamp(beta_d, min=float(tiny))]
         beta = host(beta_d)
         Z = []
@@ -96,10 +102,10 @@ def fgmres(
             hs = []
             # modified Gram-Schmidt against v_0 .. v_j
             for i in range(j + 1):
-                hij = _gdot(V[i], w)
+                hij = _gdot(V[i], w, psum)
                 w = w - hij * V[i]
                 hs.append(hij)
-            hnext_d = torch.sqrt(_gdot(w, w))
+            hnext_d = torch.sqrt(_gdot(w, w, psum))
             V.append(w / torch.clamp(hnext_d, min=float(tiny)))
             h = np.zeros(m + 1, dt)
             h[:j + 2] = host(torch.stack(hs + [hnext_d]))
@@ -131,13 +137,13 @@ def fgmres(
             yd = torch.from_numpy(y[:n]).to(b.device)
             x = x + torch.einsum("m,msr->sr", yd, torch.stack(Z))
         r2 = b - matvec(x)
-        rnorm = np.sqrt(host(_gdot(r2, r2)))
+        rnorm = np.sqrt(host(_gdot(r2, r2, psum)))
         active = np.bool_(bool(rnorm > target) and it_total < max_iters)
         return x, rnorm, it_total, cycles + np.int32(1), active, hist
 
     if state is None:
         r0 = b - matvec(x0)
-        rnorm0 = np.sqrt(host(_gdot(r0, r0)))
+        rnorm0 = np.sqrt(host(_gdot(r0, r0, psum)))
         hist0 = np.zeros(max_iters + 2, dt)
         hist0[0] = rnorm0
         carry = (x0, rnorm0, np.int32(0), np.int32(0),

@@ -958,3 +958,30 @@ def test_direct_factors_on_card_like_cpu(dev):
     lu_h, lu_c = d.lu_factor(vals, cols), d.lu_factor(vals.to(dev),
                                                       cols.to(dev))
     assert close(d.lu_solve(lu_c, b.to(dev)), d.lu_solve(lu_h, b))
+
+
+def test_mesh_two_processes_on_card(dev, tmp_path):
+    """Two processes on the one card, over gloo with their CUDA tensors
+    staged through pinned host memory (``tests/torch_mesh_worker.py``): the
+    mesh primitives bit for bit, and each solve at the single-process card
+    run's count, histories within 1e-8 (float32 locals: the worker's
+    ``RTOL``)."""
+    from torch_mesh_worker import BASE, CASES, RTOL, run_group
+
+    outs = run_group(2, str(tmp_path), device="cuda", timeout_s=400)
+    G = np.arange(24, dtype=np.float64).reshape(8, 3)
+    for r in (-3, 1, 5):
+        np.testing.assert_array_equal(
+            np.concatenate([o[f"shift_{r}"] for o in outs]),
+            np.roll(G, r, 0))
+    A = laplacian_2d(16)
+    b = generate_rhs(A.n, random=False)
+    for name, kw in CASES[2].items():
+        ref = solve(A, b, Settings(**BASE, **kw), 8, num_ranks=8)
+        for o in outs:
+            assert bool(o[f"{name}.converged"]), name
+            assert int(o[f"{name}.iters"]) == ref.iters, name
+            h = ref.global_resnorm_history
+            np.testing.assert_allclose(o[f"{name}.global"], h,
+                                       rtol=RTOL.get(name, 1e-8),
+                                       atol=1e-12 * h.max(), err_msg=name)

@@ -23,7 +23,16 @@ of ``chip_smoke.py``'s exchange count, for 120 s of windows; for a window
 that misses its launch, how many host-side records (operators and CUDA
 runtime calls) it still holds.  Card only.
 
-    python tests/torch_card_readings.py [gmres] [profile] [exchange]
+``mesh``: the host time of one collective of ``parallel/mesh.py`` in
+groups of 2 and 4 processes on localhost (on the card when there is one,
+else on the CPU), each process's medians over repeated calls with the
+device idle between them: a gather of one float64 (the coarse CG's), of
+1 MB a process (the flagship's x_own), a shift of 3 KB a rank (a neighbour
+round), and gloo's own gather of one float64 host value (no staging); each
+group with the processes' thread count left as it is and set to one
+(``OMP_NUM_THREADS=1``).
+
+    python tests/torch_card_readings.py [gmres] [profile] [exchange] [mesh]
 """
 
 import os
@@ -179,13 +188,83 @@ def exchange_readings(seconds=120.0, pad_s=0.02):
           f"({time.perf_counter() - t0:.1f} s); {where[:8]}", flush=True)
 
 
+def _median_us(fn, reps, device):
+    samples = []
+    for _ in range(reps):
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        samples.append(time.perf_counter() - t0)
+    return 1e6 * float(np.median(samples))
+
+
+def mesh_child(pid, nproc, port):
+    """One process of ``mesh_readings``' group: prints its medians."""
+    import torch.distributed as dist
+
+    from schwarz_tpu_torch.parallel import mesh as pmesh
+
+    pmesh.initialize(f"localhost:{port}", nproc, pid, timeout_s=120)
+    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    m = pmesh.make_mesh(num_ranks=4 * nproc, device=dev)
+    one = torch.ones((), dtype=torch.float64, device=dev)
+    big = torch.ones(131072, dtype=torch.float64, device=dev)
+    buf = torch.ones((4, 384), dtype=torch.float64, device=dev)
+    host = torch.ones(1, dtype=torch.float64)
+    outs = [torch.empty(1, dtype=torch.float64) for _ in range(nproc)]
+    got = {}
+    for name, fn, reps in (
+            ("scalar gather", lambda: m.psum(one), 300),
+            ("1 MB gather", lambda: m.all_gather(big), 60),
+            ("3 KB-a-rank shift", lambda: m.shift(buf, 1), 300),
+            ("gloo scalar gather", lambda: dist.all_gather(outs, host), 300)):
+        fn()
+        got[name] = _median_us(fn, reps, dev)
+    print("MESH " + " ".join(f"{k}={v:.1f}" for k, v in got.items()),
+          flush=True)
+    pmesh.shutdown()
+
+
+def mesh_readings():
+    from schwarz_tpu_torch.parallel import mesh as pmesh
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    for threads in (None, "1"):
+        for nproc in (2, 4):
+            env = dict(os.environ)
+            if threads:
+                env["OMP_NUM_THREADS"] = threads
+            logs = pmesh.launch(
+                [sys.executable, os.path.abspath(__file__), "mesh-child"],
+                nproc, os.path.join(os.path.dirname(here), "build",
+                                    "mesh_readings"), 300, env=env)
+            for pid, out in enumerate(logs):
+                line = [ln for ln in out.splitlines() if ln.startswith("MESH")]
+                print(f"mesh, {nproc} processes, OMP_NUM_THREADS="
+                      f"{threads or 'unset'}, process {pid}, median us: "
+                      f"{line[0][5:] if line else out[-2000:]}", flush=True)
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["mesh-child"]:
+        mesh_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
     what = sys.argv[1:] or ["gmres", "profile"]
-    print(torch.cuda.get_device_name(0) if torch.cuda.is_available()
-          else "no card: the CPU readings only", flush=True)
+    if torch.cuda.is_available():
+        import subprocess
+
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip(), flush=True)
+    else:
+        print("no card: the CPU readings only", flush=True)
     if "gmres" in what:
         gmres_readings()
     if "profile" in what and torch.cuda.is_available():
         profile_readings()
     if "exchange" in what and torch.cuda.is_available():
         exchange_readings()
+    if "mesh" in what:
+        mesh_readings()
