@@ -9,7 +9,8 @@
    ``x_ext`` from its segment table, with float32, bfloat16 and float16
    halos, K3 fused CG) to its plain PyTorch version on the card, at the
    shapes of the 1M-row slice, and times kernel, plain version and one
-   library call for the same function (K1 ``torch.sparse.mm`` on the
+   library call for the same function (the L2 cache flushed by a 128 MB
+   read before each timed call; K1 ``torch.sparse.mm`` on the
    operator in CSR, K2 ``torch.take`` through an index map); K3 at the
    cluster size its wrapper chooses and at one block per subdomain, with
    the variant (vectors in shared or in device memory) each took;
@@ -106,8 +107,10 @@
    two-level spectral coarse space (q = 32), through ``RASolver`` on the
    card (the host setup timed: decompose, the 16 eigensolves into a cache
    under ``build/coarse_cache``, the plan), cold and warm, with K1, K2 and
-   K3 counted (K1 per operand from the inner iteration history) and one
-   warm run profiled; then the second rhs of ``bench.py:550-556``
+   K3 counted (K1 per operand, checked against the inner iteration
+   history: the float64 operator twice an outer iteration and once on the
+   exit pass, the float32 operator and the chained FSAI apply G^T (G r)
+   once per inner CG step) and one warm run profiled; then the second rhs of ``bench.py:550-556``
    (``generate_rhs(n, seed=7)``) through ``set_rhs`` on the same solver,
    which must converge in the iterations of a fresh card solver on that
    rhs with its history within rtol 1e-10; then the same recipe on the CPU
@@ -115,7 +118,14 @@
    <= 1e-8 in the CPU run's iteration count, both histories printed;
 21. holds K1 to its plain version at the flagship's shapes (the float64
    and float32 operator, K = 5, and FSAI's G and G^T, K = 3, all
-   (16, ., 21504)), timed like phase 3 beside ``torch.sparse.mm``;
+   (16, ., 21504)), timed like phase 3 beside ``torch.sparse.mm``; the
+   chained apply G^T (G r) bit for bit against two K1 launches and within
+   1e-5 of its plain version, timed beside two ``torch.sparse.mm`` calls
+   and one on the CSR of G^T G formed on the host; K1 and K8 timed once
+   more after a 128 MB ``zero_`` (an L2 full of dirty lines) beside the
+   read flush; the host us of a ``dia_spmv`` and a ``dia_spmv_chain`` call
+   over 1000 calls, with the wrapper's per-operand cache and with it
+   cleared before every call;
 22. holds K3 to its plain version on the O-RAS operator of a converging
    run (``laplacian_2d(128)``, 16 strips, overlap 6, ``oras_weight=
    'auto'``, float32 Jacobi locals under a float64 outer loop), then runs
@@ -183,8 +193,9 @@
    (a) the flagship recipe of phase 20 on 2 processes of 8 strips each (16
    ranks): 18 iterations, true relative residual <= 1e-8, every process the
    same result, its history against phase 20's card history, K1 and K2
-   launched in each process at phase 20's rate (2 residuals and 3 (n + 1)
-   inner products an outer iteration of n inner iterations, K2 twice); (b)
+   launched in each process at phase 20's rate (2 residuals and 2 (n + 1)
+   inner launches, the operator and the chained FSAI apply, an outer
+   iteration of n inner iterations, K2 twice); (b)
    the configuration of ``tests/distributed_worker.py`` on 4 processes of 4
    subdomains (16 ranks): the ``neighbor`` strategy, float64, overlap 3,
    tolerance 1e-7, one-level at 64^2, two-level spectral (q = 2, the CG
@@ -339,19 +350,26 @@ class Smoke:
         if not ok:
             self.failures.append(what)
 
-    def ms(self, fn, reps: int) -> float:
+    def ms(self, fn, reps: int, flush: str = "read") -> float:
         """Mean device time of ``fn`` from CUDA events around each call,
         with the L2 cache flushed before each (the solve loop reaches every
         kernel with a cold cache: the others stream more than 50 MB).  A
         spin kernel ahead of the first event keeps the card busy while the
         host enqueues ``fn``, so the wrapper's host time is not counted
-        (unless ``fn`` itself waits for the card, as the plain CG does)."""
+        (unless ``fn`` itself waits for the card, as the plain CG does).
+        ``flush``: ``"read"`` sums 128 MB, which leaves L2 clean;
+        ``"write"`` zeroes them, which leaves it full of dirty lines whose
+        write-back the timed call pays: K1 at the flagship's shapes reads
+        15-25% longer so, K8 4% (phase 21 prints both)."""
         torch = self.torch
         fn()
         torch.cuda.synchronize()
         pairs = []
         for _ in range(reps):
-            self._flush.zero_()
+            if flush == "write":
+                self._flush.zero_()
+            else:
+                self._flush.sum()
             torch.cuda._sleep(SPIN_CYCLES)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
@@ -363,12 +381,49 @@ class Smoke:
         return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
+def _dia_csr(offsets, dia):
+    """The block-diagonal (S R, S R) scipy CSR matrix of a DIA operator
+    (S, K, R), entries whose column leaves [0, R) dropped, on the host."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    S, _, R_rows = dia.shape
+    d_np = dia.cpu().numpy()
+    rows, cols, vals = [], [], []
+    r = np.arange(R_rows)
+    for k, o in enumerate(offsets):
+        ok = (r + o >= 0) & (r + o < R_rows)
+        for s in range(S):
+            keep = ok & (d_np[s, k] != 0)
+            rows.append(s * R_rows + r[keep])
+            cols.append(s * R_rows + r[keep] + o)
+            vals.append(d_np[s, k, keep])
+    n = S * R_rows
+    return sp.csr_matrix((np.concatenate(vals), (np.concatenate(rows),
+                                                 np.concatenate(cols))),
+                         shape=(n, n))
+
+
+def _torch_csr(m, dtype):
+    """A scipy CSR matrix as a torch CSR tensor of ``dtype`` on the card
+    (the library yardsticks: cuSPARSE, never on the path)."""
+    import torch
+
+    m = m.tocsr()
+    m.sort_indices()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # "beta" notices
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(m.indptr.astype("int64")),
+            torch.from_numpy(m.indices.astype("int64")),
+            torch.from_numpy(m.data).to(dtype), size=m.shape).to("cuda")
+
+
 def k1_entry(sm: Smoke, offsets, dia, x, what: str) -> dict:
     """K1 on ``dia`` (S, K, R) and ``x`` against its plain version, then
     timed beside its bound, its plain version and ``torch.sparse.mm`` on
     the same operator as one block-diagonal CSR matrix (the library
     yardstick: cuSPARSE, never on the path)."""
-    import numpy as np
     import torch
 
     from schwarz_tpu_torch.ops.dia_kernel import dia_spmv, dia_spmv_plain
@@ -383,27 +438,8 @@ def k1_entry(sm: Smoke, offsets, dia, x, what: str) -> dict:
         ref.abs().max())
     sm.check(err <= tol, f"K1 {what}: max abs err {err:.3e} <= {tol:.3e} "
              f"(FMA contraction and sum order)")
-    d_np = dia.cpu().numpy()
-    rows, cols, vals = [], [], []
-    r = np.arange(R_rows)
-    for k, o in enumerate(offsets):
-        ok = (r + o >= 0) & (r + o < R_rows)
-        for s in range(S):
-            keep = ok & (d_np[s, k] != 0)
-            rows.append(s * R_rows + r[keep])
-            cols.append(s * R_rows + r[keep] + o)
-            vals.append(d_np[s, k, keep])
-    rows, cols, vals = (np.concatenate(a) for a in (rows, cols, vals))
-    order = np.lexsort((cols, rows))
+    csr = _torch_csr(_dia_csr(offsets, dia), dia.dtype)
     n = S * R_rows
-    crow = np.zeros(n + 1, np.int64)
-    np.add.at(crow, rows + 1, 1)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", UserWarning)   # "beta" notices
-        csr = torch.sparse_csr_tensor(
-            torch.from_numpy(np.cumsum(crow)),
-            torch.from_numpy(cols[order]), torch.from_numpy(vals[order]),
-            size=(n, n)).to("cuda")
     xc = x[:, :R_rows].contiguous().reshape(n, 1)
     lib_err = float((torch.sparse.mm(csr, xc).reshape(S, R_rows)
                      - ref).abs().max())
@@ -418,6 +454,70 @@ def k1_entry(sm: Smoke, offsets, dia, x, what: str) -> dict:
         plain_ms=sm.ms(lambda: dia_spmv_plain(offsets, dia, x), 10),
         bound_ms=bound, bound_by=by,
         library_ms=sm.ms(lambda: torch.sparse.mm(csr, xc), 50))
+
+
+def chain_entry(sm: Smoke, go, gd, uo, ud, r, what: str) -> dict:
+    """K1's chained product z = DIA(uo, ud) (DIA(go, gd) r) bit for bit
+    against two K1 launches and within 1e-5 of its plain version, then
+    timed beside its bound (both operators, r and z), its plain version,
+    the two launches, two ``torch.sparse.mm`` calls, and ``library_ms``:
+    one ``torch.sparse.mm`` on the CSR of the product, formed once on the
+    host (one PyTorch call computing the same function)."""
+    import torch
+
+    from schwarz_tpu_torch.ops.dia_kernel import (default_tile, dia_spmv,
+                                                  dia_spmv_chain,
+                                                  dia_spmv_chain_plain)
+
+    S, K_in, R = gd.shape
+    K_out = ud.shape[1]
+    z = dia_spmv_chain(go, gd, uo, ud, r)
+    two = dia_spmv(uo, ud, dia_spmv(go, gd, r))
+    torch.cuda.synchronize()
+    ref = dia_spmv_chain_plain(go, gd, uo, ud, r)
+    err = float((z - ref).abs().max())
+    tol = 1e-5 * float(ref.abs().max())
+    sm.check(bool(torch.equal(z, two)) and err <= tol,
+             f"K1 chain {what}: bit-identical to two K1 launches, max abs "
+             f"err {err:.3e} <= {tol:.3e} against its plain version")
+    g_csr, u_csr = _dia_csr(go, gd), _dia_csr(uo, ud)
+    dt = gd.dtype
+    product = u_csr.astype("float64") @ g_csr.astype("float64")
+    g_t, u_t, p_t = (_torch_csr(m, dt) for m in (g_csr, u_csr, product))
+    rc = r[:, :R].contiguous().reshape(S * R, 1)
+    lib_err = float((torch.sparse.mm(p_t, rc).reshape(S, R)
+                     - ref).abs().max())
+    sm.check(lib_err <= tol, f"K1 chain {what}: library yardstick (the CSR "
+             f"of the product) agrees ({lib_err:.3e})")
+    e = gd.element_size()
+    bound, by = _bound_ms(((K_in + K_out) * S * R + 2 * S * R) * e,
+                          2 * (K_in + K_out) * S * R,
+                          str(dt).split(".")[-1])
+    return dict(
+        max_abs_err=err, tile=default_tile(S, R, r.device),
+        ms=sm.ms(lambda: dia_spmv_chain(go, gd, uo, ud, r), 50),
+        plain_ms=sm.ms(lambda: dia_spmv_chain_plain(go, gd, uo, ud, r), 10),
+        bound_ms=bound, bound_by=by,
+        library_ms=sm.ms(lambda: torch.sparse.mm(p_t, rc), 50),
+        two_launches_ms=sm.ms(lambda: dia_spmv(uo, ud, dia_spmv(go, gd, r)),
+                              50),
+        library_two_ms=sm.ms(lambda: torch.sparse.mm(
+            u_t, torch.sparse.mm(g_t, rc)), 50))
+
+
+def host_us(fn, n: int = 1000) -> float:
+    """Host microseconds a call of ``fn`` over ``n`` calls back to back,
+    no synchronize between them (the card idle before)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / n
 
 
 def kernel_checks(sm: Smoke, solver) -> None:
@@ -1658,8 +1758,20 @@ def flagship_phases(sm: Smoke) -> None:
     go, uo = solver._fsai_offsets
     a_off = tuple(solver._dia_offsets)
     operands = {"A_f64": (a_off, "float64"), "A_f32": (a_off, "float32"),
-                "G": (tuple(go), "float32"), "GT": (tuple(uo), "float32")}
+                "chain": ("chain", tuple(go), tuple(uo), "float32")}
     k1 = {key: by_operand.get(op, 0) for key, op in operands.items()}
+    # per outer iteration: the residual and the check (A_f64, and once on
+    # the exit pass); the inner CG's A_f32 and FSAI apply once per step,
+    # n + 1 for n inner iterations (the largest subdomain's count)
+    n_steps = int((res.inner_iters_history[:res.iters].max(axis=1)
+                   + 1).sum())
+    want_k1 = {"A_f64": 2 * res.iters + 1, "A_f32": n_steps,
+               "chain": n_steps}
+    print(f"flagship K1 launches per outer iteration: "
+          + ", ".join(f"{k} {v / max(res.iters, 1):.2f}"
+                      for k, v in k1.items())
+          + f"; all {launches['dia_spmv'] / max(res.iters, 1):.2f} (the "
+          f"first version: 65.06, G and G^T two launches)", flush=True)
     sm.check(res.converged and res.relative_residual_norm <= 1e-8
              and res.solution.shape == (A.n,)
              and bool(np.isfinite(res.solution).all()),
@@ -1668,13 +1780,14 @@ def flagship_phases(sm: Smoke) -> None:
              f"<= 1e-8 (the JAX package on a TPU: 18, 6.21e-9, "
              f"BENCH_r05.json)")
     sm.check(set(by_operand) == set(operands.values())
-             and all(k1.values())
+             and k1 == want_k1
              and launches["dia_spmv"] == sum(k1.values())
              and launches["halo_runs"] == 2 * res.iters + 1
              and launches["fused_cg"] == 0,
              f"flagship: K1 launched {launches['dia_spmv']} times, by "
-             f"operand {k1} as its wrapper counted them (the FSAI factors' "
-             f"products run through it; launches by offsets and type "
+             f"operand {k1} as its wrapper counted them = {want_k1} from "
+             f"the {res.iters} outer and {n_steps} inner steps (FSAI's G^T "
+             f"(G r) one chained launch; launches by offsets and type "
              f"{by_operand}), K2 "
              f"{launches['halo_runs']} = 2 per outer iteration + the exit "
              f"pass, K3 not at all (FSAI locals)")
@@ -1693,28 +1806,34 @@ def flagship_phases(sm: Smoke) -> None:
     events = [e for e in prof.key_averages()
               if "CUDA" in str(getattr(e, "device_type", ""))]
     dev_us = sum(e.self_device_time_total for e in events)
-    n_k1 = sum(e.count for e in events if "dia_spmv_kernel" in e.key)
+    # K1's two kernels: one product, and the chain
+    n_k1 = sum(e.count for e in events if "dia_spmv_" in e.key)
+    n_chain = sum(e.count for e in events
+                  if "dia_spmv_chain_kernel" in e.key)
     n_k2 = sum(e.count for e in events if "assemble_kernel" in e.key)
     print(f"flagship profile, one warm run of {n_run} passes: wall "
           f"{wall * 1e3:.2f} ms, device busy {dev_us / 1e3:.2f} ms "
           f"({100 * dev_us / 1e3 / (wall * 1e3):.1f}%); K1 {n_k1} launches "
-          f"({n_k1 / max(res.iters, 1):.2f} per outer iteration), K2 {n_k2} "
+          f"({n_k1 / max(res.iters, 1):.2f} per outer iteration, {n_chain} "
+          f"of them the chain), K2 {n_k2} "
           f"({n_k2 / max(res.iters, 1):.2f} per outer iteration)",
           flush=True)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:14]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
               f"{e.key[:70]}", flush=True)
-    groups = {"K1": "dia_spmv_kernel", "K2": "assemble_kernel",
+    groups = {"K1": "dia_spmv_", "K2": "assemble_kernel",
               "reductions": "reduce_kernel", "products (cuBLAS)": "gemm",
               "copies": "Memcpy"}
     share = {g: sum(e.self_device_time_total for e in events
                     if k in e.key) / 1e3 for g, k in groups.items()}
     print(f"flagship device ms by kind: {share}, the rest "
           f"{dev_us / 1e3 - sum(share.values()):.3f}", flush=True)
-    sm.check(n_k1 == lp["dia_spmv"] and n_k2 == lp["halo_runs"],
-             f"flagship profile: K1 {n_k1} and K2 {n_k2} launches, as "
-             f"counted by their wrappers ({lp['dia_spmv']}, "
-             f"{lp['halo_runs']})")
+    chain_p = dia_spmv.launches_by.get(operands["chain"], 0)
+    sm.check(n_k1 == lp["dia_spmv"] and n_k2 == lp["halo_runs"]
+             and n_chain == chain_p > 0,
+             f"flagship profile: K1 {n_k1} launches ({n_chain} chained) and "
+             f"K2 {n_k2}, as counted by their wrappers ({lp['dia_spmv']}, "
+             f"{chain_p}, {lp['halo_runs']})")
     # the second rhs of bench.py:550-556 on the same solver, against a
     # fresh card solver on that rhs (its basis read from the cache): the
     # same plan on the same card, so bit for bit is what to expect
@@ -1794,14 +1913,71 @@ def flagship_phases(sm: Smoke) -> None:
         e = k1_entry(sm, offs, dia, x,
                      f"at the flagship's {key} {tuple(dia.shape)} offsets "
                      f"{offs}")
-        e["launches"] = k1[key]
-        sm.kernels[f"dia_spmv_flagship_{key}"] = e
+        # G and G^T run inside the chain on the path: their single
+        # launches are timed, not counted, and stay out of the kernels line
+        e["launches"] = k1.get(key, 0)
+        if key in k1:
+            sm.kernels[f"dia_spmv_flagship_{key}"] = e
         print(f"K1 flagship {key}: ms={e['ms']:.5f} plain_ms="
               f"{e['plain_ms']:.5f} bound_ms={e['bound_ms']:.5f} "
               f"({e['bound_by']}) library_ms={e['library_ms']:.5f}; "
-              f"{k1[key]} launches in the run, "
-              f"{k1[key] / max(res.iters, 1):.1f} per outer iteration",
+              f"{e['launches']} launches in the run, "
+              f"{e['launches'] / max(res.iters, 1):.2f} per outer iteration",
               flush=True)
+    gd, ud = plan["fsai_gl_dia"], plan["fsai_gu_dia"]
+    e = chain_entry(sm, go, gd, uo, ud, x32,
+                    f"at the flagship's G^T (G r), {tuple(gd.shape)}")
+    e["launches"] = k1["chain"]
+    sm.kernels["dia_spmv_flagship_chain"] = e
+    print(f"K1 flagship chain G^T (G r), tile {e['tile']}: ms={e['ms']:.5f} "
+          f"two K1 launches {e['two_launches_ms']:.5f} plain_ms="
+          f"{e['plain_ms']:.5f} bound_ms={e['bound_ms']:.5f} "
+          f"({e['bound_by']}) library_ms={e['library_ms']:.5f} (the CSR of "
+          f"G^T G) two torch.sparse.mm {e['library_two_ms']:.5f}; "
+          f"{e['launches']} launches in the run, "
+          f"{e['launches'] / max(res.iters, 1):.2f} per outer iteration",
+          flush=True)
+    # the harness's read flush against a write flush, which leaves L2 full
+    # of dirty lines
+    from schwarz_tpu_torch import diagnostics as dg
+    from schwarz_tpu_torch.ops import cuda_build, dia_kernel
+
+    x8 = torch.randn((256, 256), generator=gen, device="cuda")
+    for what, fn in (
+            ("K1 A_f32", lambda: dia_spmv(a_off, plan["dia_vals_lc"], x32)),
+            ("K1 G", lambda: dia_spmv(go, gd, x32)),
+            ("K1 chain", lambda: dia_kernel.dia_spmv_chain(go, gd, uo, ud,
+                                                           x32)),
+            ("K8 (256, 256)", lambda: dg.smoke_x2(x8))):
+        t = [sm.ms(fn, 50, fl) for fl in ("read", "write", "read", "write")]
+        print(f"L2 flush: {what} {t[0]:.5f} / {t[2]:.5f} ms after a read "
+              f"flush, {t[1]:.5f} / {t[3]:.5f} after a write flush",
+              flush=True)
+    # the wrapper's host time, with its per-operand cache and with the
+    # cache cleared before every call (what every call rebuilt before it)
+    a32 = plan["dia_vals_lc"]
+
+    def cold(fn):
+        def call():
+            dia_kernel._operands.clear()
+            return fn()
+        return call
+
+    single = lambda: dia_spmv(a_off, a32, x32)             # noqa: E731
+    chained = lambda: dia_kernel.dia_spmv_chain(           # noqa: E731
+        go, gd, uo, ud, x32)
+    us = {"dia_spmv": (host_us(single), host_us(cold(single))),
+          "dia_spmv_chain": (host_us(chained), host_us(cold(chained)))}
+    print("host us a call over 1000 calls, no synchronize, at the "
+          "flagship's shapes: " + ", ".join(
+              f"{k} {a:.2f} with the per-operand cache, {b:.2f} with it "
+              f"cleared before each call" for k, (a, b) in us.items())
+          + "; the stream's handle {:.2f} through PyTorch's raw getter "
+          "(cuda_build.stream_ptr), {:.2f} through "
+          "torch.cuda.current_stream".format(
+              host_us(lambda: cuda_build.stream_ptr(x32.device)),
+              host_us(lambda: torch.cuda.current_stream(
+                  x32.device).cuda_stream)), flush=True)
     del solver, plan
 
     # --- 22. a converging synchronous O-RAS run through K3 -------------------
@@ -2688,7 +2864,7 @@ def mesh_phases(sm: Smoke) -> None:
         c, w = o["cold"], o["warm"]
         lo, hi = o["block"]
         n_inner = np.asarray(c["inner"])[:c["iters"], lo:hi].max(axis=1)
-        k1_rate = 2 * c["iters"] + 1 + 3 * int((n_inner + 1).sum())
+        k1_rate = 2 * c["iters"] + 1 + 2 * int((n_inner + 1).sum())
         o["k1_rate"] = k1_rate
         print(f"flagship, process {pid} of 2 (subdomains {lo}-{hi - 1}): "
               f"setup {o['setup_s']:.2f} s, {c['iters']} iterations, true "
@@ -3035,7 +3211,7 @@ def _phases(sm, torch) -> int:
                              "scripts/tpu_diagnostics.py:214"),
         **{f"dia_spmv_flagship_{k}": ("csrc/dia_spmv.cu",
                                       "schwarz_tpu/ops/pallas_kernels.py:110")
-           for k in ("A_f64", "A_f32", "G", "GT")},
+           for k in ("A_f64", "A_f32", "chain")},
         "fused_cg_oras": ("csrc/fused_cg.cu", "schwarz_tpu/ops/fused_cg.py:84"),
         **{f"dia_spmv_{k}": ("csrc/dia_spmv.cu",
                              "schwarz_tpu/ops/pallas_kernels.py:110")
@@ -3056,7 +3232,9 @@ def _phases(sm, torch) -> int:
             "library_ms": k["library_ms"],
             **{e: k[e] for e in ("cluster", "variant", "threads",
                                  "ms_one_block", "ms_global",
-                                 "rounds_per_launch") if e in k}})
+                                 "rounds_per_launch", "tile",
+                                 "two_launches_ms", "library_two_ms")
+               if e in k}})
     if sm.failures:
         print(f"chip_smoke: {len(sm.failures)} phase(s) failed: "
               + "; ".join(sm.failures), file=sys.stderr)

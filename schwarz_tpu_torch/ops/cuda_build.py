@@ -45,6 +45,8 @@ SIGNATURES = {
     "dia_spmv": {
         "dia_spmv_f32": (_P, _P, _P, _I, _I, _I, _LL, _P, _P),
         "dia_spmv_f64": (_P, _P, _P, _I, _I, _I, _LL, _P, _P),
+        "dia_spmv_chain_f32": (_P,) * 4 + (_I,) * 4 + (_LL, _P, _P, _I, _P),
+        "dia_spmv_chain_f64": (_P,) * 4 + (_I,) * 4 + (_LL, _P, _P, _I, _P),
     },
     "halo_runs": {
         "halo_assemble_f32": (_P,) * 5 + (_I,) * 5 + (_P,),
@@ -167,7 +169,13 @@ def int_array(values) -> ctypes.Array:
 
 
 def stream_ptr(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of ``device``'s current stream (PyTorch's own getter,
+    without building a ``torch.cuda.Stream``: this runs at every launch)."""
+    if not isinstance(device, torch.device):
+        device = torch.device(device)
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 def check_operands(what: str, dtypes, **tensors) -> None:

@@ -85,6 +85,7 @@ from schwarz_tpu_torch.ops.async_ras import (
 )
 from schwarz_tpu_torch.ops.async_ras_general import AsyncGeneralRASolver
 from schwarz_tpu_torch.ops.dia import dia_ell_spmv, dia_spmv, split_dia_ell
+from schwarz_tpu_torch.ops.dia_kernel import dia_spmv_chain
 from schwarz_tpu_torch.ops.fused_cg import fused_cg_solve, fused_cg_supported
 from schwarz_tpu_torch.ops.rdma_kernel import rdma_shift_finish
 from schwarz_tpu_torch.ops.spmv import ell_spmv_batched
@@ -720,10 +721,10 @@ class RASolver:
 
             return apply_ilu_dia
         if "fsai_gl_dia" in plan:
-            # M r = G^T (G r): two launches of K1 on the card
+            # M r = G^T (G r): one chained launch of K1 on the card
             go, uo = self._fsai_offsets
             gd, ud = plan["fsai_gl_dia"], plan["fsai_gu_dia"]
-            return lambda r: dia_spmv(uo, ud, dia_spmv(go, gd, r))
+            return lambda r: dia_spmv_chain(go, gd, uo, ud, r)
         if "fsai_gl_vals" in plan:
             return lambda r: ell_spmv_batched(
                 plan["fsai_gu_vals"], plan["fsai_gu_cols"],

@@ -37,7 +37,9 @@ from schwarz_tpu_torch.ops.async_ras_kernel import (CLUSTER_SIZES,
 from schwarz_tpu_torch.exceptions import NotImplementedFeature
 from schwarz_tpu_torch.ops.cluster_geometry import (ANY_CLUSTER_SIZES,
                                                     general_variant)
-from schwarz_tpu_torch.ops.dia_kernel import dia_spmv, dia_spmv_plain
+from schwarz_tpu_torch.ops.dia_kernel import (dia_spmv, dia_spmv_chain,
+                                              dia_spmv_chain_plain,
+                                              dia_spmv_plain, window_fits)
 from schwarz_tpu_torch.ops.fused_cg import fused_cg_solve, fused_cg_solve_plain
 from schwarz_tpu_torch.ops.halo_kernel import (assemble_x_ext,
                                                assemble_x_ext_plain,
@@ -752,6 +754,117 @@ def test_dia_spmv_one_sided_offsets(dev, offsets, R):
     y = dia_spmv(offsets, dia, x)
     torch.testing.assert_close(y, dia_spmv_plain(offsets, dia, x),
                                rtol=1e-5, atol=1e-5)
+
+
+# K1's shapes: rows not a multiple of 4 (or 2), and K at compile time (1-9)
+# and at run time (12, 32), with offsets reaching past both ends
+_K1_OFFSETS = {
+    1: (7,),
+    3: (-512, -1, 0),
+    5: (-512, -1, 0, 1, 512),
+    9: (-300, -64, -8, -1, 0, 1, 8, 64, 300),
+    12: tuple(range(-6, 6)),
+    32: tuple(range(-40, 120, 5)),
+}
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-12)])
+@pytest.mark.parametrize("K", sorted(_K1_OFFSETS))
+@pytest.mark.parametrize("R", [1, 127, 1000, 1408, 21504])
+def test_dia_spmv_shapes_match_plain(dev, R, K, dtype, rtol):
+    """K1 at every row count and diagonal count it meets, x a strided view
+    whose row stride ldx = R + 70 is not a multiple of 4 (the solver's
+    x_ext[:, :R_rows] is such a view)."""
+    offsets = _K1_OFFSETS[K]
+    rng = np.random.default_rng(R + K)
+    S = 3
+    dia = torch.tensor(_band(rng, S, R, offsets), dtype=dtype, device=dev)
+    x = torch.tensor(rng.standard_normal((S, R + 70)), dtype=dtype,
+                     device=dev)[:, 1:1 + R]
+    assert x.stride(0) % 4 != 0
+    n0 = dia_spmv.launches
+    y = dia_spmv(offsets, dia, x)
+    torch.cuda.synchronize()
+    assert dia_spmv.launches == n0 + 1
+    torch.testing.assert_close(y, dia_spmv_plain(offsets, dia, x),
+                               rtol=rtol, atol=rtol)
+
+
+# (offsets_in, offsets_out): FSAI's G and G^T at the flagship, a wider band,
+# unequal counts (K at run time), and one-sided offsets past both ends
+_CHAIN = {
+    "fsai": ((-512, -1, 0), (0, 1, 512)),
+    "band": ((-33, -2, -1, 0), (0, 1, 2, 33)),
+    "unequal": ((-64, 0), (0, 1, 64, 200)),
+    "reach": ((-2000, -3, 0), (0, 5, 2000)),
+}
+
+
+@pytest.mark.parametrize("tile", [None, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(_CHAIN))
+@pytest.mark.parametrize("R", [1, 127, 1000, 1408, 21504])
+def test_dia_spmv_chain_bit_identical(dev, R, case, dtype, tile):
+    """The chain equals two K1 launches bit for bit (the inner product read
+    as zero outside [0, R)), and its plain version within 1e-5.  The
+    diagonals are not zeroed where they leave [0, R), so a window row
+    outside [0, R) that were not zero would show."""
+    oi, oo = _CHAIN[case]
+    rng = np.random.default_rng(R)
+    S = 4
+    di = torch.tensor(rng.standard_normal((S, len(oi), R)), dtype=dtype,
+                      device=dev)
+    do = torch.tensor(rng.standard_normal((S, len(oo), R)), dtype=dtype,
+                      device=dev)
+    x = torch.tensor(rng.standard_normal((S, R + 9)), dtype=dtype,
+                     device=dev)[:, 3:3 + R]
+    z = dia_spmv_chain(oi, di, oo, do, x, tile=tile)
+    two = dia_spmv(oo, do, dia_spmv(oi, di, x))
+    torch.cuda.synchronize()
+    assert torch.equal(z, two)
+    torch.testing.assert_close(z, dia_spmv_chain_plain(oi, di, oo, do, x),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_dia_spmv_chain_counts_as_one_launch(dev):
+    """A chain is one K1 launch under its own key; a chain whose window
+    does not fit shared memory runs as two single K1 launches, counted as
+    such."""
+    rng = np.random.default_rng(2)
+    oi, oo = _CHAIN["fsai"]
+    di, do = (torch.tensor(_band(rng, 2, 4096, o), dtype=torch.float32,
+                           device=dev) for o in (oi, oo))
+    x = torch.randn((2, 4096), device=dev)
+    dia_spmv.launches_by = {}
+    n0 = dia_spmv.launches
+    dia_spmv_chain(oi, di, oo, do, x)
+    assert dia_spmv.launches == n0 + 1
+    assert dia_spmv.launches_by == {("chain", oi, oo, "float32"): 1}
+    wide = (0, 1, 20000)
+    assert not window_fits(wide, torch.float32, 256)
+    R = 24576
+    di, do = (torch.tensor(_band(rng, 1, R, o), dtype=torch.float32,
+                           device=dev) for o in (oi, wide))
+    x = torch.randn((1, R), device=dev)
+    dia_spmv.launches_by = {}
+    z = dia_spmv_chain(oi, di, wide, do, x)
+    assert dia_spmv.launches == n0 + 3
+    assert dia_spmv.launches_by == {(oi, "float32"): 1, (wide, "float32"): 1}
+    assert torch.equal(z, dia_spmv(wide, do, dia_spmv(oi, di, x)))
+
+
+def test_dia_spmv_refuses_what_it_cannot_take(dev):
+    dia = torch.zeros((2, 3, 64), device=dev)
+    x = torch.zeros((2, 64), device=dev)
+    with pytest.raises(ValueError):
+        dia_spmv((0, 1), dia, x)
+    with pytest.raises(ValueError):
+        dia_spmv((0, 1, 2), dia, x[:, :32])
+    with pytest.raises(ValueError):
+        dia_spmv_chain((0, 1, 2), dia, (0, 1, 2), dia, x, tile=0)
+    with pytest.raises(ValueError):
+        dia_spmv_chain((0, 1, 2), dia, (0, 1, 2), dia[:, :2], x)
 
 
 _TWO_LEVEL = {

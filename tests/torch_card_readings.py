@@ -23,6 +23,15 @@ of ``chip_smoke.py``'s exchange count, for 120 s of windows; for a window
 that misses its launch, how many host-side records (operators and CUDA
 runtime calls) it still holds.  Card only.
 
+``k1``: K1 (``ops/dia_kernel.py``) at the flagship's shapes (16 x 21504
+rows: the operator in float64 and float32 with offsets -512, -1, 0, 1, 512,
+FSAI's G and G^T in float32), the campaign's (16 x 23552, float64) and the
+direct phase's (64 x 4992, float64), on random bands: each single
+product, the chain G^T (G r) at tiles of 256-2048 rows beside two single
+launches, and K1 and K8, each timed after a flush of L2 that leaves it
+dirty (a 128 MB ``zero_``) and clean (a 128 MB sum), in turns.  Card
+only.
+
 ``mesh``: the host time of one collective of ``parallel/mesh.py`` in
 groups of 2 and 4 processes on localhost (on the card when there is one,
 else on the CPU), each process's medians over repeated calls with the
@@ -32,7 +41,8 @@ round), and gloo's own gather of one float64 host value (no staging); each
 group with the processes' thread count left as it is and set to one
 (``OMP_NUM_THREADS=1``).
 
-    python tests/torch_card_readings.py [gmres] [profile] [exchange] [mesh]
+    python tests/torch_card_readings.py [gmres] [profile] [exchange] [k1]
+        [mesh]
 """
 
 import os
@@ -131,7 +141,7 @@ def profile_readings(seconds=40.0, pad_s=0.02):
                     time.sleep(pad_s)
             events = [e for e in prof.key_averages()
                       if "CUDA" in str(getattr(e, "device_type", ""))]
-            got = (sum(e.count for e in events if "dia_spmv_kernel" in e.key),
+            got = (sum(e.count for e in events if "dia_spmv_" in e.key),
                    sum(e.count for e in events if "assemble_kernel" in e.key))
             windows += 1
             if got != want:
@@ -139,7 +149,7 @@ def profile_readings(seconds=40.0, pad_s=0.02):
                 seq = ["K1" if "dia_spmv" in e.name else "K2"
                        for e in sorted(
                            (e for e in prof.events()
-                            if "dia_spmv_kernel" in e.name
+                            if "dia_spmv_" in e.name
                             or "assemble_kernel" in e.name),
                            key=lambda e: e.time_range.start)]
                 where.append(f"{got} of {want}, the record starts "
@@ -186,6 +196,70 @@ def exchange_readings(seconds=120.0, pad_s=0.02):
                          f"{runtime} of them CUDA runtime calls")
     print(f"exchange padded: {misses} of {windows} windows miss the launch "
           f"({time.perf_counter() - t0:.1f} s); {where[:8]}", flush=True)
+
+
+def k1_readings(reps=50):
+    from chip_smoke import Smoke
+
+    from schwarz_tpu_torch import diagnostics as dg
+    from schwarz_tpu_torch.ops.dia_kernel import (default_tile, dia_spmv,
+                                                  dia_spmv_chain)
+
+    sm = Smoke(torch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def band(S, R, offsets, dtype):
+        d = torch.randn((S, len(offsets), R), generator=gen, device="cuda",
+                        dtype=dtype)
+        r = torch.arange(R, device="cuda")
+        for k, o in enumerate(offsets):
+            d[:, k, (r + o < 0) | (r + o >= R)] = 0
+        return d
+
+    a_off, go, uo = (-512, -1, 0, 1, 512), (-512, -1, 0), (0, 1, 512)
+    shapes = {"flagship A_f64": (16, 21504, a_off, torch.float64),
+              "flagship A_f32": (16, 21504, a_off, torch.float32),
+              "flagship G": (16, 21504, go, torch.float32),
+              "flagship GT": (16, 21504, uo, torch.float32),
+              "campaign": (16, 23552, a_off, torch.float64),
+              "direct": (64, 4992, (-78, -1, 0, 1, 78), torch.float64)}
+    for name, (S, R, offs, dt) in shapes.items():
+        dia = band(S, R, offs, dt)
+        x = torch.randn((S, R + 13), generator=gen, device="cuda",
+                        dtype=dt)[:, :R]
+        got = {}
+        for turn in range(2):
+            for fl in ("write", "read"):
+                got.setdefault(fl, []).append(sm.ms(
+                    lambda: dia_spmv(offs, dia, x), reps, fl))
+        print(f"K1 {name} {tuple(dia.shape)}: " + ", ".join(
+            f"after a {fl} flush {' / '.join(f'{t:.5f}' for t in ts)}"
+            for fl, ts in got.items()) + " ms", flush=True)
+    S, R = 16, 21504
+    gd, ud = band(S, R, go, torch.float32), band(S, R, uo, torch.float32)
+    r = torch.randn((S, R), generator=gen, device="cuda")
+    got = {}
+    for turn in range(2):
+        for fl in ("write", "read"):
+            got.setdefault(f"two launches ({fl})", []).append(sm.ms(
+                lambda: dia_spmv(uo, ud, dia_spmv(go, gd, r)), reps, fl))
+            for tile in (256, 512, 1024, 1344, 1792, 2048):
+                got.setdefault(f"tile {tile} ({fl})", []).append(sm.ms(
+                    lambda: dia_spmv_chain(go, gd, uo, ud, r, tile=tile),
+                    reps, fl))
+    print(f"K1 chain G^T (G r), flagship (16, 3, 21504) float32, default "
+          f"tile {default_tile(S, R, r.device)}: " + ", ".join(
+              f"{k} {' / '.join(f'{t:.5f}' for t in ts)}"
+              for k, ts in got.items()) + " ms", flush=True)
+    x8 = torch.randn((256, 256), generator=gen, device="cuda")
+    got = {}
+    for turn in range(2):
+        for fl in ("write", "read"):
+            got.setdefault(fl, []).append(sm.ms(lambda: dg.smoke_x2(x8),
+                                                reps, fl))
+    print("K8 (256, 256): " + ", ".join(
+        f"after a {fl} flush {' / '.join(f'{t:.5f}' for t in ts)}"
+        for fl, ts in got.items()) + " ms", flush=True)
 
 
 def _median_us(fn, reps, device):
@@ -266,5 +340,7 @@ if __name__ == "__main__":
         profile_readings()
     if "exchange" in what and torch.cuda.is_available():
         exchange_readings()
+    if "k1" in what and torch.cuda.is_available():
+        k1_readings()
     if "mesh" in what:
         mesh_readings()
