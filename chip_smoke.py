@@ -207,8 +207,33 @@
    per outer iteration and the host ms of its cross-process traffic are
    printed; then ``python -m schwarz_tpu_torch.examples.poisson_basic``'s
    ``main`` on the card (converged, K1 and K2 counted);
-32. prints one JSON line describing the kernels, then the fixed last line
-   ``{"ok": true, "device": {...}}``.
+32. runs the one-sided exchange across 2 processes on the one card (one
+   child group for phases 32-34, ``--mesh-child async``; each process
+   launches K4-K7 for its own ranks and reaches the other's through the
+   CUDA IPC window of ``Mesh.window``): phase 18's slice (1M rows, 16 ranks,
+   30 outer iterations) on ``rdma`` put, K4 and K2 launched once per
+   exchange in each process, its history equal to the same 2-process run
+   on ``neighbor`` bit for bit; K4's ms per exchange beside phase 17's and
+   the longest cross-process wait; then phase 19's get-mode case
+   (``laplacian_2d(32)``, ``regular2d``, 64 subdomains on 16 ranks) at
+   phase 19's iteration count; it prints the card's compute mode and
+   whether the Multi-Process Service runs;
+33. runs the free-running tiers across the 2 processes: phase 10's 1-D,
+   phase 13's 2-D and phase 16's general solves with ``done_at`` and x
+   equal to the single-process card runs' bit for bit, ``run_refined`` to
+   1e-8 on the 1-D tier, and phases 9, 12 and 15's slices at full size,
+   cold and warm, each tier's kernel counted in each process and the other
+   tiers' at 0, each process's solution within ``SLICE_X_RTOL`` of the
+   single-process slice's on the same inputs, with the ms per 16-round
+   launch, the cluster choice per process and the longest wait;
+34. stops the flagship on the 2 processes at 9 iterations with a
+   checkpoint and resumes it on 2 processes and in this one: 18
+   iterations, the history of phase 31's 2-process run within
+   ``MESH_HISTORY_RTOL``; then a free-running 1-D checkpoint across
+   processes resumes to the straight run;
+35. prints one JSON line describing the kernels (K4-K7 with their launch
+   counts and ms per launch in each of the 2 processes), then the fixed
+   last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the last line, as does a machine
 without a CUDA device, a directory without the package, or a host where the
@@ -226,6 +251,10 @@ import time
 import warnings
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
+# the synchronous slice of phases 3-4 (with Jacobi locals), 1M rows
+SLICE = dict(overlap=3, dtype="float32", row_pad_multiple=1024,
+             spmv_format="dia", fused_local_cg=True, local_tolerance=1e-6,
+             local_max_iters=50, tolerance=1e-6, max_iters=30)
 PEAK_OPS_PER_S = {"float32": 67e12,  # H100 SXM, outside the tensor cores
                   "float64": 34e12}
 SPIN_CYCLES = 4_000_000              # ~2 ms of a spinning kernel
@@ -341,6 +370,11 @@ class Smoke:
         self.torch = torch
         self.failures = []
         self.kernels = {}
+        # phase 33 holds its 2-process runs against these single-process
+        # ones: the converging solves' (x, info) of phases 10, 13 and 16 and
+        # the cold solutions of phases 9, 12 and 15's slices
+        self.free_refs = {}
+        self.slice_refs = {}
         flush_elems = 128 * 2**20 // 4          # 128 MB > the 50 MB L2
         self._flush = torch.empty(flush_elems, dtype=torch.float32,
                                   device="cuda")
@@ -888,7 +922,7 @@ def free_running_phases(sm: Smoke) -> None:
     import numpy as np
     import torch
 
-    from schwarz_tpu_torch import CommSettings, Settings, diagnostics
+    from schwarz_tpu_torch import diagnostics
     from schwarz_tpu_torch.models import laplacian_2d, laplacian_3d
     from schwarz_tpu_torch.ops.async_ras import AsyncRASolver
     from schwarz_tpu_torch.ops.async_ras_kernel import async_ras_rounds
@@ -897,9 +931,7 @@ def free_running_phases(sm: Smoke) -> None:
     t0 = time.perf_counter()
     A = laplacian_3d(100)
     b = np.ones(A.n)
-    settings = Settings(free_running=True, overlap=2, tolerance=1e-4,
-                        local_max_iters=16, max_iters=64,
-                        comm=CommSettings(staleness=1))
+    settings = _slice_free_settings()
     solver, refine = make_free_running_solver(A, b, 16, settings)
     torch.cuda.synchronize()
     p = solver.plan
@@ -946,6 +978,7 @@ def free_running_phases(sm: Smoke) -> None:
                 and res.relative_residual_norm < 1.0,
                 f"free-running slice: finite solution, true relative "
                 f"residual {res.relative_residual_norm:.6e} < 1")
+            sm.slice_refs["slice_1d"] = res.solution
     k5_ms = sm.kernels["async_ras"]["ms"]
     print(f"where the time goes (warm): K5 {k5_ms:.3f} ms per "
           f"{solver.chunk_rounds}-round launch (events, phase 7) x "
@@ -974,6 +1007,7 @@ def free_running_phases(sm: Smoke) -> None:
              and i_c["relative_residual_norm"] < 1e-3,
              "64^2 free-running converges on the card with unequal done_at "
              "equal to the CPU run's, true residual < 1e-3")
+    sm.free_refs["1d"] = (x_c, i_c)         # phase 33 runs it on 2 processes
     covered = diagnostics.flag_order_passed("cuda")
     fr = AsyncRASolver(A2, b2, 8, **{**kw, "staleness": 3},
                        fresh_read=True)
@@ -1034,7 +1068,7 @@ def block_grid_phases(sm: Smoke) -> None:
     import scipy.sparse.linalg as spla
     import torch
 
-    from schwarz_tpu_torch import CommSettings, Settings, diagnostics
+    from schwarz_tpu_torch import diagnostics
     from schwarz_tpu_torch.models import (anisotropic_diffusion_2d,
                                           laplacian_2d)
     from schwarz_tpu_torch.ops.async_ras_2d import AsyncRASolver2D
@@ -1045,9 +1079,7 @@ def block_grid_phases(sm: Smoke) -> None:
     t0 = time.perf_counter()
     A = laplacian_2d(1024)
     b = np.ones(A.n)
-    settings = Settings(free_running=True, overlap=2, tolerance=1e-4,
-                        local_max_iters=16, max_iters=64,
-                        comm=CommSettings(staleness=1))
+    settings = _slice_free_settings()
     solver, refine = make_free_running_solver(A, b, 16, settings)
     torch.cuda.synchronize()
     p = solver.plan
@@ -1134,6 +1166,7 @@ def block_grid_phases(sm: Smoke) -> None:
                 f"relative residual {res.relative_residual_norm:.6e} (64 "
                 f"rounds of 16 inner iterations on 256 x 256 blocks are the "
                 f"start of the transient; phase 13 converges)")
+            sm.slice_refs["slice_2d"] = res.solution
     k6_ms = sm.kernels["async_ras_2d"]["ms"]
     print(f"where the time goes (warm): K6 {k6_ms:.3f} ms per "
           f"{solver.chunk_rounds}-round launch (events, phase 11) x {n_l} "
@@ -1170,6 +1203,7 @@ def block_grid_phases(sm: Smoke) -> None:
              "256^2 2-D free-running converges on the card with unequal "
              "done_at equal to the CPU run's, true residual < 1e-2, error "
              "against spsolve < 5e-3")
+    sm.free_refs["2d"] = (x_c, i_c)
     covered = diagnostics.flag_order_passed("cuda")
     _, i_f = AsyncRASolver2D(A256, b2, **{**kw, "staleness": 3},
                              fresh_read=True).run(max_rounds=800)
@@ -1235,7 +1269,7 @@ def general_graph_phases(sm: Smoke) -> None:
     import numpy as np
     import torch
 
-    from schwarz_tpu_torch import CommSettings, Partition, Settings
+    from schwarz_tpu_torch import Partition, Settings
     from schwarz_tpu_torch.core.partition import make_partition
     from schwarz_tpu_torch.models import (advection_diffusion_2d,
                                           anisotropic_diffusion_2d,
@@ -1248,9 +1282,7 @@ def general_graph_phases(sm: Smoke) -> None:
     S = 128
     A = anisotropic_diffusion_2d(360, eps=5.0, theta=0.3)
     b = np.ones(A.n)
-    settings = Settings(free_running=True, partition=Partition.metis,
-                        overlap=2, tolerance=1e-4, local_max_iters=16,
-                        max_iters=64, comm=CommSettings(staleness=1))
+    settings = _slice_free_settings(partition=Partition.metis)
     t0 = time.perf_counter()
     part = make_partition(A, S, settings)
     t_part = time.perf_counter() - t0
@@ -1359,6 +1391,7 @@ def general_graph_phases(sm: Smoke) -> None:
                 f"relative residual {res.relative_residual_norm:.6e} (64 "
                 f"rounds of 16 inner iterations from a zero start are the "
                 f"start of the transient; phase 16 converges)")
+            sm.slice_refs["slice_general"] = res.solution
     k7_ms = sm.kernels["async_ras_general"]["ms"]
     print(f"where the time goes (warm): K7 {k7_ms:.3f} ms per "
           f"{solver.chunk_rounds}-round launch (events, phase 14) x {n_l} "
@@ -1389,6 +1422,7 @@ def general_graph_phases(sm: Smoke) -> None:
              "ani3_crop general free-running converges on the card with "
              "done_at and solution equal to the CPU run's, true residual "
              "< 5e-3")
+    sm.free_refs["general"] = (x_c, i_c)
     _, i_r = general(lap64, 8, tolerance=1e-4, ninner=16,
                      chunk_rounds=16).run_refined(tol=1e-8, max_rounds=800)
     print(f"general run_refined(tol=1e-8), 64^2 Laplacian, metis, 8 ranks: "
@@ -1632,6 +1666,7 @@ def neighbor_exchange_phases(sm: Smoke, dec, solver, hist4,
     rdma_get = dict(strategy=HaloStrategy.rdma)
     r_ag, _ = both("64 subdomains on 16 ranks, all_gather")
     r_rd, launches = both("the same, rdma in get mode", comm=rdma_get)
+    sm.rdma_get_iters = r_rd.iters          # phase 32 runs it on 2 processes
     sm.check(r_rd.iters == r_ag.iters and launches["rdma_shift"] > 0
              and r_rd.relative_residual_norm < 1e-5
              and np.array_equal(r_rd.solution, r_ag.solution),
@@ -2800,8 +2835,11 @@ def mesh_child(argv) -> int:
     try:
         pmesh.initialize(f"localhost:{port}", nproc, pid, timeout_s=240)
         mesh = pmesh.make_mesh(num_ranks=MESH_RANKS)
-        res = {"flagship": _mesh_child_flagship,
-               "worker": _mesh_child_worker}[case](mesh)
+        if case == "async":
+            res = _mesh_child_async(mesh, out_dir)
+        else:
+            res = {"flagship": _mesh_child_flagship,
+                   "worker": _mesh_child_worker}[case](mesh)
         with open(os.path.join(out_dir, f"p{pid}.json"), "w") as f:
             json.dump(res, f)
         pmesh.shutdown()
@@ -2833,8 +2871,13 @@ def _mesh_group(case: str, nproc: int, timeout_s: float) -> list:
     return outs
 
 
-def _same_everywhere(outs, key) -> bool:
-    return all(o[key] == outs[0][key] for o in outs[1:])
+def _same_everywhere(outs, *keys) -> bool:
+    """Whether every process's ``o[k0][k1]...`` equals process 0's."""
+    def get(o):
+        for k in keys:
+            o = o[k]
+        return o
+    return all(get(o) == get(outs[0]) for o in outs[1:])
 
 
 def mesh_phases(sm: Smoke) -> None:
@@ -2879,6 +2922,7 @@ def mesh_phases(sm: Smoke) -> None:
               f" (K1 at phase 20's rate: {k1_rate}); {card}", flush=True)
     c0 = outs[0]["cold"]
     h = np.asarray(c0["hist"])
+    sm.mesh_flagship_hist = h               # phase 34 resumes to it
     if len(h) == len(h20) and len(h) > 1:
         gaps = np.abs(h / h20 - 1)
         first, over = float(gaps[1]), float(gaps.max())
@@ -2975,6 +3019,385 @@ def mesh_phases(sm: Smoke) -> None:
              f"launches {launches}")
     os.environ.pop("SCHWARZ_TPU_COARSE_CACHE")
 
+# phases 32-34: the one-sided exchange, the free-running tiers and the
+# checkpoints across 2 processes on the one card (one child group)
+# phase 10's converging 1-D solve, phase 13's 2-D one, phase 16's general one
+FREE10 = dict(overlap=2, tolerance=1e-4, staleness=1, ninner=20,
+              chunk_rounds=16)
+FREE13 = dict(px=4, py=2, tolerance=2e-3, staleness=1, ninner=30,
+              chunk_rounds=20)
+FREE16 = dict(tolerance=1e-3, staleness=1, ninner=24, chunk_rounds=8)
+FLAGSHIP_STOP = 9        # phase 34 stops the flagship here, then resumes
+# phase 33: a slice's 2-process solution against one process's, relative
+# to its largest entry: float32 rounding, carried over 64 rounds
+SLICE_X_RTOL = 1e-5
+
+
+def _slice_free_settings(**kw):
+    """Phases 9, 12 and 15's free-running slices."""
+    from schwarz_tpu_torch import CommSettings, Settings
+
+    return Settings(free_running=True, overlap=2, tolerance=1e-4,
+                    local_max_iters=16, max_iters=64,
+                    comm=CommSettings(staleness=1), **kw)
+
+
+def _k4_events_ms(rounds, x, reps: int = 20) -> float:
+    """K4's mean device time per exchange on ``rounds``, CUDA events around
+    each launch (across processes it includes waiting for the peer's)."""
+    import torch
+
+    from schwarz_tpu_torch.ops.rdma_kernel import (rdma_exchange_launch,
+                                                   rdma_shift_finish)
+
+    statuses, pairs = [], []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        _, st = rdma_exchange_launch(x, rounds, None, "put")
+        b.record()
+        statuses.append(st)
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    rdma_shift_finish(statuses)
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def _free_record(x, info, launches=None) -> dict:
+    import numpy as np
+
+    out = {"x": np.asarray(x, np.float64).tolist(),
+           "done_at": np.asarray(info["done_at"]).tolist(),
+           "rounds": int(info["rounds"]), "time_s": info["time_s"],
+           "rel": info["relative_residual_norm"],
+           "converged": bool(info["converged"])}
+    if launches is not None:
+        out["launches"] = launches
+    return out
+
+
+def _mesh_child_async(mesh, out_dir: str) -> dict:
+    """Phases 32-34 in one process of the 2-process group; the files it
+    writes (the slices' solutions, the checkpoints) go to ``out_dir``, and
+    their paths into the result."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from schwarz_tpu_torch import (CommSettings, HaloStrategy, Partition,
+                                   Precond, RASolver, Settings, solve)
+    from schwarz_tpu_torch.core.decompose import decompose
+    from schwarz_tpu_torch.core.partition import make_partition
+    from schwarz_tpu_torch.models import (anisotropic_diffusion_2d,
+                                          generate_rhs, laplacian_2d,
+                                          laplacian_3d, matrix_path,
+                                          read_mtx)
+    from schwarz_tpu_torch.ops.async_ras import AsyncRASolver
+    from schwarz_tpu_torch.ops.async_ras_2d import AsyncRASolver2D
+    from schwarz_tpu_torch.ops.async_ras_2d_kernel import async_ras_2d_rounds
+    from schwarz_tpu_torch.ops.async_ras_general import AsyncGeneralRASolver
+    from schwarz_tpu_torch.ops.async_ras_general_kernel import (
+        async_general_rounds)
+    from schwarz_tpu_torch.ops.async_ras_kernel import async_ras_rounds
+    from schwarz_tpu_torch.parallel import mesh as pmesh
+
+    out = {"pid": mesh.process_index}
+    t_phase = time.perf_counter()
+    # --- 32. the one-sided exchange: phase 18's slice, then phase 19's ------
+    A = laplacian_2d(1024)
+    b = generate_rhs(A.n, random=False)
+    settings = Settings(precond=Precond.jacobi, **SLICE)
+    dec = decompose(A, b, settings, 16)
+    for name, comm in (
+            ("rdma", CommSettings(strategy=HaloStrategy.rdma,
+                                  enable_put=True, enable_get=False)),
+            ("neighbor", CommSettings(strategy=HaloStrategy.neighbor))):
+        solver = RASolver(dataclasses.replace(
+            dec, settings=settings.replace(comm=comm)), mesh=mesh)
+        out[name] = {"cold": _mesh_record(*_mesh_run(mesh, solver.run)),
+                     "warm": _mesh_record(*_mesh_run(mesh, solver.run))}
+        if name == "rdma":
+            rounds = solver._rounds
+            x = torch.zeros((solver.S_local, solver.meta.max_interior),
+                            dtype=torch.float32, device=solver.device)
+            out["k4_ms"] = _k4_events_ms(rounds, x)
+            out["k4_wait_ns"] = rounds._card.longest_wait_ns()
+        del solver
+    A2 = laplacian_2d(32)
+    s19 = Settings(partition=Partition.regular2d, overlap=2, max_iters=1500,
+                   tolerance=1e-6, comm=CommSettings(
+                       strategy=HaloStrategy.rdma))
+    out["get2d"] = _mesh_record(*_mesh_run(mesh, lambda: solve(
+        A2, generate_rhs(A2.n, random=False), s19, 64, mesh=mesh)))
+    out["t32"] = time.perf_counter() - t_phase
+
+    # --- 33. the free-running tiers ------------------------------------------
+    t_phase = time.perf_counter()
+    m8 = pmesh.make_mesh(num_ranks=8)
+    A64, A256 = laplacian_2d(64), laplacian_2d(256)
+    s1 = AsyncRASolver(A64, np.ones(A64.n), 8, mesh=m8, **FREE10)
+    out["free_1d"] = _free_record(*s1.run(max_rounds=800))
+    out["free_1d"]["cluster"] = async_ras_rounds.cluster
+    out["free_1d"]["wait_ns"] = async_ras_rounds.longest_wait_ns
+    xr, ir = s1.run_refined(tol=1e-8, max_rounds=800)
+    out["refined"] = {"rel": ir["relative_residual_norm"],
+                      "restarts": ir["restarts"], "rounds": ir["rounds"]}
+    s2 = AsyncRASolver2D(A256, np.ones(A256.n), mesh=m8, **FREE13)
+    out["free_2d"] = _free_record(*s2.run(max_rounds=400))
+    out["free_2d"]["cluster"] = async_ras_2d_rounds.cluster
+    out["free_2d"]["wait_ns"] = async_ras_2d_rounds.longest_wait_ns
+    ani3 = read_mtx(matrix_path("ani3_crop.mtx"))
+    part = make_partition(ani3, 4, Settings(partition=Partition.metis))
+    s3 = AsyncGeneralRASolver(ani3, np.ones(ani3.n), 4, overlap=2, part=part,
+                              mesh=pmesh.make_mesh(num_ranks=4), **FREE16)
+    out["free_general"] = _free_record(*s3.run(max_rounds=400))
+    out["free_general"]["variant"] = async_general_rounds.variant
+    out["free_general"]["wait_ns"] = async_general_rounds.longest_wait_ns
+    # the slices of phases 9, 12 and 15 at full size, cold then warm
+    A3 = laplacian_3d(100)
+    Aa = anisotropic_diffusion_2d(360, eps=5.0, theta=0.3)
+    sm_ = _slice_free_settings()
+    smet = _slice_free_settings(partition=Partition.metis)
+    part128 = make_partition(Aa, 128, smet)
+    for name, mat, S, st, kw, kern in (
+            ("slice_1d", A3, 16, sm_, {}, async_ras_rounds),
+            ("slice_2d", A, 16, sm_, {}, async_ras_2d_rounds),
+            ("slice_general", Aa, 128, smet,
+             dict(partition_indices=part128), async_general_rounds)):
+        mS = pmesh.make_mesh(num_ranks=S)
+        rec, xs = {}, {}
+        for tag in ("cold", "warm"):
+            t0 = time.perf_counter()
+            res, launches = counted(lambda: solve(
+                mat, np.ones(mat.n), st, S, mesh=mS, **kw))
+            xs[tag] = res.solution
+            rec[tag] = {"launches": launches, "run_s": res.solve_time_s,
+                        "wall_s": time.perf_counter() - t0,
+                        "rel": res.relative_residual_norm,
+                        "finite": bool(np.isfinite(res.solution).all()),
+                        "wait_ns": kern.longest_wait_ns}
+        rec["cluster"] = getattr(kern, "cluster", None)
+        rec["variant"] = getattr(kern, "variant", None)
+        # the parent holds the cold solution against phase 9, 12 or 15's
+        rec["warm_same_x"] = bool(np.array_equal(xs["warm"], xs["cold"]))
+        rec["x_path"] = os.path.join(out_dir,
+                                     f"{name}_p{mesh.process_index}.npy")
+        np.save(rec["x_path"], xs["cold"])
+        out[name] = rec
+    out["t33"] = time.perf_counter() - t_phase
+
+    # --- 34. checkpoints: the flagship stopped at FLAGSHIP_STOP, resumed -----
+    t_phase = time.perf_counter()
+    Af = laplacian_2d(512)
+    sf = Settings(partition=Partition.regular, precond=Precond.fsai,
+                  **FLAGSHIP)
+    full = RASolver(decompose(Af, generate_rhs(Af.n), sf, MESH_RANKS),
+                    mesh=mesh)
+    half = copy.copy(full)
+    half.settings = sf.replace(max_iters=FLAGSHIP_STOP)
+    path = os.path.join(out_dir, "flagship_stop.npz")
+    r = half.run(checkpoint_path=path)
+    out["ck_path"] = path
+    out["ck_stop_iters"] = r.iters
+    res = full.run(resume_state=full.load_checkpoint(path))
+    out["ck_resumed"] = {"iters": res.iters, "rel": res.relative_residual_norm,
+                         "hist": res.global_resnorm_history.tolist(),
+                         "converged": bool(res.converged)}
+    del full, half
+    fr = AsyncRASolver(A64, np.ones(A64.n), 8, mesh=m8, **FREE10)
+    xs, i_s = fr.run(max_rounds=800)
+    fpath = os.path.join(out_dir, "free_stop")
+    fr.run(max_rounds=2 * FREE10["chunk_rounds"], checkpoint_path=fpath)
+    xc, ic = fr.run(max_rounds=800, resume_state=fr.load_checkpoint(fpath))
+    out["ck_free"] = {"same_x": bool(np.array_equal(xs, xc)),
+                      "done_at": np.asarray(ic["done_at"]).tolist(),
+                      "straight_done_at": np.asarray(i_s["done_at"]).tolist()}
+    out["t34"] = time.perf_counter() - t_phase
+    return out
+
+
+def _mps_line() -> str:
+    """Whether the card runs under the Multi-Process Service, and its
+    compute mode (nvidia-smi)."""
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    pipe = os.environ.get("CUDA_MPS_PIPE_DIRECTORY", "/tmp/nvidia-mps")
+    mps = os.path.exists(os.path.join(pipe, "control"))
+    return f"compute mode {mode}, MPS {'on' if mps else 'off'}"
+
+
+def mesh_async_phases(sm: Smoke) -> None:
+    """Phases 32-34: the one-sided exchange (K4), the free-running tiers
+    (K5-K7) and the checkpoints across 2 processes on the one card, each
+    process reaching the other's ranks through the CUDA IPC window."""
+    import numpy as np
+
+    from schwarz_tpu_torch import Partition, Precond, RASolver, Settings
+    from schwarz_tpu_torch.core.decompose import decompose
+    from schwarz_tpu_torch.models import generate_rhs, laplacian_2d
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.environ["SCHWARZ_TPU_COARSE_CACHE"] = os.path.join(
+        here, "build", "coarse_cache")
+    card = _card_line()
+    print(f"phases 32-34 on 2 processes: {_mps_line()}; {card}", flush=True)
+    t0 = time.perf_counter()
+    outs = _mesh_group("async", 2, 900)
+    print(f"phases 32-34: the 2-process group took "
+          f"{time.perf_counter() - t0:.1f} s (phase 32 "
+          f"{outs[0]['t32']:.1f} s, 33 {outs[0]['t33']:.1f} s, 34 "
+          f"{outs[0]['t34']:.1f} s in process 0)", flush=True)
+
+    # --- 32. the one-sided exchange across processes -------------------------
+    k4_1p = sm.kernels["rdma_shift"]["ms"]
+    for pid, o in enumerate(outs):
+        rc, rw = o["rdma"]["cold"], o["rdma"]["warm"]
+        print(f"phase 32, rdma slice, process {pid} of 2: {rc['iters']} "
+              f"iterations, launches {rc['launches']}; warm "
+              f"{rw['ms_it']:.2f} ms per outer iteration (neighbor "
+              f"{o['neighbor']['warm']['ms_it']:.2f}); K4 {o['k4_ms']:.4f} "
+              f"ms per exchange (events; phase 17 in one process: "
+              f"{k4_1p:.4f}); longest K4 wait {o['k4_wait_ns'] / 1e6:.3f} "
+              f"ms; {card}", flush=True)
+    o0 = outs[0]
+    n_it = len(o0["rdma"]["cold"]["hist"])
+    sm.check(all(o["rdma"]["cold"]["launches"]["rdma_shift"] == n_it
+                 and o["rdma"]["cold"]["launches"]["halo_runs"] == n_it
+                 and o["neighbor"]["cold"]["launches"]["rdma_shift"] == 0
+                 for o in outs) and n_it > 0,
+             f"phase 32: K4 and K2 launched once per exchange in each "
+             f"process ({n_it} exchanges)")
+    sm.check(_same_everywhere(outs, "rdma", "cold", "hist")
+             and o0["rdma"]["cold"]["hist"] == o0["neighbor"]["cold"]["hist"]
+             and o0["rdma"]["warm"]["hist"] == o0["rdma"]["cold"]["hist"],
+             "phase 32: the rdma slice on 2 processes gives the neighbor "
+             "strategy's history on 2 processes bit for bit")
+    want = getattr(sm, "rdma_get_iters", None)
+    g = o0["get2d"]
+    sm.check(_same_everywhere(outs, "get2d", "hist") and g["converged"]
+             and g["iters"] == want and g["rel"] < 1e-5
+             and all(o["get2d"]["launches"]["rdma_shift"] > 0 for o in outs),
+             f"phase 32: laplacian_2d(32), regular2d, 64 subdomains on 16 "
+             f"ranks, rdma get mode on 2 processes: {g['iters']} iterations "
+             f"(phase 19 in one process: {want}), true relative residual "
+             f"{g['rel']:.3e}")
+    sm.kernels["rdma_shift"]["launches_2p"] = [
+        o["rdma"]["cold"]["launches"]["rdma_shift"] for o in outs]
+    sm.kernels["rdma_shift"]["ms_2p"] = [o["k4_ms"] for o in outs]
+    sm.kernels["rdma_shift"]["wait_ms_2p"] = [o["k4_wait_ns"] / 1e6
+                                              for o in outs]
+
+    # --- 33. the free-running tiers across processes -------------------------
+    for tier, key, bar in (("1d", "free_1d", 1e-3), ("2d", "free_2d", 1e-2),
+                           ("general", "free_general", 5e-3)):
+        x1, i1 = sm.free_refs[tier]
+        r = o0[key]
+        dx = float(np.abs(np.asarray(r["x"]) - x1).max())
+        extra = {k: [o[key].get(k) for o in outs]
+                 for k in ("cluster", "variant") if k in r}
+        print(f"phase 33, {tier} on 2 processes: done_at {r['done_at']} in "
+              f"{r['rounds']} rounds, {r['time_s']:.4f} s, true rel "
+              f"{r['rel']:.6e}; one process on the card: done_at "
+              f"{np.asarray(i1['done_at']).tolist()}, {i1['time_s']:.4f} s; "
+              f"max |x_2p - x_1p| {dx:.3e}; {extra}; longest wait "
+              f"{[o[key]['wait_ns'] / 1e6 for o in outs]} ms", flush=True)
+        # without fresh_read the rounds do not depend on timing, and both
+        # runs take one cluster size: x is the single process's bit for bit
+        sm.check(_same_everywhere(outs, key, "x") and r["converged"]
+                 and r["done_at"] == np.asarray(i1["done_at"]).tolist()
+                 and dx == 0.0 and r["rel"] < bar,
+                 f"phase 33, {tier} tier on 2 processes: done_at equal to "
+                 f"the single-process card run's, x equal to it bit for bit "
+                 f"(max |x_2p - x_1p| {dx:.3e}), true residual "
+                 f"{r['rel']:.3e} < {bar:g}")
+    rr = o0["refined"]
+    sm.check(rr["rel"] <= 1e-8,
+             f"phase 33: run_refined on 2 processes reaches "
+             f"{rr['rel']:.3e} <= 1e-8 ({rr['restarts']} restarts)")
+    for name, kern, phase, others in (
+            ("slice_1d", "async_ras", 7, ("async_ras_2d",
+                                          "async_ras_general")),
+            ("slice_2d", "async_ras_2d", 11, ("async_ras",
+                                              "async_ras_general")),
+            ("slice_general", "async_ras_general", 14,
+             ("async_ras", "async_ras_2d"))):
+        per = [o[name] for o in outs]
+        for pid, rec in enumerate(per):
+            for tag in ("cold", "warm"):
+                c = rec[tag]
+                n_l = c["launches"][kern]
+                print(f"phase 33, {name} ({tag}) process {pid}: {n_l} "
+                      f"launches, run loop {c['run_s']:.4f} s = "
+                      f"{1e3 * c['run_s'] / max(n_l, 1):.3f} ms per "
+                      f"16-round launch (phase {phase} in one process, "
+                      f"events: {sm.kernels[kern]['ms']:.3f}), wall "
+                      f"{c['wall_s']:.2f} s, true rel {c['rel']:.6e}, "
+                      f"longest wait {c['wait_ns'] / 1e6:.3f} ms, cluster "
+                      f"{rec['cluster']}, variant {rec['variant']}",
+                      flush=True)
+        cold = [rec["cold"] for rec in per]
+        sm.check(all(c["launches"][kern] > 0 and c["finite"]
+                     and all(c["launches"][k] == 0 for k in others)
+                     for c in cold)
+                 and _same_everywhere(per, "cold", "launches"),
+                 f"phase 33, {name} on 2 processes: {kern} launched "
+                 f"{cold[0]['launches'][kern]} times in each process, the "
+                 f"other tiers' kernels 0, finite results")
+        # the slice's solution against the single-process run on the same
+        # inputs: the rounds do not depend on timing, but the processes'
+        # launches may take another cluster size than one process's, and
+        # a rank's float64 sums are then grouped otherwise before their
+        # rounding to float32 (async_common.cuh ClusterTeam)
+        x1 = sm.slice_refs.get(name)
+        gaps = [float("inf") if x1 is None else float(
+            np.abs(np.load(rec["x_path"]) - x1).max()) for rec in per]
+        scale = 0.0 if x1 is None else float(np.abs(x1).max())
+        sm.check(x1 is not None and max(gaps) <= SLICE_X_RTOL * scale
+                 and all(rec["warm_same_x"] for rec in per),
+                 f"phase 33, {name} on 2 processes: each process's solution "
+                 f"within {max(gaps):.3e} <= {SLICE_X_RTOL:g} x "
+                 f"{scale:.4e} of the single-process run's on the same "
+                 f"inputs, the warm run's equal to the cold run's")
+        k = sm.kernels[kern]
+        k["launches_2p"] = [c["launches"][kern] for c in cold]
+        k["ms_2p"] = [1e3 * rec["warm"]["run_s"]
+                      / max(rec["warm"]["launches"][kern], 1) for rec in per]
+
+    # --- 34. checkpoints across processes ------------------------------------
+    h31 = np.asarray(getattr(sm, "mesh_flagship_hist", []))
+    want_it = getattr(sm, "flagship_iters", 18)
+    path = o0["ck_path"]
+    A = laplacian_2d(512)
+    one = RASolver(decompose(A, generate_rhs(A.n), Settings(
+        partition=Partition.regular, precond=Precond.fsai, **FLAGSHIP),
+        MESH_RANKS))
+    r1 = one.run(resume_state=one.load_checkpoint(path))
+    del one
+    for what, it, hist, rel in (
+            ("on 2 processes", o0["ck_resumed"]["iters"],
+             o0["ck_resumed"]["hist"], o0["ck_resumed"]["rel"]),
+            ("in one process", r1.iters, r1.global_resnorm_history,
+             r1.relative_residual_norm)):
+        h = np.asarray(hist)
+        gap = (float(np.abs(h / h31 - 1).max())
+               if len(h) == len(h31) else float("inf"))
+        sm.check(o0["ck_stop_iters"] == FLAGSHIP_STOP and it == want_it
+                 and rel <= 1e-8 and gap <= MESH_HISTORY_RTOL,
+                 f"phase 34: the flagship stopped at {o0['ck_stop_iters']} "
+                 f"iterations on 2 processes and resumed {what}: {it} "
+                 f"iterations (phase 20: {want_it}), true relative residual "
+                 f"{rel:.3e}, history within {gap:.3e} <= "
+                 f"{MESH_HISTORY_RTOL:g} of phase 31's 2-process run")
+    cf = o0["ck_free"]
+    sm.check(all(o["ck_free"]["same_x"] for o in outs)
+             and cf["done_at"] == cf["straight_done_at"],
+             f"phase 34: a free-running 1-D checkpoint across processes "
+             f"resumes to the straight run (done_at {cf['done_at']})")
+    os.environ.pop("SCHWARZ_TPU_COARSE_CACHE")
+
 
 def main() -> int:
     import torch
@@ -3012,7 +3435,7 @@ def main() -> int:
 
 
 def _phases(sm, torch) -> int:
-    """Phases 3-32."""
+    """Phases 3-35."""
     import numpy as np
 
     from schwarz_tpu_torch import (CommSettings, HaloStrategy, Precond,
@@ -3024,10 +3447,7 @@ def _phases(sm, torch) -> int:
     t0 = time.perf_counter()
     A = laplacian_2d(1024)
     b = generate_rhs(A.n, random=False)
-    settings = Settings(
-        overlap=3, dtype="float32", row_pad_multiple=1024, spmv_format="dia",
-        fused_local_cg=True, precond=Precond.jacobi, local_tolerance=1e-6,
-        local_max_iters=50, tolerance=1e-6, max_iters=30)
+    settings = Settings(precond=Precond.jacobi, **SLICE)
     dec = decompose(A, b, settings, 16)
     solver = RASolver(dec)
     torch.cuda.synchronize()
@@ -3190,7 +3610,16 @@ def _phases(sm, torch) -> int:
     print(f"phase 31 (across processes) took {time.perf_counter() - t0:.1f} "
           f"s", flush=True)
 
-    # --- 32. the kernels line and the last line ------------------------------
+    # --- 32-34. rdma, free-running and checkpoints across processes ---------
+    t0 = time.perf_counter()
+    try:
+        mesh_async_phases(sm)
+    except RuntimeError as e:
+        sm.check(False, f"phases 32-34: {e}")
+    print(f"phases 32-34 (rdma, free-running, checkpoints across processes) "
+          f"took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # --- 35. the kernels line and the last line ------------------------------
     meta_k = {
         "dia_spmv_float32": ("csrc/dia_spmv.cu",
                              "schwarz_tpu/ops/pallas_kernels.py:110"),
@@ -3233,7 +3662,8 @@ def _phases(sm, torch) -> int:
             **{e: k[e] for e in ("cluster", "variant", "threads",
                                  "ms_one_block", "ms_global",
                                  "rounds_per_launch", "tile",
-                                 "two_launches_ms", "library_two_ms")
+                                 "two_launches_ms", "library_two_ms",
+                                 "launches_2p", "ms_2p", "wait_ms_2p")
                if e in k}})
     if sm.failures:
         print(f"chip_smoke: {len(sm.failures)} phase(s) failed: "

@@ -17,7 +17,12 @@
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kLanes = 128;  // known-converged lanes: one per rank
-constexpr long long kWatchdogCycles = 8000000000LL;  // ~4 s at 1.98 GHz
+// The watchdog bounds a wait by SM cycles in one process, and by the global
+// timer (nanoseconds) across processes: there a rank may wait out the peer
+// context's time slices, and the cycles of a context switched out need not
+// count.  The timer's reads stay off the single-process path.
+constexpr long long kWatchdogCycles = 8000000000LL;        // ~4 s at 1.98 GHz
+constexpr unsigned long long kWatchdogNs = 4000000000ull;  // 4 s
 
 enum Wait { kWaitAck = 1, kWaitMessage = 2, kWaitDrain = 3 };
 
@@ -48,6 +53,12 @@ __device__ __forceinline__ void red_release_add(unsigned int* p,
                : "memory");
 }
 
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
 // Spins until *p >= want.  False when the watchdog fired here or elsewhere.
 template <typename T>
 __device__ bool spin_until(const T* p, T want, int* err, int code) {
@@ -61,6 +72,128 @@ __device__ bool spin_until(const T* p, T want, int* err, int code) {
     __nanosleep(64);
   }
   return true;
+}
+
+// spin_until across processes: the wait is bounded by the global timer, and
+// a wait that had to spin raises *longest to its length in ns.
+template <typename T>
+__device__ bool spin_until_ns(const T* p, T want, int* err, int code,
+                              unsigned long long* longest) {
+  if (ld_acquire(p) >= want) return true;
+  const unsigned long long t0 = global_ns();
+  bool ok = true;
+  while (ld_acquire(p) < want) {
+    if (*(volatile int*)err != 0) {
+      ok = false;
+      break;
+    }
+    if (global_ns() - t0 > kWatchdogNs) {
+      atomicCAS(err, 0, code);
+      ok = false;
+      break;
+    }
+    __nanosleep(64);
+  }
+  atomicMax(longest, global_ns() - t0);
+  return ok;
+}
+
+// spin_until in one process (``longest`` is not kept there: null),
+// spin_until_ns across processes.
+template <bool kCross, typename T>
+__device__ __forceinline__ bool spin(const T* p, T want, int* err, int code,
+                                     unsigned long long* longest) {
+  if constexpr (kCross)
+    return spin_until_ns(p, want, err, code, longest);
+  else
+    return spin_until(p, want, err, code);
+}
+
+// ---- rank-addressed rings -------------------------------------------------
+
+// The slot rings, sequence words and acknowledgement counters of every rank
+// of a group, reached across processes.  Process p's window starts at
+// table[p], as mapped in this process (its own buffer, or a peer's through
+// CUDA IPC: csrc/peer_window.cu); rank q lives in process q / Dl at local
+// index q % Dl.  A window holds (Dl, ND, M, slot) floats of slots from its
+// base, (Dl, ND, M) 64-bit sequence words at byte ``seq_off``, (Dl, ND)
+// 32-bit ack counters at ``ack_off``, the group's error word at
+// ``err_off`` (process 0's is the one every rank reads and sets, so a
+// watchdog in one process stops every process's launch) and this process's
+// longest wait in ns at ``err_off + 8``.  ``own`` is this process's window.
+// The handoff stays at .gpu scope: the processes' contexts share one
+// device.
+struct RankRings {
+  const unsigned long long* table;
+  char* own;
+  long long seq_off, ack_off, err_off;
+  int Dl, ND, M, slot, first;
+  __device__ __forceinline__ char* base(int rank) const {
+    const int p = rank / Dl;
+    return p == first / Dl ? own : reinterpret_cast<char*>(table[p]);
+  }
+  __device__ __forceinline__ long long local(int rank, int d) const {
+    return (long long)(rank % Dl) * ND + d;
+  }
+  __device__ __forceinline__ float* at(int rank, int d, int j) const {
+    return reinterpret_cast<float*>(base(rank)) +
+           (local(rank, d) * M + j) * slot;
+  }
+  __device__ __forceinline__ unsigned long long* seq(int rank, int d,
+                                                     int j) const {
+    return reinterpret_cast<unsigned long long*>(base(rank) + seq_off) +
+           local(rank, d) * M + j;
+  }
+  __device__ __forceinline__ unsigned int* ack(int rank, int d) const {
+    return reinterpret_cast<unsigned int*>(base(rank) + ack_off) +
+           local(rank, d);
+  }
+  __device__ __forceinline__ int* err() const {
+    return reinterpret_cast<int*>(base(0) + err_off);
+  }
+  __device__ __forceinline__ unsigned long long* longest() const {
+    return reinterpret_cast<unsigned long long*>(own + err_off + 8);
+  }
+};
+
+// A free-running kernel's operands: its Args in one process, where every
+// rank's rings are at precomputed pointers into the process's one window;
+// its Args and the RankRings of the group across processes.  The kernels
+// are compiled for both, so that one process reads no table and computes no
+// offsets: the single-process kernels keep their registers and spills.
+template <class A>
+struct WithRings : A {
+  RankRings rings;
+};
+template <class A, bool kCross>
+using ArgsFor = std::conditional_t<kCross, WithRings<A>, A>;
+
+// The rank of the group that the launch's rank ``ml`` is.
+template <bool kCross, class A>
+__device__ __forceinline__ int group_rank(const A& a, int ml) {
+  if constexpr (kCross)
+    return a.rings.first + ml;
+  else
+    return ml;
+}
+
+// The host's description of a window (ops/rank_rings.py RingLayout): the
+// (P,) table of every process's window and this process's own.
+inline RankRings make_rings(const void* table, void* own, long long seq_off,
+                            long long ack_off, long long err_off, int Dl,
+                            int ND, int M, int slot, int first) {
+  RankRings r{};
+  r.table = static_cast<const unsigned long long*>(table);
+  r.own = static_cast<char*>(own);
+  r.seq_off = seq_off;
+  r.ack_off = ack_off;
+  r.err_off = err_off;
+  r.Dl = Dl;
+  r.ND = ND;
+  r.M = M;
+  r.slot = slot;
+  r.first = first;
+  return r;
 }
 
 __device__ __forceinline__ double warp_sum(double v) {

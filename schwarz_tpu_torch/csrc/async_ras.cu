@@ -58,13 +58,21 @@
 // reuses a slot at round t >= M.
 //
 // Launch boundaries: the sequence words, ack counters and the error word
-// are reset by a stream-ordered memset before every launch (the wrapper
-// allocates them zeroed), so messages are numbered from 1 in each launch,
-// as the TPU kernel's rings start empty at each launch.
+// are reset by a stream-ordered memset before every launch, so messages are
+// numbered from 1 in each launch, as the TPU kernel's rings start empty at
+// each launch.
 //
-// Watchdog: every spin is bounded by clock64(); on timeout the rank sets
-// the error word and leaves the loop, every other spin sees the error word
-// and leaves too, and the wrapper raises.
+// Across processes.  Each process launches its own Dl = D / P ranks (me =
+// first + blockIdx.x / C); a rank's rings, sequence words and acks live in
+// its process's window and a neighbour's are reached through the table
+// (RankRings in async_common.cuh; CUDA IPC, csrc/peer_window.cu).  The
+// wrapper zeroes its own words, and every process's previous launch has
+// ended, before any process launches (ops/rank_rings.py).
+//
+// Watchdog: every spin is bounded by clock64() in one process and by the
+// global timer across processes; on timeout the rank sets the group's error
+// word and leaves the loop, every other spin sees the error word and leaves
+// too, and the wrapper raises.
 //
 // fresh_read: the leader's thread 0 also peeks the sequence words of the
 // B-1 newer slots and takes the newest message that has fully arrived; the
@@ -105,8 +113,8 @@ struct Args {
   float* aux_out;
   float* hl_out;
   float* hr_out;
-  float* work;  // (D, nwork, L)
-  float* ring;  // (D, 2, M, slot)
+  float* work;  // (Dl, nwork, L)
+  float* ring;  // (D, 2, M, slot): in one process
   unsigned long long* seq;  // (D, 2, M)
   unsigned int* ack;        // (D, 2)
   int* err;
@@ -155,8 +163,10 @@ __device__ __forceinline__ float apply_solve(
   return s;
 }
 
-template <int KC>
-__global__ void __launch_bounds__(kThreads, 1) async_ras_kernel(const Args a) {
+// kCross: the ranks span processes (RankRings in async_common.cuh)
+template <int KC, bool kCross>
+__global__ void __launch_bounds__(kThreads, 1)
+    async_ras_kernel(const ArgsFor<Args, kCross> a) {
   __shared__ float known[kLanes], fl_l[kLanes], fl_r[kLanes];
   __shared__ double red[4 * kWarps + 4];
   __shared__ double part[2 * kMaxSum];
@@ -167,7 +177,8 @@ __global__ void __launch_bounds__(kThreads, 1) async_ras_kernel(const Args a) {
   const int tid = threadIdx.x;
   const int crank = (int)cluster.block_rank();
   const bool lead = crank == 0;   // the cluster's block 0 runs the protocol
-  const int me = blockIdx.x / a.C;
+  const int ml = blockIdx.x / a.C;  // the rank in this process's launch
+  const int me = group_rank<kCross>(a, ml);  // in the group
   const int D = a.D, L = a.L, hw = a.hw, R = a.R, total = a.total;
   const int Sl = a.Sl, T = a.T, B = a.B, M = a.M;
   const int SlR = Sl * R;
@@ -177,32 +188,55 @@ __global__ void __launch_bounds__(kThreads, 1) async_ras_kernel(const Args a) {
                    part, 0};
   const int q0 = team.q0 + tid, q1 = team.q1;
   const int left = (me + D - 1) % D, right = (me + 1) % D;
-  const long long vb = (long long)me * L;
+  const long long vb = (long long)ml * L;
   const float* dia = a.dia + vb * a.K;
   const float* bo = a.boost != nullptr ? a.boost + vb : nullptr;
   const float* b = a.b + vb;
   const float* dv = a.dinv + vb;
   const float* md = a.md + vb;
   const float* mi = a.mi + vb;
-  float* x = a.x + (long long)me * SlR;
-  const float* x_in = a.x_in + (long long)me * SlR;
-  float* W = a.work + (long long)me * a.nwork * L;
+  float* x = a.x + (long long)ml * SlR;
+  const float* x_in = a.x_in + (long long)ml * SlR;
+  float* W = a.work + (long long)ml * a.nwork * L;
   auto vec = [&](int i) { return W + (long long)i * L; };
   auto slot = [&](int rank, int dir, int j) {
-    return a.ring + (((long long)rank * 2 + dir) * M + j) * a.slot;
+    if constexpr (kCross)
+      return a.rings.at(rank, dir, j);
+    else
+      return a.ring + (((long long)rank * 2 + dir) * M + j) * a.slot;
   };
   auto seq = [&](int rank, int dir, int j) {
-    return a.seq + ((long long)rank * 2 + dir) * M + j;
+    if constexpr (kCross)
+      return a.rings.seq(rank, dir, j);
+    else
+      return a.seq + ((long long)rank * 2 + dir) * M + j;
   };
-  auto ack = [&](int rank, int dir) { return a.ack + rank * 2 + dir; };
+  auto ack = [&](int rank, int dir) {
+    if constexpr (kCross)
+      return a.rings.ack(rank, dir);
+    else
+      return a.ack + rank * 2 + dir;
+  };
+  auto err = [&] {
+    if constexpr (kCross)
+      return a.rings.err();
+    else
+      return a.err;
+  };
+  auto longest = [&]() -> unsigned long long* {
+    if constexpr (kCross)
+      return a.rings.longest();
+    else
+      return nullptr;
+  };
 
   for (int l = tid; l < kLanes; l += kThreads)
-    known[l] = fmaxf(a.known_in[me * kLanes + l], l >= D ? 1.f : 0.f);
+    known[l] = fmaxf(a.known_in[ml * kLanes + l], l >= D ? 1.f : 0.f);
   for (int i = g0; i < SlR; i += gstep) x[i] = x_in[i];
-  float rn0 = a.aux_in[me * kLanes + 0];
-  float done_at = a.aux_in[me * kLanes + 1];
-  const float base_t = a.aux_in[me * kLanes + 2];
-  float hits = fmaxf(a.aux_in[me * kLanes + 4], 0.f);  // the leader's count
+  float rn0 = a.aux_in[ml * kLanes + 0];
+  float done_at = a.aux_in[ml * kLanes + 1];
+  const float base_t = a.aux_in[ml * kLanes + 2];
+  float hits = fmaxf(a.aux_in[ml * kLanes + 4], 0.f);  // the leader's count
   float rn = 0.f;
   cluster.sync();  // x is read across blocks from here on
 
@@ -217,8 +251,10 @@ __global__ void __launch_bounds__(kThreads, 1) async_ras_kernel(const Args a) {
     if (t >= M) {
       if (lead && tid == 0) {
         const unsigned int want = t - M + 1;
-        spin_until(ack(me, 0), want, a.err, kWaitAck) &&
-            spin_until(ack(me, 1), want, a.err, kWaitAck);
+        spin<kCross>(ack(me, 0), want, err(), kWaitAck,
+                     longest()) &&
+            spin<kCross>(ack(me, 1), want, err(), kWaitAck,
+                         longest());
       }
       cluster.sync();
     }
@@ -250,10 +286,10 @@ __global__ void __launch_bounds__(kThreads, 1) async_ras_kernel(const Args a) {
     if (msg) {
       if (lead && tid == 0) {
         const int u = t - B, jc = u % M;
-        spin_until(seq(left, 1, jc), (unsigned long long)u + 1, a.err,
-                   kWaitMessage) &&
-            spin_until(seq(right, 0, jc), (unsigned long long)u + 1, a.err,
-                       kWaitMessage);
+        spin<kCross>(seq(left, 1, jc), (unsigned long long)u + 1,
+                     err(), kWaitMessage, longest()) &&
+            spin<kCross>(seq(right, 0, jc), (unsigned long long)u + 1,
+                         err(), kWaitMessage, longest());
         int cl = jc, cr = jc;
         if (a.fresh && B > 1) {
           for (int d = 1; d < B; ++d) {
@@ -281,8 +317,8 @@ __global__ void __launch_bounds__(kThreads, 1) async_ras_kernel(const Args a) {
         fl_r[l] = l < D ? __ldcg(h_r + hw + l) : 0.f;
       }
     } else {
-      h_l = a.hl_in + (long long)me * hw;
-      h_r = a.hr_in + (long long)me * hw;
+      h_l = a.hl_in + (long long)ml * hw;
+      h_r = a.hr_in + (long long)ml * hw;
       for (int l = tid; l < kLanes; l += kThreads) fl_l[l] = fl_r[l] = 0.f;
     }
     // ---- the folded extended windows: ring halos at the rank's edges,
@@ -384,10 +420,10 @@ __global__ void __launch_bounds__(kThreads, 1) async_ras_kernel(const Args a) {
   const int n0 = T - B > 0 ? T - B : 0;
   if (lead && tid == 0) {
     for (int n = n0; n < T; ++n) {
-      spin_until(seq(left, 1, n % M), (unsigned long long)n + 1, a.err,
-                 kWaitDrain) &&
-          spin_until(seq(right, 0, n % M), (unsigned long long)n + 1, a.err,
-                     kWaitDrain);
+      spin<kCross>(seq(left, 1, n % M), (unsigned long long)n + 1,
+                   err(), kWaitDrain, longest()) &&
+          spin<kCross>(seq(right, 0, n % M), (unsigned long long)n + 1,
+                       err(), kWaitDrain, longest());
     }
   }
   cluster.sync();
@@ -395,8 +431,8 @@ __global__ void __launch_bounds__(kThreads, 1) async_ras_kernel(const Args a) {
     const float* cl = slot(left, 1, (T - 1) % M);
     const float* cr = slot(right, 0, (T - 1) % M);
     for (int i = g0; i < hw; i += gstep) {
-      a.hl_out[(long long)me * hw + i] = __ldcg(cl + i);
-      a.hr_out[(long long)me * hw + i] = __ldcg(cr + i);
+      a.hl_out[(long long)ml * hw + i] = __ldcg(cl + i);
+      a.hr_out[(long long)ml * hw + i] = __ldcg(cr + i);
     }
   }
   if (lead) {
@@ -410,15 +446,15 @@ __global__ void __launch_bounds__(kThreads, 1) async_ras_kernel(const Args a) {
     }
     __syncthreads();
     for (int l = tid; l < kLanes; l += kThreads) {
-      a.known_out[me * kLanes + l] = known[l];
+      a.known_out[ml * kLanes + l] = known[l];
       float v = 0.f;
       if (l == 0) v = rn0;
       if (l == 1) v = done_at;
       if (l == 2) v = base_t + (float)T;
       if (l == 3) v = rn;
-      a.aux_out[me * kLanes + l] = v;
+      a.aux_out[ml * kLanes + l] = v;
     }
-    if (tid == 0) a.aux_out[me * kLanes + 4] = hits;
+    if (tid == 0) a.aux_out[ml * kLanes + 4] = hits;
   }
   cluster.sync();  // no block leaves while another may read its partials
 }
@@ -460,25 +496,31 @@ int async_ras_max_clusters(int K, int C) {
     constexpr int KC = decltype(kc)::value;
     cudaLaunchAttribute at[2];
     cudaLaunchConfig_t cfg = launch_config(1, C, at, 0);
-    return (int)cudaOccupancyMaxActiveClusters(&n, async_ras_kernel<KC>, &cfg);
+    return (int)cudaOccupancyMaxActiveClusters(
+        &n, async_ras_kernel<KC, false>, &cfg);
   });
   return e == 0 ? n : 0;
 }
 
-// See ops/async_ras_kernel.py for the operand layout.  ``sync`` holds the
-// (D, 2, M) sequence words, the (D, 2) ack counters and the error word,
-// zeroed by the caller before the launch.  C: blocks per rank.
+// See ops/async_ras_kernel.py for the operand layout: the per-rank
+// operands hold this process's Dl ranks, the group's D ranks start at
+// ``first``.  ``table`` (P,) holds every process's window (the rings, then
+// the sequence words, acks and error word at the byte offsets, zeroed by
+// the caller before the launch; in one process ``table`` is not read and
+// ``own`` is the process's window).  C: blocks per rank.
 int async_ras_f32(const float* dia, const float* b, const float* dinv,
                   const float* md, const float* mi, const float* boost,
                   const float* x_in, const float* known_in,
                   const float* aux_in, const float* hl_in, const float* hr_in,
                   float* x, float* known, float* aux, float* hl, float* hr,
-                  float* work, float* ring, void* sync, int D, int Sl, int K,
-                  int total, int hw, int T, int B, int ninner, int solver,
-                  int fresh, const int* offs, float tol2, int C,
-                  void* stream) {
+                  float* work, const void* table, void* own,
+                  long long seq_off, long long ack_off, long long err_off,
+                  int D, int Dl,
+                  int first, int Sl, int K, int total, int hw, int T, int B,
+                  int ninner, int solver, int fresh, const int* offs,
+                  float tol2, int C, void* stream) {
   if (K < 1 || K > kMaxDiags || D < 1 || D > kLanes || T < 1 || B < 1 ||
-      C < 1 || C > 8)
+      C < 1 || C > 8 || Dl < 1 || D % Dl || first % Dl || first >= D)
     return (int)cudaErrorInvalidValue;
   if (solver == kGMRES && (ninner < 1 || ninner > kMaxGmres))
     return (int)cudaErrorInvalidValue;
@@ -500,7 +542,6 @@ int async_ras_f32(const float* dia, const float* b, const float* dinv,
   a.hl_out = hl;
   a.hr_out = hr;
   a.work = work;
-  a.ring = ring;
   a.D = D;
   a.Sl = Sl;
   a.K = K;
@@ -520,15 +561,24 @@ int async_ras_f32(const float* dia, const float* b, const float* dinv,
   a.chunk = ((a.L + C - 1) / C + 31) / 32 * 32;
   a.offs = make_offsets(offs, K);
   a.tol2 = tol2;
-  auto* s = static_cast<unsigned long long*>(sync);
-  a.seq = s;
-  a.ack = reinterpret_cast<unsigned int*>(s + (long long)D * 2 * a.M);
-  a.err = reinterpret_cast<int*>(s + (long long)D * 2 * a.M + D);
+  char* w = static_cast<char*>(own);
+  a.ring = reinterpret_cast<float*>(w);
+  a.seq = reinterpret_cast<unsigned long long*>(w + seq_off);
+  a.ack = reinterpret_cast<unsigned int*>(w + ack_off);
+  a.err = reinterpret_cast<int*>(w + err_off);
+  cudaLaunchAttribute at[2];
+  cudaLaunchConfig_t cfg = launch_config(Dl, C, at, (cudaStream_t)stream);
+  // across processes the time slices, not the diagonal loop, bound a
+  // round: one kernel with K at run time keeps the build short
+  if (Dl != D) {
+    const WithRings<Args> c{a, make_rings(table, own, seq_off, ack_off,
+                                          err_off, Dl, 2, a.M, a.slot,
+                                          first)};
+    return (int)cudaLaunchKernelEx(&cfg, async_ras_kernel<0, true>, c);
+  }
   return dispatch_diags(K, [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
-    cudaLaunchAttribute at[2];
-    cudaLaunchConfig_t cfg = launch_config(D, C, at, (cudaStream_t)stream);
-    return (int)cudaLaunchKernelEx(&cfg, async_ras_kernel<KC>, a);
+    return (int)cudaLaunchKernelEx(&cfg, async_ras_kernel<KC, false>, a);
   });
 }
 

@@ -68,8 +68,12 @@
 // credits the producer's ack counter; a producer waits for ack >= t-M+1
 // before it reuses a slot at t >= M.  Sequence words, acks and the error
 // word are zeroed by the caller before each launch.  Every spin is bounded
-// by clock64(): on timeout the error word is set, all spins leave and the
-// wrapper raises.
+// by clock64() in one process and by the global timer across processes: on
+// timeout the group's error word is set, all spins
+// leave and the wrapper raises.  Across processes each process launches its
+// Dl = D / P ranks of the row-major rank grid (me = first + blockIdx.x / C)
+// and reaches its neighbours' rings through the table of windows
+// (RankRings in async_common.cuh, ops/rank_rings.py).
 //
 // fresh_read: per direction the leader's thread 0 peeks the sequence words
 // of the B-1 newer slots and takes the newest message that has fully
@@ -108,8 +112,8 @@ struct Args {
   float* x;
   float* known_out;
   float* aux_out;
-  float* work;  // (D, nwork, FY*FX)
-  float* ring;  // (D, 4, M, slot)
+  float* work;  // (Dl, nwork, FY*FX)
+  float* ring;  // (D, 4, M, slot): in one process
   unsigned long long* seq;  // (D, 4, M)
   unsigned int* ack;        // (D, 4)
   int* err;
@@ -167,9 +171,10 @@ __device__ __forceinline__ float stencil_row(const float* __restrict__ c,
   return acc;
 }
 
-template <int NP>
+// kCross: the ranks span processes (RankRings in async_common.cuh)
+template <int NP, bool kCross>
 __global__ void __launch_bounds__(kNT, 1)
-    async_ras_2d_kernel(const Args a) {
+    async_ras_2d_kernel(const ArgsFor<Args, kCross> a) {
   __shared__ float known[kLanes];
   __shared__ double red[kSumScratch];
   __shared__ double part[2 * kMaxSum];
@@ -179,7 +184,8 @@ __global__ void __launch_bounds__(kNT, 1)
   const int tid = threadIdx.x;
   const int crank = (int)cluster.block_rank();
   const bool lead = crank == 0;   // the cluster's block 0 runs the protocol
-  const int me = blockIdx.x / a.C;
+  const int ml = blockIdx.x / a.C;  // the rank in this process's launch
+  const int me = group_rank<kCross>(a, ml);  // in the group
   const int D = a.D, T = a.T, B = a.B, M = a.M;
   const int HX = a.HX, HY = a.HY, By = a.By, Bx = a.Bx;
   const int FY = a.ply * By, FX = a.plx * Bx, n = FY * FX;
@@ -197,7 +203,7 @@ __global__ void __launch_bounds__(kNT, 1)
                      (dyy + 1) % a.pdy * a.pdx + dxx};
   // what lands in my left halo is the left rank's right strip, and so on
   const int from[4] = {kR, kL, kD, kU};
-  const long long vb = (long long)me * n;
+  const long long vb = (long long)ml * n;
   const float* coef = a.coef + vb * 9;
   const float* bo = a.boost != nullptr ? a.boost + vb : nullptr;
   const float* b = a.b + vb;
@@ -205,15 +211,38 @@ __global__ void __launch_bounds__(kNT, 1)
   const float* md = a.md + vb;
   const float* mi = a.mi + vb;
   float* x = a.x + vb;
-  float* W = a.work + (long long)me * a.nwork * n;
+  float* W = a.work + (long long)ml * a.nwork * n;
   auto vec = [&](int i) { return W + (long long)i * n; };
   auto slot = [&](int rank, int dir, int j) {
-    return a.ring + (((long long)rank * 4 + dir) * M + j) * a.slot;
+    if constexpr (kCross)
+      return a.rings.at(rank, dir, j);
+    else
+      return a.ring + (((long long)rank * 4 + dir) * M + j) * a.slot;
   };
   auto seq = [&](int rank, int dir, int j) {
-    return a.seq + ((long long)rank * 4 + dir) * M + j;
+    if constexpr (kCross)
+      return a.rings.seq(rank, dir, j);
+    else
+      return a.seq + ((long long)rank * 4 + dir) * M + j;
   };
-  auto ack = [&](int rank, int dir) { return a.ack + rank * 4 + dir; };
+  auto ack = [&](int rank, int dir) {
+    if constexpr (kCross)
+      return a.rings.ack(rank, dir);
+    else
+      return a.ack + rank * 4 + dir;
+  };
+  auto err = [&] {
+    if constexpr (kCross)
+      return a.rings.err();
+    else
+      return a.err;
+  };
+  auto longest = [&]() -> unsigned long long* {
+    if constexpr (kCross)
+      return a.rings.longest();
+    else
+      return nullptr;
+  };
   auto A_solve = [&](auto scaled, const float* v, int q) {
     constexpr bool kS = decltype(scaled)::value;
     float s = md[q] * stencil_row<NP, kS>(coef, v, dv, q, tile);
@@ -246,12 +275,12 @@ __global__ void __launch_bounds__(kNT, 1)
   };
 
   for (int l = tid; l < kLanes; l += kNT)
-    known[l] = fmaxf(a.known_in[me * kLanes + l], l >= D ? 1.f : 0.f);
+    known[l] = fmaxf(a.known_in[ml * kLanes + l], l >= D ? 1.f : 0.f);
   for (int q = q0 + tid; q < q1; q += kNT) x[q] = a.x_in[vb + q];
-  float rn0 = a.aux_in[me * kLanes + 0];
-  float done_at = a.aux_in[me * kLanes + 1];
-  const float base_t = a.aux_in[me * kLanes + 2];
-  float hits = fmaxf(a.aux_in[me * kLanes + 4], 0.f);  // the leader's count
+  float rn0 = a.aux_in[ml * kLanes + 0];
+  float done_at = a.aux_in[ml * kLanes + 1];
+  const float base_t = a.aux_in[ml * kLanes + 2];
+  float hits = fmaxf(a.aux_in[ml * kLanes + 4], 0.f);  // the leader's count
   float rn = 0.f;
   cluster.sync();  // x is read across bands from here on
 
@@ -285,7 +314,9 @@ __global__ void __launch_bounds__(kNT, 1)
       if (lead && tid == 0) {
         const unsigned int want = t - M + 1;
         for (int d = 0; d < 4; ++d)
-          if (!spin_until(ack(me, d), want, a.err, kWaitAck)) break;
+          if (!spin<kCross>(ack(me, d), want, err(), kWaitAck,
+                            longest()))
+            break;
       }
       cluster.sync();
     }
@@ -326,8 +357,9 @@ __global__ void __launch_bounds__(kNT, 1)
         const int u = t - B;
         for (int d = 0; d < 4; ++d) {
           src[d] = u % M;
-          if (!spin_until(seq(nb[d], from[d], u % M),
-                          (unsigned long long)u + 1, a.err, kWaitMessage))
+          if (!spin<kCross>(seq(nb[d], from[d], u % M),
+                            (unsigned long long)u + 1, err(),
+                            kWaitMessage, longest()))
             break;
         }
         if (a.fresh && B > 1) {
@@ -423,8 +455,8 @@ __global__ void __launch_bounds__(kNT, 1)
     const int jl = (T - 1) % M;
     if (lead && tid == 0) {
       for (int d = 0; d < 4; ++d)
-        if (!spin_until(seq(nb[d], from[d], jl), (unsigned long long)T,
-                        a.err, kWaitDrain))
+        if (!spin<kCross>(seq(nb[d], from[d], jl), (unsigned long long)T,
+                          err(), kWaitDrain, longest()))
           break;
     }
     cluster.sync();
@@ -434,15 +466,15 @@ __global__ void __launch_bounds__(kNT, 1)
   }
   if (lead) {
     for (int l = tid; l < kLanes; l += kNT) {
-      a.known_out[me * kLanes + l] = known[l];
+      a.known_out[ml * kLanes + l] = known[l];
       float v = 0.f;
       if (l == 0) v = rn0;
       if (l == 1) v = done_at;
       if (l == 2) v = base_t + (float)T;
       if (l == 3) v = rn;
-      a.aux_out[me * kLanes + l] = v;
+      a.aux_out[ml * kLanes + l] = v;
     }
-    if (tid == 0) a.aux_out[me * kLanes + 4] = hits;
+    if (tid == 0) a.aux_out[ml * kLanes + 4] = hits;
   }
   cluster.sync();  // no block leaves while another may read its shared data
 }
@@ -490,27 +522,33 @@ int async_ras_2d_max_clusters(int points, int C) {
     cudaLaunchAttribute at[2];
     cudaLaunchConfig_t cfg = launch_config(1, C, at, 0);
     return (int)cudaOccupancyMaxActiveClusters(
-        &n, async_ras_2d_kernel<decltype(np)::value>, &cfg);
+        &n, async_ras_2d_kernel<decltype(np)::value, false>, &cfg);
   });
   if (e != 0) cudaGetLastError();  // a refused size is not a launch error
   return e == 0 ? n : 0;
 }
 
-// See ops/async_ras_2d_kernel.py for the operand layout.  ``sync`` holds the
-// (D, 4, M) sequence words, the (D, 4) ack counters and the error word,
-// zeroed by the caller before the launch; ``points`` is 5 when the four
-// diagonal planes of ``coef`` are all zero, else 9.  C: blocks per rank;
+// See ops/async_ras_2d_kernel.py for the operand layout: the per-rank
+// operands hold this process's Dl ranks, which start at ``first``.
+// ``table`` (P,) holds every process's window (the rings, then the sequence
+// words, acks and error word at the byte offsets, zeroed by the caller
+// before the launch; in one process ``table`` is not read and ``own`` is
+// the process's window); ``points`` is 5 when the four diagonal planes of ``coef`` are all zero, else 9.  C: blocks per rank;
 // band: tile rows per block.
 int async_ras_2d_f32(const float* coef, const float* b, const float* dinv,
                      const float* md, const float* mi, const float* boost,
                      const float* x_in, const float* known_in,
                      const float* aux_in, float* x, float* known, float* aux,
-                     float* work, float* ring, void* sync, int pdx, int pdy,
-                     int ply, int plx, int By, int Bx, int HY, int HX, int T,
-                     int B, int ninner, int nonsym, int fresh, int points,
-                     float tol2, int C, int band, void* stream) {
+                     float* work, const void* table, void* own,
+                     long long seq_off, long long ack_off, long long err_off,
+                     int Dl, int first,
+                     int pdx, int pdy, int ply, int plx, int By, int Bx,
+                     int HY, int HX, int T, int B, int ninner, int nonsym,
+                     int fresh, int points, float tol2, int C, int band,
+                     void* stream) {
   const int D = pdx * pdy;
-  if (D < 1 || D > kLanes || T < 1 || B < 1 || ply < 1 || plx < 1 ||
+  if (D < 1 || D > kLanes || Dl < 1 || D % Dl || first % Dl || first >= D ||
+      T < 1 || B < 1 || ply < 1 || plx < 1 ||
       By <= 2 * HY || Bx <= 2 * HX || (points != 5 && points != 9) ||
       C < 1 || C > 8 || band < 1 || (long long)band * C < (long long)ply * By ||
       (long long)ply * By * plx * Bx >= (1LL << 24))
@@ -529,7 +567,6 @@ int async_ras_2d_f32(const float* coef, const float* b, const float* dinv,
   a.known_out = known;
   a.aux_out = aux;
   a.work = work;
-  a.ring = ring;
   a.D = D;
   a.pdx = pdx;
   a.pdy = pdy;
@@ -553,15 +590,21 @@ int async_ras_2d_f32(const float* coef, const float* b, const float* dinv,
   a.band = band;
   a.tol2 = tol2;
   a.inv_fx = 1.f / (float)(plx * Bx);
-  auto* s = static_cast<unsigned long long*>(sync);
-  a.seq = s;
-  a.ack = reinterpret_cast<unsigned int*>(s + (long long)D * 4 * a.M);
-  a.err = reinterpret_cast<int*>(s + (long long)D * 4 * a.M + D * 2);
+  char* w = static_cast<char*>(own);
+  a.ring = reinterpret_cast<float*>(w);
+  a.seq = reinterpret_cast<unsigned long long*>(w + seq_off);
+  a.ack = reinterpret_cast<unsigned int*>(w + ack_off);
+  a.err = reinterpret_cast<int*>(w + err_off);
   return dispatch_points(points, [&](auto np) {
     cudaLaunchAttribute at[2];
-    cudaLaunchConfig_t cfg = launch_config(D, C, at, (cudaStream_t)stream);
-    return (int)cudaLaunchKernelEx(
-        &cfg, async_ras_2d_kernel<decltype(np)::value>, a);
+    cudaLaunchConfig_t cfg = launch_config(Dl, C, at, (cudaStream_t)stream);
+    constexpr int P = decltype(np)::value;
+    if (Dl == D)
+      return (int)cudaLaunchKernelEx(&cfg, async_ras_2d_kernel<P, false>, a);
+    const WithRings<Args> c{a, make_rings(table, own, seq_off, ack_off,
+                                          err_off, Dl, 4, a.M, a.slot,
+                                          first)};
+    return (int)cudaLaunchKernelEx(&cfg, async_ras_2d_kernel<P, true>, c);
   });
 }
 

@@ -66,8 +66,12 @@
 // link carries nothing: its message would come back to the rank itself
 // with the rank's own bits.  Sequence words, acks and the error word
 // are zeroed by the caller before each launch.  Every spin is bounded by
-// clock64(): on timeout the error word is set, all spins leave and the
-// wrapper raises.
+// clock64() in one process and by the global timer across processes: on
+// timeout the group's error word is set, all spins leave and the wrapper
+// raises.  Across processes each process launches its
+// Sl = S / P ranks (me = first + blockIdx.x) and reaches its partners'
+// rings through the table of windows (RankRings in async_common.cuh,
+// ops/rank_rings.py).
 //
 // Bound on the card: cols, vals, b, dinv, mask_int and x read once and x
 // written once, against T * (ninner + 1) * (2K + 13) float32 operations per
@@ -98,8 +102,8 @@ struct Args {
   float* known_out;
   float* aux_out;
   float* carry_out;
-  float* work;  // (S, nwork, Rext); null in the shared-memory variant
-  float* ring;  // (S, C, M, slot)
+  float* work;  // (Sl, nwork, Rext); null in the shared-memory variant
+  float* ring;  // (S, C, M, slot): in one process
   unsigned long long* seq;  // (S, C, M)
   unsigned int* ack;        // (S, C)
   int* err;
@@ -131,9 +135,10 @@ __host__ __device__ constexpr int block_threads(bool shared) {
 
 // KC: the ELL width K when the launcher knows it at compile time (5 or 9:
 // a row's K loads then issue together), else 0.
-template <bool kShared, int KC>
+// kCross: the ranks span processes (RankRings in async_common.cuh)
+template <bool kShared, int KC, bool kCross>
 __global__ void __launch_bounds__(block_threads(kShared), 1)
-    async_general_kernel(const Args a) {
+    async_general_kernel(const ArgsFor<Args, kCross> a) {
   constexpr int NT = block_threads(kShared);
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float known[kLanes];
@@ -141,17 +146,18 @@ __global__ void __launch_bounds__(block_threads(kShared), 1)
   using Idx = std::conditional_t<kShared, uint16_t, int>;
 
   const int tid = threadIdx.x;
-  const int me = blockIdx.x;
+  const int ml = blockIdx.x;          // the rank in this process's launch
+  const int me = group_rank<kCross>(a, ml);  // in the group
   const int S = a.S, T = a.T, B = a.B, M = a.M, C = a.C, K = a.K;
   const int Rint = a.Rint, Rext = a.Rext, SEG = a.SEG;
-  const long long eb = (long long)me * K * Rext;
-  const long long vb = (long long)me * Rext;
+  const long long eb = (long long)ml * K * Rext;
+  const long long vb = (long long)ml * Rext;
   const float* b = a.b + vb;
   const float* mi = a.mi + vb;
   const float* bo = a.boost != nullptr ? a.boost + vb : nullptr;
-  const int* sidx = a.send_idx + (long long)me * C * SEG;
-  const int* rslot = a.recv_slot + (long long)me * C * SEG;
-  const int* tgt = a.tgt + me * C;
+  const int* sidx = a.send_idx + (long long)ml * C * SEG;
+  const int* rslot = a.recv_slot + (long long)ml * C * SEG;
+  const int* tgt = a.tgt + ml * C;
   const Idx* cols;
   const float* vals;
   const float* dv;
@@ -176,17 +182,40 @@ __global__ void __launch_bounds__(block_threads(kShared), 1)
     cols = a.cols + eb;
     vals = a.vals + eb;
     dv = a.dinv + vb;
-    W = a.work + (long long)me * a.nwork * Rext;
+    W = a.work + (long long)ml * a.nwork * Rext;
   }
   auto vec = [&](int i) { return W + (long long)i * Rext; };
   float* xe = vec(0);  // [owned rows, halo]
   auto slot = [&](int rank, int c, int j) {
-    return a.ring + (((long long)rank * C + c) * M + j) * a.slot;
+    if constexpr (kCross)
+      return a.rings.at(rank, c, j);
+    else
+      return a.ring + (((long long)rank * C + c) * M + j) * a.slot;
   };
   auto seq = [&](int rank, int c, int j) {
-    return a.seq + ((long long)rank * C + c) * M + j;
+    if constexpr (kCross)
+      return a.rings.seq(rank, c, j);
+    else
+      return a.seq + ((long long)rank * C + c) * M + j;
   };
-  auto ack = [&](int rank, int c) { return a.ack + rank * C + c; };
+  auto ack = [&](int rank, int c) {
+    if constexpr (kCross)
+      return a.rings.ack(rank, c);
+    else
+      return a.ack + rank * C + c;
+  };
+  auto err = [&] {
+    if constexpr (kCross)
+      return a.rings.err();
+    else
+      return a.err;
+  };
+  auto longest = [&]() -> unsigned long long* {
+    if constexpr (kCross)
+      return a.rings.longest();
+    else
+      return nullptr;
+  };
   // row q of A v, or of A (dv * v) when scaled: the entries in slot order
   auto A_row = [&](auto scaled, const float* v, int q) {
     auto at = [&](int i) {
@@ -249,17 +278,17 @@ __global__ void __launch_bounds__(block_threads(kShared), 1)
   auto await_messages = [&](int n, int code) {
     for (int c = tid; c < C; c += NT)
       if (tgt[c] != me)
-        spin_until(seq(tgt[c], c, n % M), (unsigned long long)n + 1, a.err,
-                   code);
+        spin<kCross>(seq(tgt[c], c, n % M), (unsigned long long)n + 1,
+                     err(), code, longest());
     __syncthreads();
   };
 
   for (int l = tid; l < kLanes; l += NT)
-    known[l] = fmaxf(a.known_in[me * kLanes + l], l >= S ? 1.f : 0.f);
+    known[l] = fmaxf(a.known_in[ml * kLanes + l], l >= S ? 1.f : 0.f);
   for (int i = tid; i < Rext; i += NT)
-    xe[i] = i < Rint ? a.x_in[(long long)me * Rint + i] : 0.f;
-  float rn0 = a.aux_in[me * kLanes + 0];
-  float done_at = a.aux_in[me * kLanes + 1];
+    xe[i] = i < Rint ? a.x_in[(long long)ml * Rint + i] : 0.f;
+  float rn0 = a.aux_in[ml * kLanes + 0];
+  float done_at = a.aux_in[ml * kLanes + 1];
   const float base_t = a.aux_in[2];  // rank 0's round counter
   float rn = 0.f;
   __syncthreads();
@@ -270,7 +299,8 @@ __global__ void __launch_bounds__(block_threads(kShared), 1)
     if (t >= M) {
       for (int c = tid; c < C; c += NT)
         if (tgt[c] != me)
-          spin_until(ack(me, c), (unsigned int)(t - M + 1), a.err, kWaitAck);
+          spin<kCross>(ack(me, c), (unsigned int)(t - M + 1), err(),
+                       kWaitAck, longest());
       __syncthreads();
     }
     // ---- pack and publish one message per colour with the known bits;
@@ -311,7 +341,7 @@ __global__ void __launch_bounds__(block_threads(kShared), 1)
       for (int c = tid; c < C; c += NT)
         if (tgt[c] != me) red_release_add(ack(tgt[c], c), 1u);
     } else {
-      const float* cy = a.carry_in + (long long)me * C * SEG;
+      const float* cy = a.carry_in + (long long)ml * C * SEG;
       for (int i = tid; i < C * SEG; i += NT) {
         const int h = rslot[i];
         if (h >= 0) xe[Rint + h] = cy[i];
@@ -389,7 +419,7 @@ __global__ void __launch_bounds__(block_threads(kShared), 1)
   }
   {
     const int jl = (T - 1) % M;
-    float* cy = a.carry_out + (long long)me * C * SEG;
+    float* cy = a.carry_out + (long long)ml * C * SEG;
     for (int c = 0; c < C; ++c) {
       const float* m = tgt[c] != me ? slot(tgt[c], c, jl) : nullptr;
       for (int k = tid; k < SEG; k += NT)
@@ -398,31 +428,37 @@ __global__ void __launch_bounds__(block_threads(kShared), 1)
   }
   __syncthreads();
   for (int q = tid; q < Rint; q += NT)
-    a.x_out[(long long)me * Rint + q] = xe[q];
+    a.x_out[(long long)ml * Rint + q] = xe[q];
   for (int l = tid; l < kLanes; l += NT) {
-    a.known_out[me * kLanes + l] = known[l];
-    float v = a.aux_in[me * kLanes + l];
+    a.known_out[ml * kLanes + l] = known[l];
+    float v = a.aux_in[ml * kLanes + l];
     if (l == 0) v = rn0;
     if (l == 1) v = done_at;
     if (l == 2) v = base_t + (float)T;
     if (l == 3) v = rn;
-    a.aux_out[me * kLanes + l] = v;
+    a.aux_out[ml * kLanes + l] = v;
   }
 }
 
-// Calls f(kernel) for the variant (shared memory when smem > 0) and the
-// ELL width, after allowing it smem bytes of dynamic shared memory.
+// Calls f(kernel) for the variant (shared memory when smem > 0), the ELL
+// width and whether the ranks span processes, after allowing it smem bytes
+// of dynamic shared memory.
 template <class F>
-int with_kernel(int K, int smem, F&& f) {
+int with_kernel(int K, int smem, bool cross, F&& f) {
   auto go = [&](auto* fn) {
     const cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     return e != cudaSuccess ? (int)e : f(fn);
   };
+  // across processes the time slices bound a round: one kernel with K at
+  // run time keeps the build short
+  if (cross)
+    return smem > 0 ? go(&async_general_kernel<true, 0, true>)
+                    : go(&async_general_kernel<false, 0, true>);
   auto pick = [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
-    return smem > 0 ? go(&async_general_kernel<true, KC>)
-                    : go(&async_general_kernel<false, KC>);
+    return smem > 0 ? go(&async_general_kernel<true, KC, false>)
+                    : go(&async_general_kernel<false, KC, false>);
   };
   return K == 5   ? pick(std::integral_constant<int, 5>{})
          : K == 9 ? pick(std::integral_constant<int, 9>{})
@@ -447,7 +483,7 @@ int async_general_max_ranks(int K, int smem) {
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (!coop || smem < 0) return 0;
-  const int e = with_kernel(K, smem, [&](auto fn) {
+  const int e = with_kernel(K, smem, false, [&](auto fn) {
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, fn, block_threads(smem > 0), smem);
   });
@@ -458,23 +494,27 @@ int async_general_max_ranks(int K, int smem) {
   return per_sm * sms;
 }
 
-// See ops/async_ras_general_kernel.py for the operand layout.  ``sync``
-// holds the (S, C, M) sequence words, the (S, C) ack counters (padded to a
-// whole 64-bit word) and the error word, zeroed by the caller before the
-// launch.  smem > 0 runs the shared-memory variant with smem bytes (then
-// ``work`` may be null), 0 the global-memory variant.
+// See ops/async_ras_general_kernel.py for the operand layout: the per-rank
+// operands hold this process's Sl ranks, which start at ``first``.
+// ``table`` (P,) holds every process's window (the rings, then the sequence
+// words, acks and error word at the byte offsets, zeroed by the caller
+// before the launch; in one process ``table`` is not read and ``own`` is
+// the process's window).  smem > 0 runs the shared-memory variant with smem
+// bytes (then ``work`` may be null), 0 the global-memory variant.
 int async_general_f32(const int* cols, const float* vals, const float* b,
                       const float* dinv, const float* mi, const float* boost,
                       const int* send_idx, const int* recv_slot,
                       const int* tgt, const float* x_in,
                       const float* known_in, const float* aux_in,
                       const float* carry_in, float* x, float* known,
-                      float* aux, float* carry, float* work, float* ring,
-                      void* sync, int S, int Rint, int H, int K, int SEG,
-                      int C, int T, int B, int ninner, int nonsym,
-                      float tol2, int smem, void* stream) {
-  if (S < 1 || S > kLanes || T < 1 || B < 1 || Rint < 1 || H < 0 || K < 1 ||
-      SEG < 1 || C < 1)
+                      float* aux, float* carry, float* work,
+                      const void* table, void* own, long long seq_off,
+                      long long ack_off, long long err_off, int S, int Sl,
+                      int first, int Rint,
+                      int H, int K, int SEG, int C, int T, int B, int ninner,
+                      int nonsym, float tol2, int smem, void* stream) {
+  if (S < 1 || S > kLanes || Sl < 1 || S % Sl || first % Sl || first >= S ||
+      T < 1 || B < 1 || Rint < 1 || H < 0 || K < 1 || SEG < 1 || C < 1)
     return (int)cudaErrorInvalidValue;
   const int Rext = Rint + H;
   const int nwork = nonsym ? 8 : 5;
@@ -500,7 +540,6 @@ int async_general_f32(const int* cols, const float* vals, const float* b,
   a.aux_out = aux;
   a.carry_out = carry;
   a.work = work;
-  a.ring = ring;
   a.S = S;
   a.Rint = Rint;
   a.H = H;
@@ -516,16 +555,17 @@ int async_general_f32(const int* cols, const float* vals, const float* b,
   a.nwork = nwork;
   a.slot = SEG + kLanes;
   a.tol2 = tol2;
-  auto* s = static_cast<unsigned long long*>(sync);
-  const long long nseq = (long long)S * C * a.M;
-  const long long nack = ((long long)S * C + 1) / 2;
-  a.seq = s;
-  a.ack = reinterpret_cast<unsigned int*>(s + nseq);
-  a.err = reinterpret_cast<int*>(s + nseq + nack);
-  void* params[] = {&a};
-  return with_kernel(K, smem, [&](auto fn) {
+  char* w = static_cast<char*>(own);
+  a.ring = reinterpret_cast<float*>(w);
+  a.seq = reinterpret_cast<unsigned long long*>(w + seq_off);
+  a.ack = reinterpret_cast<unsigned int*>(w + ack_off);
+  a.err = reinterpret_cast<int*>(w + err_off);
+  const WithRings<Args> c{a, make_rings(table, own, seq_off, ack_off,
+                                        err_off, Sl, C, a.M, a.slot, first)};
+  void* params[] = {Sl != S ? (void*)&c : (void*)&a};
+  return with_kernel(K, smem, Sl != S, [&](auto fn) {
     return (int)cudaLaunchCooperativeKernel(
-        (const void*)fn, dim3(S), dim3(block_threads(smem > 0)), params, smem,
+        (const void*)fn, dim3(Sl), dim3(block_threads(smem > 0)), params, smem,
         (cudaStream_t)stream);
   });
 }

@@ -53,6 +53,24 @@
 // The one-round shift of a whole buffer (rdma_cyclic_shift) is the same
 // kernel with an identity pack and no unpack; it moves bits.
 //
+// Across processes.  Each process launches the kernel for its own Dl = D / P
+// ranks (me = first + blockIdx.x).  A rank's receive windows and its
+// sequence words live in its process's window (csrc/peer_window.cu): rank
+// q's are reached at wtab[q / Dl] and stab[q / Dl] with local index q % Dl,
+// peers' through CUDA IPC; this process's own two are passed as they are,
+// so in one process no table is read and every address is the
+// single-process one.  Puts land in the target's
+// window through the table, then a release-add on its receive word there;
+// get requests go to the source's request word.  Every process makes the
+// same launches, so the host totals agree.  A process may start its next
+// launch while a peer still unpacks the last one, so across processes a put
+// first waits for the target's ``freed`` word (bumped after each unpack) to
+// count the launches before this one; in get mode the target's request
+// already says so.  The abort word is the group's one, in process 0's
+// window, so a watchdog in one process ends every process's waits; the
+// caller gathers the error words at its next collective, so that every
+// process raises together.
+//
 // Bound: bytes (each packed value read once, the index tables read once,
 // each window element written once and read once, the halo written once; no
 // arithmetic).  At the halo sizes of a solve (tens of KB) the launch and the
@@ -72,24 +90,29 @@ namespace {
 constexpr int kShiftThreads = 1024;
 constexpr int kUnroll = 4;
 
-enum ShiftWait { kWaitRequest = 4, kWaitData = 5 };
+enum ShiftWait { kWaitRequest = 4, kWaitData = 5, kWaitFree = 6 };
 
 // element types: bits for the shift, values for the exchange
 enum Elem { kU16 = 0, kU32 = 1, kU64 = 2, kF32 = 3, kF64 = 4, kBF16 = 5,
             kF16 = 6 };
 
 struct XArgs {
-  const void* x;             // (D, n_own) compute type
-  const int* pack;           // per round (D, H_k), concatenated; or null
-  const int* unpack;         // (D * Sl, Hs): >= 0 own offset, < 0 -(1 + win)
-  void* halo;                // (D * Sl, Hs) compute type; null: no unpack
-  void* win;                 // per round (D, H_k) halo type, concatenated
-  const int* rounds;         // (n_rounds, 3): offset, H_k, window base
-  unsigned long long* seq;   // recv, req (n_rounds, D); finished; abort
-  int* status;               // (n_rounds, D, 2); then the error word
+  const void* x;             // (Dl, n_own) compute type
+  const int* pack;           // per round (Dl, H_k), concatenated; or null
+  const int* unpack;         // (Dl * Sl, Hs): >= 0 own offset, < 0 -(1 + win)
+  void* halo;                // (Dl * Sl, Hs) compute type; null: no unpack
+  // (P,) per process: its receive windows, per round (Dl, H_k) halo type,
+  // concatenated; its sequence words: recv, req (n_rounds, Dl); finished;
+  // abort (process 0's is the group's); freed (Dl); the longest wait in ns
+  const unsigned long long* wtab;
+  const unsigned long long* stab;
+  void* wown;                // this process's entries of the two tables
+  unsigned long long* sown;
+  const int* rounds;         // (n_rounds, 3): offset, H_k, local window base
+  int* status;               // (n_rounds, Dl, 2); then the error word
   unsigned long long n_whole, n_obo, n_get, n_launch;  // before this launch
   long long n_own;
-  int D, n_rounds, Sl, Hs, get, one_by_one, flush_local;
+  int D, Dl, first, n_rounds, Sl, Hs, get, one_by_one, flush_local;
 };
 
 __device__ __forceinline__ void red_release_add(unsigned long long* p,
@@ -144,24 +167,73 @@ __device__ __forceinline__ void each(long long n, Load&& load,
   }
 }
 
-template <typename TC, typename TW>
+// The sequence words of the process of rank q: recv and req (n_rounds,
+// Dl), the finished counter, the abort word (process 0's is the group's),
+// freed (Dl) and the longest wait.  kCross: the ranks span processes; in
+// one process every word is the process's own and no table is read.
+template <bool kCross>
+struct Words {
+  const unsigned long long* stab;
+  unsigned long long* own;
+  int Dl, n_rounds, first;
+  __device__ unsigned long long* of(int q) const {
+    if constexpr (!kCross) {
+      return own;
+    } else {
+      const int p = q / Dl;
+      return p == first / Dl ? own
+                             : reinterpret_cast<unsigned long long*>(stab[p]);
+    }
+  }
+  __device__ int local(int q) const { return kCross ? q % Dl : q; }
+  __device__ long long tail() const { return 2LL * n_rounds * Dl; }
+  __device__ unsigned long long* recv(int k, int q) const {
+    return of(q) + (long long)k * Dl + local(q);
+  }
+  __device__ unsigned long long* req(int k, int q) const {
+    return of(q) + (long long)(n_rounds + k) * Dl + local(q);
+  }
+  __device__ unsigned long long* finished() const { return own + tail(); }
+  __device__ int* abort() const {
+    return reinterpret_cast<int*>(of(0) + tail() + 1);
+  }
+  __device__ unsigned long long* freed(int q) const {
+    return of(q) + tail() + 2 + local(q);
+  }
+  // kept across processes only (spin_until_ns)
+  __device__ unsigned long long* longest() const {
+    if constexpr (kCross)
+      return own + tail() + 2 + Dl;
+    else
+      return nullptr;
+  }
+};
+
+template <typename TC, typename TW, bool kCross>
 __global__ void __launch_bounds__(kShiftThreads)
 rdma_exchange_kernel(XArgs a) {
-  const int me = blockIdx.x;
+  const int ml = blockIdx.x;          // the rank in this process
+  const int me = kCross ? a.first + ml : ml;  // in the group
   const int tid = threadIdx.x;
   const int D = a.D;
-  unsigned long long* recv = a.seq;
-  unsigned long long* req = a.seq + (long long)a.n_rounds * D;
-  unsigned long long* finished = req + (long long)a.n_rounds * D;
-  int* abort = reinterpret_cast<int*>(finished + 1);
-  const TC* x = static_cast<const TC*>(a.x) + (long long)me * a.n_own;
-  TW* win = static_cast<TW*>(a.win);
+  const Words<kCross> w{a.stab, a.sown, a.Dl, a.n_rounds, a.first};
+  const TC* x = static_cast<const TC*>(a.x) + (long long)ml * a.n_own;
+  auto win = [&](int q) {
+    if constexpr (!kCross) {
+      return static_cast<TW*>(a.wown);
+    } else {
+      const int p = q / a.Dl;
+      return static_cast<TW*>(p == a.first / a.Dl
+                                  ? a.wown
+                                  : reinterpret_cast<void*>(a.wtab[p]));
+    }
+  };
 
   // origin side of get: ask the source of every round before any wait
   if (a.get && tid == 0) {
     for (int k = 0; k < a.n_rounds; ++k) {
       const int src = (me - a.rounds[3 * k] + D) % D;
-      red_release_add(req + (long long)k * D + src, 1ull);
+      red_release_add(w.req(k, src), 1ull);
     }
   }
   for (int k = 0; k < a.n_rounds; ++k) {
@@ -171,14 +243,20 @@ rdma_exchange_kernel(XArgs a) {
     if (a.get) {
       // target side: serve only after the rank that needs ours asked
       if (tid == 0)
-        spin_until(req + (long long)k * D + me, a.n_get + 1, abort,
-                   (int)kWaitRequest);
+        spin<kCross>(w.req(k, me), a.n_get + 1, w.abort(),
+                     (int)kWaitRequest, w.longest());
+      __syncthreads();
+    } else if (kCross && a.n_launch > 0) {
+      // the target has unpacked its windows of the launches before this
+      if (tid == 0)
+        spin<kCross>(w.freed(dst), a.n_launch, w.abort(), (int)kWaitFree,
+                     w.longest());
       __syncthreads();
     }
-    const int* pk = a.pack != nullptr ? a.pack + base + (long long)me * H
+    const int* pk = a.pack != nullptr ? a.pack + base + (long long)ml * H
                                       : nullptr;
-    TW* o = win + base + (long long)dst * H;
-    unsigned long long* done = recv + (long long)k * D + dst;
+    TW* o = win(dst) + base + (long long)w.local(dst) * H;
+    unsigned long long* done = w.recv(k, dst);
     auto value = [&](long long i) {
       return convert<TW>(x[pk != nullptr ? pk[i] : i]);
     };
@@ -207,32 +285,37 @@ rdma_exchange_kernel(XArgs a) {
     for (int k = 0; k < a.n_rounds; ++k) {
       const unsigned long long H = a.rounds[3 * k + 1];
       const unsigned long long before = a.n_whole + a.n_obo * H;
-      unsigned long long* mine = recv + (long long)k * D + me;
-      spin_until(mine, before + (a.one_by_one ? H : 1ull), abort,
-                 (int)kWaitData);
-      int* st = a.status + 2 * ((long long)k * D + me);
+      unsigned long long* mine = w.recv(k, me);
+      spin<kCross>(mine, before + (a.one_by_one ? H : 1ull), w.abort(),
+                   (int)kWaitData, w.longest());
+      int* st = a.status + 2 * ((long long)k * a.Dl + ml);
       st[0] = (int)(ld_acquire(mine) - before);
-      st[1] = a.get ? (int)(ld_acquire(req + (long long)k * D + me) - a.n_get)
-                    : 0;
+      st[1] = a.get ? (int)(ld_acquire(w.req(k, me)) - a.n_get) : 0;
     }
   }
   __syncthreads();
   if (a.halo != nullptr) {
     const long long n = (long long)a.Sl * a.Hs;
-    const int* src = a.unpack + me * n;
-    TC* h = static_cast<TC*>(a.halo) + me * n;
+    const int* src = a.unpack + ml * n;
+    TC* h = static_cast<TC*>(a.halo) + ml * n;
+    const TW* own = win(me);
     each(
         n,
         [&](long long j) {
           const int s = src[j];
-          return s >= 0 ? x[s] : convert<TC>(load_cg(win - 1 - s));
+          return s >= 0 ? x[s] : convert<TC>(load_cg(own - 1 - s));
         },
         [&](long long j, TC v) { h[j] = v; });
   }
-  // the last rank out reports whether any rank's wait timed out
-  if (tid == 0 && atom_acq_rel_add(finished, 1ull) + 1 ==
-                      (a.n_launch + 1) * (unsigned long long)D)
-    a.status[2LL * a.n_rounds * D] = *(volatile int*)abort;
+  if (kCross) {
+    // my windows may be written again: the next launch's puts wait for it
+    __syncthreads();
+    if (tid == 0) red_release_add(w.freed(me), 1ull);
+  }
+  // the last rank of the process out reports whether any wait timed out
+  if (tid == 0 && atom_acq_rel_add(w.finished(), 1ull) + 1 ==
+                      (a.n_launch + 1) * (unsigned long long)a.Dl)
+    a.status[2LL * a.n_rounds * a.Dl] = *(volatile int*)w.abort();
 }
 
 // Calls f(TC{}, TW{}) for a pair of element codes.
@@ -276,7 +359,7 @@ int rdma_shift_max_ranks(int tc, int tw) {
   int per_sm = 0;
   const int rc = dispatch_pair(tc, tw, [&](auto c, auto w) {
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, rdma_exchange_kernel<decltype(c), decltype(w)>,
+        &per_sm, rdma_exchange_kernel<decltype(c), decltype(w), false>,
         kShiftThreads, 0);
   });
   return rc == (int)cudaSuccess ? per_sm * sms : 0;
@@ -286,20 +369,25 @@ int rdma_shift_max_ranks(int tc, int tw) {
 // operands.  ``totals``: launches made on ``seq`` before this one with
 // whole-buffer signals, with one-by-one signals, in get mode, and in all.
 int rdma_exchange(const void* x, const int* pack, const int* unpack,
-                  void* halo, void* win, const int* rounds, void* seq,
-                  int* status, const unsigned long long* totals,
-                  long long n_own, int D, int n_rounds, int Sl, int Hs, int tc,
+                  void* halo, const void* wtab, const void* stab,
+                  void* wown, void* sown, const int* rounds, int* status,
+                  const unsigned long long* totals, long long n_own, int D,
+                  int Dl, int first, int n_rounds, int Sl, int Hs, int tc,
                   int tw, int get, int one_by_one, int flush_local,
                   void* stream) {
-  if (D < 1 || n_rounds < 1 || n_own < 1) return (int)cudaErrorInvalidValue;
+  if (D < 1 || Dl < 1 || D % Dl || first % Dl || first >= D ||
+      n_rounds < 1 || n_own < 1)
+    return (int)cudaErrorInvalidValue;
   XArgs a{};
   a.x = x;
   a.pack = pack;
   a.unpack = unpack;
   a.halo = halo;
-  a.win = win;
+  a.wtab = static_cast<const unsigned long long*>(wtab);
+  a.stab = static_cast<const unsigned long long*>(stab);
+  a.wown = wown;
+  a.sown = static_cast<unsigned long long*>(sown);
   a.rounds = rounds;
-  a.seq = static_cast<unsigned long long*>(seq);
   a.status = status;
   a.n_whole = totals[0];
   a.n_obo = totals[1];
@@ -307,6 +395,8 @@ int rdma_exchange(const void* x, const int* pack, const int* unpack,
   a.n_launch = totals[3];
   a.n_own = n_own;
   a.D = D;
+  a.Dl = Dl;
+  a.first = first;
   a.n_rounds = n_rounds;
   a.Sl = Sl;
   a.Hs = Hs;
@@ -315,9 +405,12 @@ int rdma_exchange(const void* x, const int* pack, const int* unpack,
   a.flush_local = flush_local;
   void* params[] = {&a};
   return dispatch_pair(tc, tw, [&](auto c, auto w) {
-    return (int)cudaLaunchCooperativeKernel(
-        (const void*)rdma_exchange_kernel<decltype(c), decltype(w)>, dim3(D),
-        dim3(kShiftThreads), params, 0, (cudaStream_t)stream);
+    using C = decltype(c);
+    using W = decltype(w);
+    const void* fn = Dl == D ? (const void*)rdma_exchange_kernel<C, W, false>
+                             : (const void*)rdma_exchange_kernel<C, W, true>;
+    return (int)cudaLaunchCooperativeKernel(fn, dim3(Dl), dim3(kShiftThreads),
+                                            params, 0, (cudaStream_t)stream);
   });
 }
 

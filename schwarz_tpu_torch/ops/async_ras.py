@@ -20,6 +20,16 @@ over: on the card the vectors live in device memory, and a message's
 arrival is a sequence number, not a DMA count.  ``fresh_read`` needs the
 flag-order probe (K9, :mod:`schwarz_tpu_torch.diagnostics`) to have passed
 on the card in the process.
+
+``mesh`` (:class:`~schwarz_tpu_torch.parallel.mesh.Mesh`) deals the ranks
+to the processes of a group, D / P consecutive ranks each, as the JAX
+package's ``shard_map`` over a multi-controller mesh does: each process
+keeps its ranks' plan arrays and state and launches K5 for them, the
+neighbours' rings reached through the mesh's window.  The chunk loop's exit
+is one gathered decision a chunk; ``run`` gathers the iterate and the aux
+lanes, so every process returns the same ``(x, info)``, and the
+checkpoints hold the whole state in the JAX package's file layout, written
+by process 0 and cut to each process's block when read.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ import numpy as np
 import torch
 
 from schwarz_tpu_torch.exceptions import NotImplementedFeature
+from schwarz_tpu_torch.parallel.mesh import cut, gather, group_of, write_once
 from schwarz_tpu_torch.ops.async_ras_kernel import (  # noqa: F401
     LANES,
     async_ras_rounds,
@@ -221,9 +232,11 @@ class AsyncRASolver:
                  ninner: int = 12, chunk_rounds: int = 16,
                  num_ranks: Optional[int] = None, device=None,
                  fresh_read: bool = False, oras_weight: float = 0.0,
-                 nonsym: bool = False, nonsym_solver: str = "bicgstab"):
+                 nonsym: bool = False, nonsym_solver: str = "bicgstab",
+                 mesh=None):
         from schwarz_tpu_torch.ras import resolve_device
 
+        num_ranks, device = _mesh_ranks(mesh, num_ranks, device)
         self.device = resolve_device(device)
         self.plan = build_async_plan(mat, rhs, num_subdomains, overlap,
                                      oras_weight=oras_weight)
@@ -252,6 +265,12 @@ class AsyncRASolver:
                 f"of at most {LANES}")
         self.D = D
         self.Sl = S // D
+        # the processes the ranks are dealt to (None: this process holds
+        # all), and this process's ranks
+        self._mesh = group_of(mesh)
+        self.Dl = D if self._mesh is None else mesh.ranks_per_process
+        self._ranks = (slice(0, D) if self._mesh is None
+                       else self._mesh.block(D))
         p = self.plan
         self._dev = {
             "dia": self._fold(p.dia), "b": self._fold(p.b),
@@ -263,7 +282,8 @@ class AsyncRASolver:
 
     def _fold(self, a: np.ndarray) -> torch.Tensor:
         """(S, [K,] total) plan array -> the rank layout on the device:
-        (D, [K,] Sl*total), each rank's Sl windows contiguous."""
+        (D, [K,] Sl*total), each rank's Sl windows contiguous; this
+        process's ranks of it."""
         D, Sl = self.D, self.Sl
         t = torch.from_numpy(np.ascontiguousarray(a))
         if t.dim() == 3:
@@ -272,7 +292,7 @@ class AsyncRASolver:
             t = t.reshape(D, K, Sl * total)
         else:
             t = t.reshape(D, -1)
-        return t.contiguous().to(self.device)
+        return t[self._ranks].contiguous().to(self.device)
 
     def set_rhs(self, rhs) -> None:
         """Repack the RHS windows without rebuilding the plan (restarts of
@@ -298,29 +318,38 @@ class AsyncRASolver:
 
     def save_checkpoint(self, state, path: str) -> None:
         """Persist a free-running state (x (S, R), known, aux, halo
-        carries) in the JAX package's file format."""
-        x, known, aux, hl, hr = (a.detach().cpu().numpy() for a in state)
-        np.savez_compressed(path, x.reshape(self.plan.S, self.plan.R),
-                            known, aux, hl, hr)
+        carries) in the JAX package's file format; across processes the
+        blocks are gathered and process 0 writes the file."""
+        x, known, aux, hl, hr = (gather(self._mesh, a) for a in state)
+        write_once(self._mesh, lambda: np.savez_compressed(
+            path, x.reshape(self.plan.S, self.plan.R), known, aux, hl, hr))
 
     def load_checkpoint(self, path: str):
+        """A state written by :meth:`save_checkpoint` (or by the JAX
+        package), this process's block of it."""
         # np.savez_compressed appends .npz to a suffix-less path; accept
         # the same path back (save/load symmetry)
         if not os.path.exists(path) and os.path.exists(path + ".npz"):
             path = path + ".npz"
-        data = np.load(path)
-        return tuple(torch.from_numpy(np.ascontiguousarray(
-            data[f"arr_{i}"], np.float32)).to(self.device) for i in range(5))
+        with np.load(path) as data:
+            leaves = [cut(self._mesh, np.ascontiguousarray(
+                data[f"arr_{i}"], np.float32)) for i in range(5)]
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device) for a in leaves)
 
     def init_state(self):
-        """Fresh (x, known, aux, hl, hr) on the device."""
-        p, D = self.plan, self.D
+        """Fresh (x, known, aux, hl, hr) on the device: this process's
+        subdomains and ranks."""
+        p, Dl = self.plan, self.Dl
         z = lambda *s: torch.zeros(s, dtype=torch.float32,  # noqa: E731
                                    device=self.device)
-        aux = torch.full((D, LANES), -1.0, dtype=torch.float32,
+        aux = torch.full((Dl, LANES), -1.0, dtype=torch.float32,
                          device=self.device)
         aux[:, 2] = 0.0   # base round counter
-        return z(p.S, p.R), z(D, LANES), aux, z(D, p.hw), z(D, p.hw)
+        return (z(Dl * self.Sl, p.R), z(Dl, LANES), aux, z(Dl, p.hw),
+                z(Dl, p.hw))
+
+
 
     def run(self, max_rounds: int = 400, resume_state=None,
             checkpoint_path: Optional[str] = None):
@@ -333,10 +362,10 @@ class AsyncRASolver:
         per round each rank sends two slots (hw strip + D known lanes as
         float32 + an 8-byte sequence word) and two 4-byte acknowledgements.
         """
-        p, S, D, Sl = self.plan, self.plan.S, self.D, self.Sl
+        p, D, Sl = self.plan, self.D, self.Sl
         x, known, aux, hl, hr = (resume_state if resume_state is not None
                                  else self.init_state())
-        x = x.reshape(D, Sl * p.R)
+        x = x.reshape(self.Dl, Sl * p.R)
         dev = self._dev
         t0 = time.perf_counter()
         rounds = 0
@@ -348,17 +377,17 @@ class AsyncRASolver:
                 rounds=self.chunk_rounds, staleness=self.staleness,
                 ninner=self.ninner, tol=self.tolerance,
                 fresh_read=self.fresh_read, nonsym=self.nonsym,
-                nonsym_solver=self.nonsym_solver,
+                nonsym_solver=self.nonsym_solver, mesh=self._mesh,
             )
             rounds += self.chunk_rounds
-            if bool((aux[:, 1] >= 0).all()):
+            if _all_done(self._mesh, aux):
                 break
-        aux_h = aux.cpu().numpy()
+        aux_h = gather(self._mesh, aux)
         elapsed = time.perf_counter() - t0
-        state = (x.reshape(S, p.R), known, aux, hl, hr)
+        state = (x.reshape(-1, p.R), known, aux, hl, hr)
         if checkpoint_path is not None:
             self.save_checkpoint(state, checkpoint_path)
-        sol = x.cpu().numpy().reshape(-1)[:p.N]
+        sol = gather(self._mesh, x).reshape(-1)[:p.N]
         A = self.mat.to_scipy()
         res = self.rhs - A @ sol
         rel = float(np.linalg.norm(res) / max(np.linalg.norm(self.rhs),
@@ -381,6 +410,27 @@ class AsyncRASolver:
             # staleness > 1)
             "fresh_read_hits": int(np.maximum(aux_h[:, 4], 0.0).sum()),
         }
+
+
+def _all_done(mesh, aux: torch.Tensor) -> bool:
+    """Whether every rank of the group detected convergence (aux lane 1):
+    one decision a chunk, the same in every process."""
+    done = aux[:, 1]
+    if group_of(mesh) is not None:
+        done = mesh.all_gather(done)
+    return bool((done >= 0).all())
+
+
+def _mesh_ranks(mesh, num_ranks, device):
+    """(num_ranks, device) of a free-running solver under ``mesh``: its
+    rank count and device unless the caller gave them (a differing count
+    raises)."""
+    if mesh is None:
+        return num_ranks, device
+    if num_ranks is not None and int(num_ranks) != mesh.num_ranks:
+        raise ValueError(f"num_ranks {num_ranks} differs from the mesh's "
+                         f"{mesh.num_ranks} ranks")
+    return mesh.num_ranks, mesh.device if device is None else device
 
 
 def iterative_refinement_run(solver, tol: float = 1e-10,
@@ -447,7 +497,9 @@ def iterative_refinement_run(solver, tol: float = 1e-10,
             r = b0 - A @ x
             prev, rel = rel, float(np.linalg.norm(r)) / nb
             if checkpoint_path is not None:
-                np.savez_compressed(checkpoint_path, ir_x=x)
+                write_once(getattr(solver, "_mesh", None),
+                           lambda: np.savez_compressed(checkpoint_path,
+                                                       ir_x=x))
             if rel > 0.5 * prev and coarse is None:
                 # restart no longer reduces the true residual: the f32
                 # kernel hit its conditioning floor — stop honestly.

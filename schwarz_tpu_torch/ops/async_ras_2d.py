@@ -28,6 +28,11 @@ roundings of the block size define which cells a block owns, so they are
 the JAX package's exactly.  The TPU's VMEM estimate for the folded tile is
 not carried over (on the card the tile lives in device memory); in its place
 K6's wrapper refuses a rank count the card cannot hold co-resident.
+
+``mesh`` deals the ranks of the row-major rank grid to the processes of a
+group, D / P consecutive ranks each, as :mod:`.async_ras` does for the 1-D
+tier: each process keeps and launches its ranks, ``run`` gathers the
+iterate and the aux lanes, and the checkpoints hold the whole state.
 """
 
 from __future__ import annotations
@@ -42,7 +47,9 @@ import numpy as np
 import torch
 
 from schwarz_tpu_torch.exceptions import NotImplementedFeature
-from schwarz_tpu_torch.ops.async_ras import iterative_refinement_run
+from schwarz_tpu_torch.ops.async_ras import (_all_done, _mesh_ranks,
+                                             iterative_refinement_run)
+from schwarz_tpu_torch.parallel.mesh import cut, gather, group_of, write_once
 from schwarz_tpu_torch.ops.async_ras_2d_kernel import (  # noqa: F401
     HX,
     HY,
@@ -289,10 +296,12 @@ class AsyncRASolver2D:
                  ninner: int = 16, chunk_rounds: int = 16,
                  num_ranks: Optional[int] = None, device=None,
                  fresh_read: bool = False, oras_weight: float = 0.0,
-                 nonsym: bool = False, overlap: Optional[int] = None):
+                 nonsym: bool = False, overlap: Optional[int] = None,
+                 mesh=None):
         from schwarz_tpu_torch.ras import resolve_device
 
         check_overlap(overlap)
+        num_ranks, device = _mesh_ranks(mesh, num_ranks, device)
         self.device = resolve_device(device)
         self.plan = build_async_plan_2d(mat, rhs, px, py,
                                         oras_weight=oras_weight)
@@ -314,6 +323,12 @@ class AsyncRASolver2D:
                 f"ranks exceed {LANES}; pass num_ranks, a count of at most "
                 f"{LANES} that tiles the {px} x {py} block grid")
         self.pdx, self.pdy = pdx, pdy
+        # the processes the ranks are dealt to (None: this process holds
+        # all), and this process's ranks
+        self._mesh = group_of(mesh)
+        self.Dl = D if self._mesh is None else mesh.ranks_per_process
+        self._ranks = (slice(0, D) if self._mesh is None
+                       else self._mesh.block(D))
         ply, plx = py // pdy, px // pdx
         self.ply, self.plx = ply, plx
         # stacked-block permutation: position i holds global block
@@ -335,8 +350,13 @@ class AsyncRASolver2D:
 
     def _fold(self, a: torch.Tensor) -> torch.Tensor:
         """(S, [9,] By, Bx) in stacked (perm) order -> the rank layout on
-        the device, (D, [9,] FY, FX): each rank's windows side by side."""
-        p, D, ply, plx = self.plan, self.D, self.ply, self.plx
+        the device, (D, [9,] FY, FX): each rank's windows side by side.
+        Every block (a plan array) gives this process's ranks; this
+        process's blocks (its state) give them too."""
+        p, ply, plx = self.plan, self.ply, self.plx
+        if a.shape[0] == p.S:
+            a = a[self._ranks.start * ply * plx:self._ranks.stop * ply * plx]
+        D = a.shape[0] // (ply * plx)
         mid = tuple(a.shape[1:-2])
         k = len(mid)
         a = a.reshape((D, ply, plx) + mid + (p.By, p.Bx))
@@ -346,10 +366,11 @@ class AsyncRASolver2D:
         return a.contiguous().to(self.device)
 
     def _unfold(self, a: torch.Tensor) -> torch.Tensor:
-        """(D, FY, FX) -> (S, By, Bx) in stacked order."""
-        p, D, ply, plx = self.plan, self.D, self.ply, self.plx
-        a = a.reshape(D, ply, p.By, plx, p.Bx).permute(0, 1, 3, 2, 4)
-        return a.reshape(p.S, p.By, p.Bx).contiguous()
+        """(D, FY, FX) -> (S, By, Bx) in stacked order (this process's
+        ranks -> its blocks)."""
+        p, ply, plx = self.plan, self.ply, self.plx
+        a = a.reshape(-1, ply, p.By, plx, p.Bx).permute(0, 1, 3, 2, 4)
+        return a.reshape(-1, p.By, p.Bx).contiguous()
 
     def set_rhs(self, rhs) -> None:
         """Repack the per-block RHS windows without rebuilding the plan
@@ -375,17 +396,23 @@ class AsyncRASolver2D:
 
     def save_checkpoint(self, state, path: str) -> None:
         """Persist a free-running state (X (S, By, Bx) with its halos,
-        known, aux) in the JAX package's file format."""
-        np.savez_compressed(path, *[a.detach().cpu().numpy() for a in state])
+        known, aux) in the JAX package's file format; across processes the
+        blocks are gathered and process 0 writes the file."""
+        leaves = [gather(self._mesh, a) for a in state]
+        write_once(self._mesh, lambda: np.savez_compressed(path, *leaves))
 
     def load_checkpoint(self, path: str):
+        """A state written by :meth:`save_checkpoint` (or by the JAX
+        package), this process's block of it."""
         # np.savez_compressed appends .npz to a suffix-less path; accept
         # the same path back (save/load symmetry)
         if not os.path.exists(path) and os.path.exists(path + ".npz"):
             path = path + ".npz"
-        data = np.load(path)
-        return tuple(torch.from_numpy(np.ascontiguousarray(
-            data[f"arr_{i}"], np.float32)).to(self.device) for i in range(3))
+        with np.load(path) as data:
+            leaves = [cut(self._mesh, np.ascontiguousarray(
+                data[f"arr_{i}"], np.float32)) for i in range(3)]
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device) for a in leaves)
 
     def launch(self, x, known, aux, fn=async_ras_2d_rounds, **extra):
         """One launch: ``chunk_rounds`` rounds of all ranks on the folded
@@ -398,15 +425,17 @@ class AsyncRASolver2D:
             pdx=self.pdx, pdy=self.pdy, ply=self.ply, plx=self.plx,
             rounds=self.chunk_rounds, staleness=self.staleness,
             ninner=self.ninner, tol=self.tolerance,
-            fresh_read=self.fresh_read, nonsym=self.nonsym, **extra,
+            fresh_read=self.fresh_read, nonsym=self.nonsym, mesh=self._mesh,
+            **extra,
         )
 
     def init_state(self):
         """Fresh (X, known, aux) on the device; X is (S, By, Bx) in stacked
-        order, position i holding global block ``perm[i]``."""
-        p, D = self.plan, self.D
-        X = torch.zeros((p.S, p.By, p.Bx), dtype=torch.float32,
-                        device=self.device)
+        order, position i holding global block ``perm[i]`` (this process's
+        blocks and ranks)."""
+        p, D = self.plan, self.Dl
+        X = torch.zeros((D * self.ply * self.plx, p.By, p.Bx),
+                        dtype=torch.float32, device=self.device)
         known = torch.zeros((D, LANES), dtype=torch.float32,
                             device=self.device)
         aux = torch.full((D, LANES), -1.0, dtype=torch.float32,
@@ -430,14 +459,14 @@ class AsyncRASolver2D:
         while rounds < max_rounds:
             x, known, aux = self.launch(x, known, aux)
             rounds += self.chunk_rounds
-            if bool((aux[:, 1] >= 0).all()):
+            if _all_done(self._mesh, aux):
                 break
-        aux_h = aux.cpu().numpy()
+        aux_h = gather(self._mesh, aux)
         elapsed = time.perf_counter() - t0
         X = self._unfold(x)
         if checkpoint_path is not None:
             self.save_checkpoint((X, known, aux), checkpoint_path)
-        X_h = X.cpu().numpy()
+        X_h = gather(self._mesh, X)
         sol_grid = np.zeros((p.py * p.by, p.px * p.bx), np.float32)
         for i in range(S):
             dyy, dxx = divmod(int(self._perm[i]), p.px)

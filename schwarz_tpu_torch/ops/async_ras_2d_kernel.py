@@ -31,6 +31,14 @@ lockstep emulation in which every rank runs round t at once.  Without
 ``fresh_read`` the kernel's result does not depend on timing, so the
 emulation is exact up to ties in the float64 sums.  With ``fresh_read`` the
 emulation reads message t-1 in every direction, one legal schedule.
+
+Across the processes of a mesh (``mesh=``) the operands hold the process's
+D / P ranks, consecutive in the row-major rank grid.  The kernel reaches
+the neighbours' rings in peer processes through the mesh's window
+(:mod:`.rank_rings`); the plain version gathers each round's messages from
+every process (one ``Mesh.all_gather``) and takes the same cyclic rolls
+over the whole rank grid, so it is the single-process emulation bit for
+bit.
 """
 
 from __future__ import annotations
@@ -50,6 +58,8 @@ from schwarz_tpu_torch.ops.async_ras_kernel import (
     dot_f64,
     jacobi_pcg_plain,
 )
+from schwarz_tpu_torch.ops.rank_rings import launch_rounds, ring_layout
+from schwarz_tpu_torch.parallel.mesh import group_of
 
 HX = 64   # left/right halo width: 63 cells of overlap + the stencil ring
 HY = 8    # top/bottom halo height: 7 cells of overlap + the stencil ring
@@ -89,8 +99,10 @@ def async_ras_2d_rounds_plain(
     coef, b, dinv, mask_dom, mask_int, x, known, aux, boost=None, *,
     pdx: int, pdy: int, ply: int, plx: int, rounds: int, staleness: int,
     ninner: int, tol: float, fresh_read: bool = False, nonsym: bool = False,
+    mesh=None,
 ):
-    """Lockstep emulation of ``rounds`` free-running rounds of all D ranks.
+    """Lockstep emulation of ``rounds`` free-running rounds of all D ranks
+    (of this process's ranks under a ``mesh``).
 
     Returns (x, known, aux) in the input layout.  aux lanes: 0 the first
     local ||r||^2 (-1 before the first round), 1 ``done_at`` (-1 until the
@@ -98,14 +110,17 @@ def async_ras_2d_rounds_plain(
     last local ||r||^2, 4 fresh-read hits."""
     f32 = torch.float32
     dev = x.device
-    D, FY, FX = x.shape
+    group = group_of(mesh)
+    D, FY, FX = x.shape         # this process's ranks
+    Dg = pdx * pdy
+    ranks = slice(0, Dg) if group is None else group.block(Dg)
     By, Bx = FY // ply, FX // plx
     B = max(staleness, 1)
     T = rounds
     fresh = fresh_read and B > 1
     tol2 = torch.tensor(float(tol) * float(tol), dtype=f32, device=dev)
     lane = torch.arange(LANES, device=dev)
-    me = torch.arange(D, device=dev)
+    me = torch.arange(ranks.start, ranks.stop, device=dev)
     zero = torch.zeros((), dtype=f32, device=dev)
 
     def apply_dom(v):
@@ -127,15 +142,30 @@ def async_ras_2d_rounds_plain(
         return av
 
     def from_rank(a, dy: int, dx: int):
-        """a[rank (dyy + dy, dxx + dx)] at rank (dyy, dxx), cyclic."""
+        """a[rank (dyy + dy, dxx + dx)] at rank (dyy, dxx), cyclic; ``a``
+        holds every rank, the result this process's."""
         g = a.reshape((pdy, pdx) + a.shape[1:])
-        return torch.roll(g, (-dy, -dx), (0, 1)).reshape(a.shape)
+        return torch.roll(g, (-dy, -dx), (0, 1)).reshape(a.shape)[ranks]
+
+    def gathered(msg):
+        """A message of every rank of the group: one gather of its five
+        parts across processes."""
+        if group is None:
+            return msg
+        flat = group.all_gather(torch.cat([m.reshape(D, -1) for m in msg],
+                                          1))
+        out, at = [], 0
+        for m in msg:
+            n = m[0].numel()
+            out.append(flat[:, at:at + n].reshape((Dg,) + m.shape[1:]))
+            at += n
+        return out
 
     def unpack(xx, known_k, msg):
         """The halos and known bits of message ``msg`` (strips sL, sR, sU,
         sD and flags, as sent): what the left rank sent to its right lands
         in my left halo, and so on; up/down strips go last, full width."""
-        sL, sR, sU, sD, flags = msg
+        sL, sR, sU, sD, flags = gathered(msg)
         xx = xx.clone()
         xx[:, :, :HX] = from_rank(sR, 0, -1)
         xx[:, :, FX - HX:] = from_rank(sL, 0, 1)
@@ -145,7 +175,7 @@ def async_ras_2d_rounds_plain(
             known_k = torch.maximum(known_k, from_rank(flags, dy, dx))
         return xx, known_k
 
-    known_k = torch.maximum(known, (lane >= D).to(f32)[None, :])
+    known_k = torch.maximum(known, (lane >= Dg).to(f32)[None, :])
     rn0, done_at, base_t = aux[:, 0], aux[:, 1], aux[:, 2]
     hits = torch.clamp(aux[:, 4], min=0.0)
     rn = torch.zeros(D, dtype=f32, device=dev)
@@ -192,7 +222,7 @@ def async_ras_2d_rounds(
     coef, b, dinv, mask_dom, mask_int, x, known, aux, boost=None, *,
     pdx: int, pdy: int, ply: int, plx: int, rounds: int, staleness: int,
     ninner: int, tol: float, fresh_read: bool = False, nonsym: bool = False,
-    cluster: Optional[int] = None,
+    cluster: Optional[int] = None, mesh=None,
 ):
     """``rounds`` free-running rounds of all D ranks; K6 on the card.
 
@@ -207,10 +237,12 @@ def async_ras_2d_rounds(
     partials per block summed over the cluster in block order.  Raises when
     the card cannot hold D clusters of C blocks, when a wait times out, and
     for ``fresh_read`` unless the flag-order probe (K9) has passed in this
-    process at a cluster of at least the C about to launch."""
+    process at a cluster of at least the C about to launch.  Under a
+    ``mesh`` of several processes the operands hold the process's ranks;
+    ``.longest_wait_ns`` keeps the launch's longest wait, in ns."""
     kw = dict(pdx=pdx, pdy=pdy, ply=ply, plx=plx, rounds=rounds,
               staleness=staleness, ninner=ninner, tol=tol,
-              fresh_read=fresh_read, nonsym=nonsym)
+              fresh_read=fresh_read, nonsym=nonsym, mesh=mesh)
     if x.device.type == "cpu":
         return async_ras_2d_rounds_plain(coef, b, dinv, mask_dom, mask_int,
                                          x, known, aux, boost, **kw)
@@ -219,7 +251,9 @@ def async_ras_2d_rounds(
     if boost is not None:
         ops["boost"] = boost
     cuda_build.check_operands("async_ras_2d_rounds", (torch.float32,), **ops)
-    D = pdx * pdy
+    group = group_of(mesh)
+    Dg = pdx * pdy
+    D = Dg if group is None else Dg // group.num_processes   # launched here
     if x.dim() != 3 or x.shape[0] != D:
         raise ValueError(f"async_ras_2d_rounds: x must be ({D}, FY, FX), got "
                          f"{tuple(x.shape)}")
@@ -236,8 +270,8 @@ def async_ras_2d_rounds(
     if FY * FX >= 1 << 24:
         raise ValueError(f"async_ras_2d_rounds: a tile of {FY * FX} cells; "
                          "the kernel takes fewer than 2^24")
-    if D > LANES:
-        raise ValueError(f"async_ras_2d_rounds: {D} ranks; the gossip keeps "
+    if Dg > LANES:
+        raise ValueError(f"async_ras_2d_rounds: {Dg} ranks; the gossip keeps "
                          f"one lane per rank, at most {LANES}")
     B = max(staleness, 1)
     # a 5-point operator skips the four diagonal planes: a zero plane adds
@@ -268,25 +302,25 @@ def async_ras_2d_rounds(
     out = [torch.empty_like(x), torch.empty_like(known),
            torch.empty_like(aux)]
     work = torch.empty((D, nwork, FY * FX), dtype=torch.float32, device=dev)
-    ring = torch.empty((D, 4, M, slot), dtype=torch.float32, device=dev)
-    # sequence words (D, 4, M), ack counters (D, 4) as uint32 pairs, and
-    # the error word: zeroed by a stream-ordered memset before each launch
-    sync = torch.zeros(D * 4 * M + D * 2 + 1, dtype=torch.int64, device=dev)
-    cuda_build.check(
-        lib.async_ras_2d_f32(
+    # the rings (D, 4, M, slot), sequence words (D, 4, M), ack counters
+    # (D, 4) and the error word, in this process's window
+    lay = ring_layout(D, 4, M, slot)
+    first = 0 if group is None else group.block(Dg).start
+    err, longest = launch_rounds(
+        "async_ras_2d", dev, group, lay,
+        lambda *win: lib.async_ras_2d_f32(
             coef.data_ptr(), b.data_ptr(), dinv.data_ptr(),
             mask_dom.data_ptr(), mask_int.data_ptr(),
             boost.data_ptr() if boost is not None else None,
             x.data_ptr(), known.data_ptr(), aux.data_ptr(),
-            *(o.data_ptr() for o in out), work.data_ptr(), ring.data_ptr(),
-            sync.data_ptr(), pdx, pdy, ply, plx, FY // ply, FX // plx, HY,
-            HX, rounds, B, ninner, int(bool(nonsym)), int(bool(fresh_read)),
-            points, float(tol) * float(tol), C, band,
-            cuda_build.stream_ptr(dev)),
-        "async_ras_2d_rounds")
+            *(o.data_ptr() for o in out), work.data_ptr(), *win, D, first,
+            pdx, pdy, ply, plx, FY // ply, FX // plx, HY, HX, rounds, B,
+            ninner,
+            int(bool(nonsym)), int(bool(fresh_read)), points,
+            float(tol) * float(tol), C, band, cuda_build.stream_ptr(dev)))
     async_ras_2d_rounds.launches += 1
     async_ras_2d_rounds.cluster = C
-    err = int(sync[-1].item())
+    async_ras_2d_rounds.longest_wait_ns = longest
     if err:
         what = {1: "an acknowledgement", 2: "a neighbour's message",
                 3: "a message to drain"}.get(err, f"code {err}")
@@ -298,3 +332,4 @@ def async_ras_2d_rounds(
 
 async_ras_2d_rounds.launches = 0
 async_ras_2d_rounds.cluster = None    # blocks per rank of the last launch
+async_ras_2d_rounds.longest_wait_ns = None   # the last launch's longest

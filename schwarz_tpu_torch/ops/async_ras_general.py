@@ -31,6 +31,11 @@ form, bit for bit, for comparison.  Its table-precision modes and its memory
 and semaphore gates size that hardware's scratch memory and have no
 counterpart here; K7's wrapper refuses a rank count the card cannot hold
 co-resident.
+
+``mesh`` deals the S ranks (one per subdomain) to the processes of a group,
+S / P consecutive ranks each: each process keeps and launches its ranks,
+``run`` gathers the iterate and the aux lanes, and the checkpoints hold the
+whole state in the JAX package's layout (the x128 ``aux`` scaling kept).
 """
 
 from __future__ import annotations
@@ -48,7 +53,9 @@ from schwarz_tpu_torch.core.partition import (
     partition_regular_1d,
 )
 from schwarz_tpu_torch.exceptions import NotImplementedFeature
-from schwarz_tpu_torch.ops.async_ras import iterative_refinement_run
+from schwarz_tpu_torch.ops.async_ras import (_all_done, _mesh_ranks,
+                                             iterative_refinement_run)
+from schwarz_tpu_torch.parallel.mesh import cut, gather, group_of, write_once
 from schwarz_tpu_torch.ops.async_ras_2d import _round_up, check_oras_weight
 from schwarz_tpu_torch.ops.async_ras_general_kernel import (  # noqa: F401
     LANES,
@@ -326,9 +333,10 @@ class AsyncGeneralRASolver:
                  tolerance: float = 1e-6, staleness: int = 1,
                  ninner: int = 12, chunk_rounds: int = 16,
                  part=None, num_ranks: Optional[int] = None, device=None,
-                 oras_weight: float = 0.0, nonsym: bool = False):
+                 oras_weight: float = 0.0, nonsym: bool = False, mesh=None):
         from schwarz_tpu_torch.ras import resolve_device
 
+        num_ranks, device = _mesh_ranks(mesh, num_ranks, device)
         self.device = resolve_device(device)
         S = num_subdomains
         if part is None:
@@ -353,15 +361,22 @@ class AsyncGeneralRASolver:
                 f"free-running mode requires S ({S}) % devices ({D}) == 0"
             )
         self.D, self.Sl = D, S // D
+        # the processes the kernel's S ranks are dealt to (None: this
+        # process holds all)
+        self._mesh = group_of(mesh)
         p = self.plan
-        self._dev = {k: torch.from_numpy(getattr(p, k)).to(self.device)
+        self._dev = {k: self._local(getattr(p, k))
                      for k in ("b", "dinv", "mask_int", "send_idx",
                                "recv_slot", "tgt_subd")}
         self._dev["cols"], self._dev["vals"] = ell_planes(
-            torch.from_numpy(p.cols).to(self.device),
-            torch.from_numpy(p.vals).to(self.device))
+            self._local(p.cols), self._local(p.vals))
         if p.boost is not None:
-            self._dev["boost"] = torch.from_numpy(p.boost).to(self.device)
+            self._dev["boost"] = self._local(p.boost)
+
+    def _local(self, a: np.ndarray) -> torch.Tensor:
+        """This process's ranks' rows of a plan array, on the device."""
+        return torch.from_numpy(np.ascontiguousarray(
+            cut(self._mesh, a))).to(self.device)
 
     def set_rhs(self, rhs) -> None:
         """Repack the per-rank RHS slots without rebuilding the plan
@@ -370,7 +385,7 @@ class AsyncGeneralRASolver:
         r = np.asarray(rhs, np.float64) * p.scale
         p.b = (p.mask_dom * r[np.clip(p.gid, 0, p.N - 1)]).astype(np.float32)
         self.rhs = np.asarray(rhs)
-        self._dev["b"] = torch.from_numpy(p.b).to(self.device)
+        self._dev["b"] = self._local(p.b)
 
     def run_refined(self, tol: float = 1e-10, max_restarts: int = 12,
                     max_rounds: int = 400, resume_state=None,
@@ -393,20 +408,21 @@ class AsyncGeneralRASolver:
         128 values, (S*C*8*SEG/128, 128).  The JAX package's dot products
         also sum over the 128 replicated lanes, so its two squared residual
         norms (aux lanes 0 and 3) are 128 times the port's: scaled here and
-        back in :meth:`load_checkpoint`, exactly, by a power of two."""
+        back in :meth:`load_checkpoint`, exactly, by a power of two.  Across
+        processes the blocks are gathered and process 0 writes the file."""
         p = self.plan
-        x, known, aux, carry = (a.detach().cpu().numpy() for a in state)
+        x, known, aux, carry = (gather(self._mesh, a) for a in state)
         aux = aux.copy()
         aux[:, [0, 3]] = np.where(aux[:, [0, 3]] > 0,
                                   aux[:, [0, 3]] * LANES, aux[:, [0, 3]])
         SEGT = p.SEG // 128
         packed = np.zeros((p.S * p.C * SEGT, 8, 128), np.float32)
         packed[:, 0] = carry.reshape(-1, 128)
-        np.savez_compressed(
+        write_once(self._mesh, lambda: np.savez_compressed(
             path,
             np.repeat(x.reshape(-1, 1), 128, axis=1),
             np.repeat(known, 8, axis=0), np.repeat(aux, 8, axis=0),
-            packed.reshape(-1, 128))
+            packed.reshape(-1, 128)))
 
     def load_checkpoint(self, path: str):
         # np.savez_compressed appends .npz to a suffix-less path; accept
@@ -422,19 +438,19 @@ class AsyncGeneralRASolver:
                                   aux[:, [0, 3]] / LANES, aux[:, [0, 3]])
         state = (x[:, 0].reshape(p.S, p.Rint), known[::8], aux,
                  carry.reshape(-1, 8, 128)[:, 0].reshape(p.S, p.C, p.SEG))
-        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                     for a in state)
+        return tuple(self._local(a) for a in state)
 
     def init_state(self):
         """Fresh (x (S, Rint), known (S, 128), aux (S, 128), carry
-        (S, C, SEG)) on the device."""
+        (S, C, SEG)) on the device: this process's ranks."""
         p = self.plan
+        S = p.S if self._mesh is None else p.S // self._mesh.num_processes
         z = lambda *s: torch.zeros(s, dtype=torch.float32,  # noqa: E731
                                    device=self.device)
-        aux = torch.full((p.S, LANES), -1.0, dtype=torch.float32,
+        aux = torch.full((S, LANES), -1.0, dtype=torch.float32,
                          device=self.device)
         aux[:, 2] = 0.0   # base round counter
-        return z(p.S, p.Rint), z(p.S, LANES), aux, z(p.S, p.C, p.SEG)
+        return z(S, p.Rint), z(S, LANES), aux, z(S, p.C, p.SEG)
 
     def launch(self, x, known, aux, carry, fn=async_general_rounds):
         """One launch: ``chunk_rounds`` rounds of all ranks.  ``fn`` is
@@ -445,7 +461,7 @@ class AsyncGeneralRASolver:
             d["send_idx"], d["recv_slot"], d["tgt_subd"], x, known, aux,
             carry, d.get("boost"), rounds=self.chunk_rounds,
             staleness=self.staleness, ninner=self.ninner,
-            tol=self.tolerance, nonsym=self.nonsym,
+            tol=self.tolerance, nonsym=self.nonsym, mesh=self._mesh,
         )
 
     def run(self, max_rounds: int = 400, resume_state=None,
@@ -465,13 +481,13 @@ class AsyncGeneralRASolver:
         while rounds < max_rounds:
             state = self.launch(*state)
             rounds += self.chunk_rounds
-            if bool((state[2][:, 1] >= 0).all()):
+            if _all_done(self._mesh, state[2]):
                 break
-        aux_h = state[2].cpu().numpy()
+        aux_h = gather(self._mesh, state[2])
         elapsed = time.perf_counter() - t0
         if checkpoint_path is not None:
             self.save_checkpoint(state, checkpoint_path)
-        x_h = state[0].cpu().numpy()
+        x_h = gather(self._mesh, state[0])
         sol = np.zeros(p.N, np.float32)
         for s in range(S):
             # kernel state is the Jacobi-scaled unknown y; x = Ds y

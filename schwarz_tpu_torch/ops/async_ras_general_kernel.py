@@ -44,6 +44,8 @@ from __future__ import annotations
 import torch
 
 from schwarz_tpu_torch.ops import cuda_build
+from schwarz_tpu_torch.ops.rank_rings import launch_rounds, ring_layout
+from schwarz_tpu_torch.parallel.mesh import group_of
 from schwarz_tpu_torch.ops.async_ras_kernel import (
     LANES,
     bicgstab_plain,
@@ -66,9 +68,11 @@ def ell_planes(cols, vals):
 def async_general_rounds_plain(
     cols, vals, b, dinv, mask_int, send_idx, recv_slot, tgt_subd, x, known,
     aux, carry, boost=None, *, rounds: int, staleness: int, ninner: int,
-    tol: float, nonsym: bool = False,
+    tol: float, nonsym: bool = False, mesh=None,
 ):
-    """Lockstep emulation of ``rounds`` free-running rounds of all S ranks.
+    """Lockstep emulation of ``rounds`` free-running rounds of all S ranks
+    (of this process's S / P ranks under a ``mesh``, whose partners'
+    messages come from one ``Mesh.all_gather`` a round).
 
     Returns (x, known, aux, carry) in the input layout.  aux lanes: 0 the
     first local ||r||^2 (-1 before the first round), 1 ``done_at`` (-1 until
@@ -76,7 +80,9 @@ def async_general_rounds_plain(
     last local ||r||^2; the other lanes pass through."""
     f32 = torch.float32
     dev = x.device
-    S, K, Rext = vals.shape
+    group = group_of(mesh)
+    S, K, Rext = vals.shape     # this process's ranks
+    Sg = S if group is None else S * group.num_processes
     Rint = x.shape[1]
     H = Rext - Rint
     C, SEG = send_idx.shape[1:]
@@ -84,7 +90,8 @@ def async_general_rounds_plain(
     T = rounds
     tol2 = torch.tensor(float(tol) * float(tol), dtype=f32, device=dev)
     lane = torch.arange(LANES, device=dev)
-    me = torch.arange(S, device=dev)
+    first = 0 if group is None else group.process_index * S
+    me = torch.arange(S, device=dev) + first
     zero = torch.zeros((), dtype=f32, device=dev)
     col_idx = cols.long()
     tgt = tgt_subd.long()
@@ -117,7 +124,17 @@ def async_general_rounds_plain(
         partner sent it (its own message where it has no link)."""
         return a[tgt, color]
 
-    known_k = torch.maximum(known, (lane >= S).to(f32)[None, :])
+    def messages(n):
+        """(values, known bits) of every rank's message of round n, each
+        (S_group, C, ...): gathered from every process in one call."""
+        v, k = sent[n]
+        if group is None:
+            return v, k[:, None, :].expand(S, C, LANES)
+        g = group.all_gather(torch.cat((v.reshape(S, -1), k), 1))
+        return (g[:, :C * SEG].reshape(Sg, C, SEG),
+                g[:, C * SEG:][:, None, :].expand(Sg, C, LANES))
+
+    known_k = torch.maximum(known, (lane >= Sg).to(f32)[None, :])
     rn0, done_at = aux[:, 0], aux[:, 1]
     base_t = aux[0, 2]
     rn = torch.zeros(S, dtype=f32, device=dev)
@@ -127,9 +144,10 @@ def async_general_rounds_plain(
         vals_out = torch.where(send_on, torch.gather(xx, 1, send_pos), zero)
         sent.append((vals_out.reshape(S, C, SEG), known_k))
         if t >= B:
-            msg = received(sent[t - B][0])
+            got = messages(t - B)
+            msg = received(got[0])
             # a rank without a link on a colour gets its own bits back
-            flags = received(sent[t - B][1][:, None, :].expand(S, C, LANES))
+            flags = received(got[1])
             known_k = torch.maximum(known_k, flags.amax(dim=1))
         else:
             msg = carry
@@ -156,9 +174,9 @@ def async_general_rounds_plain(
     # the last B messages were sent but not consumed: their flags are still
     # gossip, and the values of the last one are the carry
     for n in range(max(T - B, 0), T):
-        flags = received(sent[n][1][:, None, :].expand(S, C, LANES))
-        known_k = torch.maximum(known_k, flags.amax(dim=1))
-    carry_out = received(sent[T - 1][0])
+        got = messages(n)
+        known_k = torch.maximum(known_k, received(got[1]).amax(dim=1))
+    carry_out = received(got[0])
     aux_out = aux.clone()
     for k, v in enumerate((rn0, done_at, base_t + float(T), rn)):
         aux_out[:, k] = v
@@ -168,7 +186,7 @@ def async_general_rounds_plain(
 def async_general_rounds(
     cols, vals, b, dinv, mask_int, send_idx, recv_slot, tgt_subd, x, known,
     aux, carry, boost=None, *, rounds: int, staleness: int, ninner: int,
-    tol: float, nonsym: bool = False, variant=None,
+    tol: float, nonsym: bool = False, variant=None, mesh=None,
 ):
     """``rounds`` free-running rounds of all S ranks; K7 on the card.
 
@@ -179,9 +197,12 @@ def async_general_rounds(
     The last launch's variant and threads a block are kept in
     ``async_general_rounds.variant`` and ``.threads``.  Raises when a forced
     'shared' variant does not fit, when the card cannot hold S blocks and
-    when a wait times out."""
+    when a wait times out.  Under a ``mesh`` of several processes the
+    operands hold the process's S / P ranks, consecutive, and each process
+    launches them (:mod:`.rank_rings`); ``.longest_wait_ns`` keeps the
+    launch's longest wait, in ns."""
     kw = dict(rounds=rounds, staleness=staleness, ninner=ninner, tol=tol,
-              nonsym=nonsym)
+              nonsym=nonsym, mesh=mesh)
     if x.device.type == "cpu":
         return async_general_rounds_plain(
             cols, vals, b, dinv, mask_int, send_idx, recv_slot, tgt_subd, x,
@@ -200,7 +221,9 @@ def async_general_rounds(
     if vals.dim() != 3 or x.dim() != 2 or send_idx.dim() != 3:
         raise ValueError(f"{what}: vals must be (S, K, Rext), x (S, Rint) "
                          "and send_idx (S, C, SEG)")
-    S, K, Rext = vals.shape
+    S, K, Rext = vals.shape     # this process's ranks
+    group = group_of(mesh)
+    Sg = S if group is None else S * group.num_processes
     Rint = x.shape[1]
     C, SEG = send_idx.shape[1:]
     for name in ("b", "dinv", "mask_int", "boost"):
@@ -212,8 +235,8 @@ def async_general_rounds(
             or aux.shape != (S, LANES)):
         raise ValueError(f"{what}: operand shapes do not match S={S}, "
                          f"K={K}, Rext={Rext}, Rint={Rint}, C={C}, SEG={SEG}")
-    if S > LANES:
-        raise ValueError(f"{what}: {S} ranks; the gossip keeps one lane per "
+    if Sg > LANES:
+        raise ValueError(f"{what}: {Sg} ranks; the gossip keeps one lane per "
                          f"rank, at most {LANES}")
     fitting = general_variant(Rext, K, nonsym)
     v = fitting if variant is None else variant
@@ -241,29 +264,27 @@ def async_general_rounds(
            torch.empty_like(aux), torch.empty_like(carry)]
     work = (torch.empty((S, 8 if nonsym else 5, Rext), dtype=torch.float32,
                         device=dev) if v == "global" else None)
-    ring = torch.empty((S, C, M, SEG + LANES), dtype=torch.float32,
-                       device=dev)
-    # sequence words (S, C, M), ack counters (S, C) as uint32 pairs, and the
-    # error word: zeroed by a stream-ordered memset before each launch
-    sync = torch.zeros(S * C * M + (S * C + 1) // 2 + 1, dtype=torch.int64,
-                       device=dev)
-    cuda_build.check(
-        lib.async_general_f32(
+    # the rings (S, C, M, slot), sequence words (S, C, M), ack counters
+    # (S, C) and the error word, in this process's window
+    lay = ring_layout(S, C, M, SEG + LANES)
+    first = 0 if group is None else group.process_index * S
+    err, longest = launch_rounds(
+        "async_ras_general", dev, group, lay,
+        lambda *win: lib.async_general_f32(
             cols.data_ptr(), vals.data_ptr(), b.data_ptr(), dinv.data_ptr(),
             mask_int.data_ptr(),
             boost.data_ptr() if boost is not None else None,
             send_idx.data_ptr(), recv_slot.data_ptr(), tgt_subd.data_ptr(),
             x.data_ptr(), known.data_ptr(), aux.data_ptr(), carry.data_ptr(),
             *(o.data_ptr() for o in out),
-            work.data_ptr() if work is not None else None, ring.data_ptr(),
-            sync.data_ptr(), S, Rint, Rext - Rint, K, SEG, C, rounds, B,
-            ninner, int(bool(nonsym)), float(tol) * float(tol), smem,
-            cuda_build.stream_ptr(dev)),
-        what)
+            work.data_ptr() if work is not None else None, *win, Sg, S,
+            first, Rint, Rext - Rint, K, SEG, C, rounds, B, ninner,
+            int(bool(nonsym)),
+            float(tol) * float(tol), smem, cuda_build.stream_ptr(dev)))
     async_general_rounds.launches += 1
     async_general_rounds.variant = v
     async_general_rounds.threads = nt
-    err = int(sync[-1].item())
+    async_general_rounds.longest_wait_ns = longest
     if err:
         waited = {1: "an acknowledgement", 2: "a partner's message",
                   3: "a message to drain"}.get(err, f"code {err}")
@@ -276,3 +297,4 @@ def async_general_rounds(
 async_general_rounds.launches = 0
 async_general_rounds.variant = None   # 'shared' or 'global', last launch
 async_general_rounds.threads = None   # threads a block, last launch
+async_general_rounds.longest_wait_ns = None   # the last launch's longest

@@ -30,6 +30,12 @@ on message t-B exactly, and a slot is not overwritten before it is
 acknowledged), so the emulation is exact up to ties in the float64 sums.
 With ``fresh_read`` the emulation reads message t-1, the newest message
 available in lockstep: one legal schedule among many.
+
+Across the processes of a mesh (``mesh=``), the operands hold the process's
+D / P ranks.  The kernel then reaches the neighbours' rings in peer
+processes through the mesh's window (:mod:`.rank_rings`); the plain version
+takes its two rank rolls through ``Mesh.shift`` and is otherwise the
+single-process emulation, bit for bit.
 """
 
 from __future__ import annotations
@@ -41,6 +47,8 @@ import torch
 from schwarz_tpu_torch.ops import cuda_build
 from schwarz_tpu_torch.ops.cluster_geometry import (  # noqa: F401  re-exported
     CLUSTER_SIZES, choose_cluster)
+from schwarz_tpu_torch.ops.rank_rings import launch_rounds, ring_layout
+from schwarz_tpu_torch.parallel.mesh import group_of
 
 LANES = 128                # known-converged bit lanes: at most 128 ranks
 MAX_GMRES_M = 64           # Hessenberg held in shared memory
@@ -125,9 +133,10 @@ def async_ras_rounds_plain(
     dia, b, dinv, mask_dom, mask_int, x, known, aux, hl, hr, boost=None, *,
     offsets: Tuple[int, ...], total: int, hw: int, rounds: int,
     staleness: int, ninner: int, tol: float, fresh_read: bool = False,
-    nonsym: bool = False, nonsym_solver: str = "bicgstab",
+    nonsym: bool = False, nonsym_solver: str = "bicgstab", mesh=None,
 ):
-    """Lockstep emulation of ``rounds`` free-running rounds of all D ranks.
+    """Lockstep emulation of ``rounds`` free-running rounds of all D ranks
+    (of this process's D / P ranks under a ``mesh``).
 
     Returns (x, known, aux, hl, hr) in the input layout.  aux lanes: 0 the
     first local ||r||^2 (-1 before the first round), 1 ``done_at`` (-1 until
@@ -136,14 +145,17 @@ def async_ras_rounds_plain(
     solver = solver_kind(nonsym, nonsym_solver)
     f32 = torch.float32
     dev = x.device
+    group = group_of(mesh)
     D, K, L = dia.shape
+    Dg = D if group is None else group.num_ranks   # ranks of the group
     Sl = L // total
     R = total - 2 * hw
     B = max(staleness, 1)
     T = rounds
     tol2 = torch.tensor(float(tol) * float(tol), dtype=f32, device=dev)
     lane = torch.arange(LANES, device=dev)
-    me = torch.arange(D, device=dev)
+    first = 0 if group is None else group.block(Dg).start
+    me = torch.arange(D, device=dev) + first
     zero = torch.zeros((), dtype=f32, device=dev)
 
     def apply_dom(v):
@@ -208,10 +220,18 @@ def async_ras_rounds_plain(
                                              ninner),
         "gmres": gmres,
     }[solver]
-    left = lambda a: torch.roll(a, 1, 0)    # noqa: E731  rank me-1's data
-    right = lambda a: torch.roll(a, -1, 0)  # noqa: E731  rank me+1's data
+    roll = ((lambda a, r: torch.roll(a, r, 0)) if group is None
+            else group.shift)
 
-    known_k = torch.maximum(known, (lane >= D).to(f32)[None, :])
+    def neighbours(strip_l, strip_r, flags):
+        """(left rank's right strip, right rank's left strip, left rank's
+        flags, right rank's flags) of a message as sent: one roll a
+        direction."""
+        ml = roll(torch.cat((strip_r, flags), 1), 1)    # rank me-1's
+        mr = roll(torch.cat((strip_l, flags), 1), -1)   # rank me+1's
+        return ml[:, :hw], mr[:, :hw], ml[:, hw:], mr[:, hw:]
+
+    known_k = torch.maximum(known, (lane >= Dg).to(f32)[None, :])
     rn0, done_at, base_t = aux[:, 0], aux[:, 1], aux[:, 2]
     hits = torch.clamp(aux[:, 4], min=0.0)
     rn = torch.zeros(D, dtype=f32, device=dev)
@@ -222,10 +242,9 @@ def async_ras_rounds_plain(
         sent.append((xx[:, :hw], xx[:, Sl * R - hw:], known_k))
         if t >= B:
             u = t - 1 if (fresh_read and B > 1) else t - B
-            halo_l, halo_r = left(sent[u][1]), right(sent[u][0])
             # known bits only grow, so the newest message's flags are the
             # union over the slots a fresh read looks at
-            flags_l, flags_r = left(sent[u][2]), right(sent[u][2])
+            halo_l, halo_r, flags_l, flags_r = neighbours(*sent[u])
             if fresh_read and B > 1:
                 hits = hits + 2.0 * (B - 1)
         else:
@@ -255,9 +274,8 @@ def async_ras_rounds_plain(
     # drain: the messages of rounds T-B .. T-1 were sent but not consumed;
     # their flags are still gossip, and the last one is the halo carry
     for n in range(max(T - B, 0), T):
-        known_k = torch.maximum(torch.maximum(known_k, left(sent[n][2])),
-                                right(sent[n][2]))
-    hl_out, hr_out = left(sent[T - 1][1]), right(sent[T - 1][0])
+        hl_out, hr_out, flags_l, flags_r = neighbours(*sent[n])
+        known_k = torch.maximum(torch.maximum(known_k, flags_l), flags_r)
     aux_out = torch.zeros_like(aux)
     for k, v in enumerate((rn0, done_at, base_t + float(T), rn, hits)):
         aux_out[:, k] = v
@@ -270,7 +288,7 @@ def async_ras_rounds(
     offsets: Tuple[int, ...], total: int, hw: int, rounds: int,
     staleness: int, ninner: int, tol: float, fresh_read: bool = False,
     nonsym: bool = False, nonsym_solver: str = "bicgstab",
-    cluster: Optional[int] = None,
+    cluster: Optional[int] = None, mesh=None,
 ):
     """``rounds`` free-running rounds of all D ranks; K5 on the card.
 
@@ -280,14 +298,19 @@ def async_ras_rounds(
     never do; the tests and the smoke run compare sizes).  Raises when the
     card cannot hold D clusters, when a wait times out, and for
     ``fresh_read`` unless the flag-order probe (K9) has passed in this
-    process at a cluster of at least the C about to launch."""
+    process at a cluster of at least the C about to launch.  Under a
+    ``mesh`` of several processes the operands hold the process's ranks
+    and each process launches them (see :mod:`.rank_rings`); the card must
+    hold them alone, and ``.longest_wait_ns`` keeps the launch's longest
+    wait."""
     kw = dict(offsets=offsets, total=total, hw=hw, rounds=rounds,
               staleness=staleness, ninner=ninner, tol=tol,
               fresh_read=fresh_read, nonsym=nonsym,
-              nonsym_solver=nonsym_solver)
+              nonsym_solver=nonsym_solver, mesh=mesh)
     if x.device.type == "cpu":
         return async_ras_rounds_plain(dia, b, dinv, mask_dom, mask_int, x,
                                       known, aux, hl, hr, boost, **kw)
+    group = group_of(mesh)
     solver = solver_kind(nonsym, nonsym_solver)
     ops = dict(dia=dia, b=b, dinv=dinv, mask_dom=mask_dom,
                mask_int=mask_int, x=x, known=known, aux=aux, hl=hl, hr=hr)
@@ -307,9 +330,13 @@ def async_ras_rounds(
     if len(offsets) != K or not 0 < K <= 32:
         raise ValueError(f"async_ras_rounds: {len(offsets)} offsets for {K} "
                          "diagonals (1..32)")
-    if D > LANES:
-        raise ValueError(f"async_ras_rounds: {D} ranks; the gossip keeps one "
-                         f"lane per rank, at most {LANES}")
+    Dg = D if group is None else group.num_ranks   # D: this launch's
+    if Dg > LANES:
+        raise ValueError(f"async_ras_rounds: {Dg} ranks; the gossip keeps "
+                         f"one lane per rank, at most {LANES}")
+    if group is not None and group.ranks_per_process != D:
+        raise ValueError(f"async_ras_rounds: {D} ranks in this process; "
+                         f"the mesh deals it {group.ranks_per_process}")
     if solver == "gmres" and ninner > MAX_GMRES_M:
         raise ValueError(f"async_ras_rounds: GMRES({ninner}) exceeds the "
                          f"kernel's m <= {MAX_GMRES_M}")
@@ -335,31 +362,30 @@ def async_ras_rounds(
 
         require_flag_order(x.device, C)
     M = 2 * B + 2
-    slot = -(-(hw + D) // 4) * 4
+    slot = -(-(hw + Dg) // 4) * 4
     nwork = {"cg": 5, "bicgstab": 8, "gmres": ninner + 4}[solver]
     dev = x.device
     out = [torch.empty_like(x), torch.empty_like(known),
            torch.empty_like(aux), torch.empty_like(hl), torch.empty_like(hr)]
     work = torch.empty((D, nwork, L), dtype=torch.float32, device=dev)
-    ring = torch.empty((D, 2, M, slot), dtype=torch.float32, device=dev)
-    # sequence words (D, 2, M), ack counters (D, 2) as uint32 pairs, and
-    # the error word: zeroed by a stream-ordered memset before each launch
-    sync = torch.zeros(D * 2 * M + D + 1, dtype=torch.int64, device=dev)
-    cuda_build.check(
-        lib.async_ras_f32(
+    # the rings (D, 2, M, slot), sequence words (D, 2, M), ack counters
+    # (D, 2) and the error word, in this process's window
+    lay = ring_layout(D, 2, M, slot)
+    first = 0 if group is None else group.block(Dg).start
+    err, longest = launch_rounds(
+        "async_ras", dev, group, lay, lambda *win: lib.async_ras_f32(
             dia.data_ptr(), b.data_ptr(), dinv.data_ptr(),
             mask_dom.data_ptr(), mask_int.data_ptr(),
             boost.data_ptr() if boost is not None else None,
             x.data_ptr(), known.data_ptr(), aux.data_ptr(), hl.data_ptr(),
             hr.data_ptr(), *(o.data_ptr() for o in out), work.data_ptr(),
-            ring.data_ptr(), sync.data_ptr(), D, Sl, K, total, hw, rounds, B,
-            ninner, _SOLVERS[solver], int(bool(fresh_read)),
-            cuda_build.int_array(offsets), float(tol) * float(tol), C,
-            cuda_build.stream_ptr(dev)),
-        "async_ras_rounds")
+            *win, Dg, D, first, Sl, K, total, hw, rounds, B, ninner,
+            _SOLVERS[solver],
+            int(bool(fresh_read)), cuda_build.int_array(offsets),
+            float(tol) * float(tol), C, cuda_build.stream_ptr(dev)))
     async_ras_rounds.launches += 1
     async_ras_rounds.cluster = C
-    err = int(sync[-1].item())
+    async_ras_rounds.longest_wait_ns = longest
     if err:
         what = {1: "an acknowledgement", 2: "a neighbour's message",
                 3: "a message to drain"}.get(err, f"code {err}")
@@ -371,3 +397,4 @@ def async_ras_rounds(
 
 async_ras_rounds.launches = 0
 async_ras_rounds.cluster = None    # blocks per rank of the last launch
+async_ras_rounds.longest_wait_ns = None   # last launch's, across processes

@@ -26,7 +26,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 KERNEL_SOURCES = ("dia_spmv", "halo_runs", "fused_cg", "async_ras",
                   "async_ras_2d", "async_ras_general", "diagnostics",
-                  "rdma_shift")
+                  "rdma_shift", "peer_window")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 # K5, K6 and K7 round a*b+c twice, as PyTorch's separate operations do, so
@@ -41,6 +41,7 @@ _libs: dict = {}
 # C signatures: pointers, the stream and 64-bit strides as void*/longlong,
 # so ctypes never truncates them to 32-bit ints
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_ULL = ctypes.c_ulonglong
 SIGNATURES = {
     "dia_spmv": {
         "dia_spmv_f32": (_P, _P, _P, _I, _I, _I, _LL, _P, _P),
@@ -59,16 +60,19 @@ SIGNATURES = {
     },
     "async_ras": {
         "async_ras_max_clusters": (_I, _I),
-        "async_ras_f32": (_P,) * 19 + (_I,) * 10 + (_P, _F, _I, _P),
+        "async_ras_f32": (_P,) * 19 + (_LL,) * 3 + (_I,) * 12
+        + (_P, _F, _I, _P),
     },
     "async_ras_2d": {
         "async_ras_2d_max_clusters": (_I, _I),
-        "async_ras_2d_f32": (_P,) * 15 + (_I,) * 14 + (_F, _I, _I, _P),
+        "async_ras_2d_f32": (_P,) * 15 + (_LL,) * 3 + (_I,) * 16
+        + (_F, _I, _I, _P),
     },
     "async_ras_general": {
         "async_general_threads": (_I,),
         "async_general_max_ranks": (_I, _I),
-        "async_general_f32": (_P,) * 20 + (_I,) * 10 + (_F, _I, _P),
+        "async_general_f32": (_P,) * 20 + (_LL,) * 3 + (_I,) * 12
+        + (_F, _I, _P),
     },
     "diagnostics": {
         "smoke_x2_f32": (_P, _P, _LL, _P),
@@ -77,7 +81,16 @@ SIGNATURES = {
     },
     "rdma_shift": {
         "rdma_shift_max_ranks": (_I, _I),
-        "rdma_exchange": (_P,) * 9 + (_LL,) + (_I,) * 9 + (_P,),
+        "rdma_exchange": (_P,) * 11 + (_LL,) + (_I,) * 11 + (_P,),
+    },
+    "peer_window": {
+        "peer_window_alloc": (_ULL, _P),
+        "peer_window_handle": (_ULL, _P),
+        "peer_window_open": (_P, _P),
+        "peer_window_close": (_ULL,),
+        "peer_window_free": (_ULL,),
+        "peer_window_zero": (_ULL, _ULL, _ULL, _P),
+        "peer_window_read": (_ULL, _ULL, _P, _ULL),
     },
 }
 

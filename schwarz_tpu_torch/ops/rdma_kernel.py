@@ -24,6 +24,15 @@ kernel's watchdog sets a sticky abort word, which :func:`rdma_shift_finish`
 turns into a ``RuntimeError``; it then drops every set of counters, so the
 next launch starts from fresh ones.
 
+Across the processes of a mesh (:class:`ExchangeRounds` built with one),
+each process launches the kernel for its own ranks, and a rank reaches a
+peer process's ranks through the mesh's window (:meth:`~schwarz_tpu_torch.
+parallel.mesh.Mesh.window`, CUDA IPC): the receive windows and sequence
+words of every process, one table of their addresses.  A fault there drops
+the window, and every process rebuilds it at its next launch, together.  On
+CPU tensors across processes the plain version moves each round through
+``Mesh.shift``.
+
 On CPU tensors the wrappers take the plain versions below; on CUDA tensors
 they launch the kernel or raise.
 """
@@ -37,10 +46,12 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 
 from schwarz_tpu_torch.ops import cuda_build
+from schwarz_tpu_torch.parallel.mesh import LocalWindow, group_of
 
 MODES = ("put", "get")
 WAITED_FOR = {4: "a request from the rank it serves",
-              5: "its source rank's data"}
+              5: "its source rank's data",
+              6: "its target rank to free its window"}
 # the kernel's element codes: bits for the shift, values for the exchange
 _BITS = {2: 0, 4: 1, 8: 2}
 _VALUES = {torch.float32: 3, torch.float64: 4, torch.bfloat16: 5,
@@ -68,51 +79,97 @@ def rdma_cyclic_shift_plain(
 
 class _Card:
     """K4's state for one round structure on one card: the round table
-    (offset, H_k, window base), the cumulative sequence words (receive and
-    request counters per round and rank, the finished counter, the abort
-    word), zeroed once, and the host's launch totals (whole-buffer,
-    one-by-one, get, all)."""
+    (offset, H_k, the window base of the process's Dl ranks), a window
+    (:meth:`Mesh.window` across processes, a :class:`LocalWindow` in one:
+    this process's receive windows, unless ``data=False``, then its
+    cumulative sequence words: receive and request counters per round and
+    rank, the finished counter, the abort word, the freed counters per rank
+    and the longest wait in ns), zeroed once, and
+    the host's launch totals (whole-buffer, one-by-one, get, all).
+    ``mesh`` deals the D ranks to its processes, D / P each; without one
+    the process holds them all."""
 
-    def __init__(self, offsets, widths, D: int, device):
+    def __init__(self, offsets, widths, D: int, device, mesh=None,
+                 data: bool = True):
+        P = 1 if mesh is None else mesh.num_processes
+        self.mesh = group_of(mesh)
+        Dl = D // P
         bases, base = [], 0
         for h in widths:
             bases.append(base)
-            base += D * h
-        self.D, self.n_rounds, self.window = D, len(widths), base
+            base += Dl * h
+        self.D, self.Dl, self.n_rounds, self.window = D, Dl, len(widths), base
+        self.first = 0 if mesh is None else mesh.process_index * Dl
         self.rounds = torch.tensor(
             [[o % D, h, b] for o, h, b in zip(offsets, widths, bases)],
             dtype=torch.int32, device=device)
-        self.reset()
+        self.seq_off = 8 * base if data else 0
+        self.n_words = (2 * self.n_rounds + 1) * Dl + 3
+        self.nbytes = self.seq_off + 8 * self.n_words
+        self.win = (LocalWindow(self.nbytes, device) if self.mesh is None
+                    else self.mesh.window(self.nbytes))
+        self.words = self.win.table + self.seq_off   # (P,) sequence words
+        self.stale = False
+        self.totals = [0, 0, 0, 0]
         _live_cards.add(self)
 
+    @property
+    def seq(self) -> torch.Tensor:
+        """The receive and request counters, the finished counter and the
+        abort word, as an int64 view (one process only)."""
+        n = 2 * self.n_rounds * self.Dl + 2
+        return self.win.buffer[self.seq_off:self.seq_off + 8 * n].view(
+            torch.int64)
+
     def reset(self) -> None:
-        self.seq = torch.zeros(2 * self.n_rounds * self.D + 2,
-                               dtype=torch.int64, device=self.rounds.device)
+        """Drop the sequence words after a fault.  Across processes the
+        window is rebuilt at the next launch, which every process makes."""
+        if self.mesh is None:
+            self.win.zero(self.seq_off, 8 * self.n_words)
+        else:
+            self.stale = True
         self.totals = [0, 0, 0, 0]
 
-    def launch(self, lib, x, pack, unpack, halo, win, n_own: int, Sl: int,
+    def longest_wait_ns(self) -> int:
+        """The longest wait of any of this process's ranks so far, in ns of
+        the card's global timer (synchronizes); kept across processes
+        only (0 in one)."""
+        off = self.seq_off + 8 * (self.n_words - 1)
+        me = 0 if self.mesh is None else self.mesh.process_index
+        return int.from_bytes(self.win.read(me, off, 8), "little")
+
+    def launch(self, lib, x, pack, unpack, halo, out, n_own: int, Sl: int,
                Hs: int, tc: int, tw: int, mode: str, one_by_one: bool,
                flush_local: bool) -> torch.Tensor:
-        """One launch of the kernel on these counters; returns its status
-        (n_rounds * D * 2 counts, then the error word)."""
+        """One launch of the kernel on these counters, into ``out`` (the
+        one-round shift's receive window, in one process) or into the
+        window's receive windows.  Returns its status (n_rounds * Dl * 2
+        counts, then the error word)."""
         dev = self.rounds.device
         key = (dev, tc, tw)
         if key not in _caps:
             with torch.cuda.device(dev):
                 _caps[key] = lib.rdma_shift_max_ranks(tc, tw)
-        if self.D > _caps[key]:
+        if self.Dl > _caps[key]:
             raise RuntimeError(
-                f"rdma_cyclic_shift: {self.D} ranks need {self.D} co-resident "
-                f"thread blocks; this card holds {_caps[key]} — use fewer "
-                "ranks (num_ranks)")
-        status = torch.empty(2 * self.n_rounds * self.D + 1,
+                f"rdma_cyclic_shift: {self.Dl} ranks need {self.Dl} "
+                f"co-resident thread blocks; this card holds {_caps[key]} — "
+                "use fewer ranks (num_ranks)")
+        if self.stale:
+            self.win.close()
+            self.win = self.mesh.window(self.nbytes)
+            self.words = self.win.table + self.seq_off
+            self.stale = False
+        status = torch.empty(2 * self.n_rounds * self.Dl + 1,
                              dtype=torch.int32, device=dev)
         ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
         err = lib.rdma_exchange(
-            x.data_ptr(), ptr(pack), ptr(unpack), ptr(halo), win.data_ptr(),
-            self.rounds.data_ptr(), self.seq.data_ptr(), status.data_ptr(),
-            (ctypes.c_ulonglong * 4)(*self.totals), n_own, self.D,
-            self.n_rounds, Sl, Hs, tc, tw, int(mode == "get"),
+            x.data_ptr(), ptr(pack), ptr(unpack), ptr(halo),
+            self.win.table.data_ptr(), self.words.data_ptr(),
+            ptr(out) or self.win.ptr, self.win.ptr + self.seq_off,
+            self.rounds.data_ptr(), status.data_ptr(),
+            (ctypes.c_ulonglong * 4)(*self.totals), n_own, self.D, self.Dl,
+            self.first, self.n_rounds, Sl, Hs, tc, tw, int(mode == "get"),
             int(bool(one_by_one)), int(bool(flush_local)),
             cuda_build.stream_ptr(dev))
         if err:
@@ -157,9 +214,11 @@ def rdma_shift_launch(
     key = (buf.device, D, H, offset)
     card = _shift_cards.get(key)
     if card is None:
-        card = _shift_cards[key] = _Card([offset], [H], D, buf.device)
+        card = _shift_cards[key] = _Card([offset], [H], D, buf.device,
+                                         data=False)
     out = torch.empty_like(buf)
     code = _BITS[elem]
+    # the receive window is the output itself
     status = card.launch(cuda_build.library("rdma_shift"), buf, None, None,
                          None, out, H, 0, 0, code, code, mode, one_by_one,
                          flush_local)
@@ -172,13 +231,19 @@ def rdma_shift_finish(statuses: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     each launch's counts (n_rounds * D, 2)."""
     for err in torch.stack([s[-1] for s in statuses]).tolist():
         if err:
-            for card in list(_live_cards):
-                card.reset()
-            waited = WAITED_FOR.get(err, f"code {err}")
-            raise RuntimeError(
-                f"rdma_cyclic_shift: a rank waited for {waited} past the "
-                "watchdog; the ranks' protocol is broken")
+            rdma_fault(err)
     return [s[:-1].reshape(-1, 2) for s in statuses]
+
+
+def rdma_fault(err: int) -> None:
+    """Drop every set of sequence words (across processes: every window,
+    rebuilt at the next launch) and raise for the error word ``err``."""
+    for card in list(_live_cards):
+        card.reset()
+    waited = WAITED_FOR.get(err, f"code {err}")
+    raise RuntimeError(
+        f"rdma_cyclic_shift: a rank waited for {waited} past the watchdog; "
+        "the ranks' protocol is broken")
 
 
 def rdma_cyclic_shift(
@@ -208,19 +273,22 @@ class ExchangeRounds:
     def __init__(self, send_idx: Sequence[torch.Tensor], offsets,
                  recv_round: torch.Tensor, recv_pos: torch.Tensor,
                  local_src: torch.Tensor, is_local: torch.Tensor,
-                 n_ranks: int, max_h: int):
+                 n_ranks: int, max_h: int, mesh=None):
         self.send_idx = list(send_idx)
         self.offsets = [int(o) for o in offsets]
         self.recv_round, self.recv_pos = recv_round, recv_pos
         self.local_src, self.is_local = local_src, is_local
         self.n_ranks, self.max_h = int(n_ranks), int(max_h)
+        # the processes the ranks are dealt to; None in one process
+        self.mesh = group_of(mesh)
         self._card: Optional[_Card] = None
 
     def _card_tables(self) -> _Card:
         if self._card is None:
             D, dev = self.n_ranks, self.recv_round.device
             widths = [t.shape[1] for t in self.send_idx]
-            card = _Card(self.offsets, widths, D, dev)
+            P = 1 if self.mesh is None else self.mesh.num_processes
+            card = _Card(self.offsets, widths, D * P, dev, self.mesh)
             self.pack = torch.cat([t.reshape(-1) for t in self.send_idx]).to(
                 torch.int32)
             S = self.recv_round.shape[0]
@@ -230,9 +298,6 @@ class ExchangeRounds:
             pos = rounds[k, 2] + rank_of * rounds[k, 1] + self.recv_pos
             self.unpack = torch.where(self.is_local, self.local_src,
                                       -1 - pos).to(torch.int32).contiguous()
-            # one byte buffer serves every halo type (at most 8 bytes)
-            self.windows = torch.empty(8 * card.window, dtype=torch.uint8,
-                                       device=dev)
             self._card = card
         return self._card
 
@@ -271,15 +336,16 @@ def rdma_exchange_plain(
     one_by_one: bool = False, flush_local: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The exchange as the ``rdma`` transport did it before K4 fused it:
-    pack gathers, one plain shift per round, the unpack.  Returns
-    ``halo_vals`` (S, H) and the counts (n_rounds, D, 2) by formula."""
+    pack gathers, one plain shift per round (``Mesh.shift`` across
+    processes), the unpack.  Returns ``halo_vals`` (S, H) and the counts
+    (n_rounds, D, 2) of the process's ranks, by formula."""
     counts = []
 
     def shift(buf, r):
         out, c = rdma_cyclic_shift_plain(buf, r, mode, one_by_one,
                                          flush_local)
         counts.append(c)
-        return out
+        return out if rounds.mesh is None else rounds.mesh.shift(buf, r)
 
     halo = exchange_rounds_plain(x_own, rounds, halo_dtype, shift)
     return halo, torch.stack(counts)
@@ -316,7 +382,7 @@ def rdma_exchange_launch(
                        device=x_own.device)
     status = card.launch(
         cuda_build.library("rdma_shift"), x_own, rounds.pack, rounds.unpack,
-        halo, rounds.windows, (S // rounds.n_ranks) * r_int,
+        halo, None, (S // rounds.n_ranks) * r_int,
         S // rounds.n_ranks, halo.shape[1], _VALUES[x_own.dtype],
         _VALUES[halo_dtype], mode, one_by_one, flush_local)
     return halo, status

@@ -20,7 +20,12 @@ processes the collectives below go through the default
   - :meth:`Mesh.shift`: the global ``torch.roll`` over the rank axis (the
     JAX package's ``ppermute`` by a cyclic offset), its cross-process parts
     sent to and received from the at most two processes the offset reaches;
-  - :meth:`Mesh.process_allgather`: a process block gathered to the host.
+  - :meth:`Mesh.process_allgather`: a process block gathered to the host;
+  - :meth:`Mesh.barrier`: every process has reached this point;
+  - :meth:`Mesh.window`: a device buffer in every process, each mapped into
+    every other through CUDA IPC (``csrc/peer_window.cu``), the role of
+    ``MPI_Win_create``: the one-sided exchange (K4) and the free-running
+    kernels (K5-K7) reach a peer process's ranks through it.
 
 Transport.  The group is gloo (``initialize``'s default): NCCL refuses two
 ranks on one GPU, and one card may hold every process.  Device tensors are
@@ -42,6 +47,7 @@ spent waiting for the device's queued work before the copy to the host
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import datetime
 import os
@@ -88,6 +94,9 @@ class Mesh:
         default_factory=lambda: {"calls": 0, "seconds": 0.0,
                                  "wait_seconds": 0.0, "bytes": 0},
         compare=False)
+    # the kernels' windows on this mesh, by the caller's key (built once,
+    # every process in the same order)
+    windows: dict = dataclasses.field(default_factory=dict, compare=False)
 
     def __post_init__(self):
         D, P = self.num_ranks, self.num_processes
@@ -174,6 +183,18 @@ class Mesh:
         """:meth:`all_gather` of a process block, on the host."""
         return self.all_gather(t).cpu().numpy()
 
+    def barrier(self) -> None:
+        """Return once every process of the group has called it."""
+        if self.num_processes > 1:
+            dist.barrier()
+
+    def window(self, nbytes: int) -> "PeerWindow":
+        """A zeroed device buffer of ``nbytes`` in every process, each
+        mapped into every other (a collective: every process calls it with
+        the same ``nbytes``).  One process takes a :class:`LocalWindow`
+        instead, which makes no IPC call."""
+        return PeerWindow(self, nbytes)
+
     def shift(self, buf: torch.Tensor, offset: int) -> torch.Tensor:
         """This process's rows of ``torch.roll(G, offset, 0)``, where ``G``
         (D, ...) is every process's ``buf`` (D / P, ...) in process order.
@@ -220,6 +241,149 @@ class Mesh:
                 piece, buf)
         self._count(t0, nbytes)
         return out
+
+
+class LocalWindow:
+    """The window of one process (the kernels' windows without a mesh of
+    several): a zeroed PyTorch buffer, its table the buffer's own address.
+    The interface of :class:`PeerWindow`."""
+
+    def __init__(self, nbytes: int, device):
+        self.nbytes = int(nbytes)
+        self.buffer = torch.zeros(max(self.nbytes, 8), dtype=torch.uint8,
+                                  device=device)
+        self.ptr = self.buffer.data_ptr()
+        self.addresses = [self.ptr]
+        self.table = torch.tensor(self.addresses, dtype=torch.int64,
+                                  device=device)
+
+    def zero(self, offset: int, n: int) -> None:
+        """Stream-ordered zeroing of this process's bytes [offset, +n)."""
+        self.buffer[offset:offset + n].zero_()
+
+    def read(self, q: int, offset: int, n: int) -> bytes:
+        """Bytes [offset, +n) of process ``q``'s window (synchronizes)."""
+        del q
+        return self.buffer[offset:offset + n].cpu().numpy().tobytes()
+
+    def close(self) -> None:
+        self.buffer = self.table = None
+
+
+class PeerWindow:
+    """A window across processes (:meth:`Mesh.window`): this process's
+    buffer (``cudaMalloc``, not the caching allocator, whose blocks are
+    sub-allocated and may not be exportable), and ``table``, a device int64
+    (P,) of every process's buffer address as mapped here (its own entry is
+    its own pointer: a process cannot open its own handle).  The handles
+    travel in one gather over the group.  The buffer lives until
+    :meth:`close`, a collective, or the process's end: a process must not
+    free memory that a peer still maps, so nothing frees it behind the
+    group's back."""
+
+    def __init__(self, mesh: Mesh, nbytes: int):
+        from schwarz_tpu_torch.ops import cuda_build
+
+        self.mesh, self.nbytes = mesh, int(nbytes)
+        self.device = mesh.device
+        lib = self._lib = cuda_build.library("peer_window")
+        p = mesh.process_index
+        ptr = ctypes.c_ulonglong()
+        handle = (ctypes.c_ubyte * 64)()
+        with torch.cuda.device(self.device):
+            cuda_build.check(lib.peer_window_alloc(
+                max(self.nbytes, 8), ctypes.addressof(ptr)), "window alloc")
+            self.ptr = ptr.value
+            cuda_build.check(lib.peer_window_handle(
+                self.ptr, ctypes.addressof(handle)), "window handle")
+        handles = mesh.all_gather(torch.tensor(
+            list(bytes(handle)), dtype=torch.uint8).reshape(1, 64))
+        self.addresses, self._opened = [], []
+        with torch.cuda.device(self.device):
+            for q in range(mesh.num_processes):
+                if q == p:
+                    self.addresses.append(self.ptr)
+                    continue
+                h = (ctypes.c_ubyte * 64)(*handles[q].tolist())
+                cuda_build.check(lib.peer_window_open(
+                    ctypes.addressof(h), ctypes.addressof(ptr)),
+                    f"window open (process {q})")
+                self.addresses.append(ptr.value)
+                self._opened.append(ptr.value)
+        self.table = torch.tensor(self.addresses, dtype=torch.int64,
+                                  device=self.device)
+
+    def zero(self, offset: int, n: int) -> None:
+        from schwarz_tpu_torch.ops import cuda_build
+
+        cuda_build.check(self._lib.peer_window_zero(
+            self.ptr, offset, n, cuda_build.stream_ptr(self.device)),
+            "window zero")
+
+    def read(self, q: int, offset: int, n: int) -> bytes:
+        from schwarz_tpu_torch.ops import cuda_build
+
+        out = (ctypes.c_ubyte * n)()
+        with torch.cuda.device(self.device):
+            cuda_build.check(self._lib.peer_window_read(
+                self.addresses[q], offset, ctypes.addressof(out), n),
+                "window read")
+        return bytes(out)
+
+    def close(self) -> None:
+        """A collective: no process frees its buffer while a peer still
+        maps it, nor unmaps a peer's before the peer's launches ended."""
+        if self.table is None:
+            return
+        from schwarz_tpu_torch.ops import cuda_build
+
+        torch.cuda.synchronize(self.device)
+        self.mesh.barrier()
+        with torch.cuda.device(self.device):
+            for a in self._opened:
+                cuda_build.check(self._lib.peer_window_close(a),
+                                 "window close")
+        self.mesh.barrier()
+        with torch.cuda.device(self.device):
+            cuda_build.check(self._lib.peer_window_free(self.ptr),
+                             "window free")
+        self.table, self._opened = None, []
+
+
+def group_of(mesh: Optional[Mesh]) -> Optional[Mesh]:
+    """``mesh`` when it deals its ranks to more than one process, else None
+    (one process: the single-process path)."""
+    return mesh if mesh is not None and mesh.num_processes > 1 else None
+
+
+def gather(mesh: Optional[Mesh], t: torch.Tensor, axis: int = 0
+           ) -> np.ndarray:
+    """The whole of an array dealt to the processes along ``axis``, on the
+    host of every process (the tensor itself without a mesh of several)."""
+    if group_of(mesh) is None:
+        return t.detach().cpu().numpy()
+    g = mesh.process_allgather(t.detach().movedim(axis, 0).contiguous())
+    return np.moveaxis(g, 0, axis)
+
+
+def cut(mesh: Optional[Mesh], a: np.ndarray, axis: int = 0) -> np.ndarray:
+    """This process's block of a whole array along ``axis``."""
+    if group_of(mesh) is None:
+        return a
+    sl = [slice(None)] * a.ndim
+    sl[axis] = mesh.block(a.shape[axis])
+    return a[tuple(sl)]
+
+
+def write_once(mesh: Optional[Mesh], write) -> None:
+    """Call ``write()`` in process 0 alone, then wait until it has (a file
+    every process then reads)."""
+    if group_of(mesh) is None:
+        write()
+        return
+    if mesh.process_index == 0:
+        write()
+    mesh.barrier()
 
 
 def make_mesh(num_ranks: Optional[int] = None, device=None) -> Mesh:

@@ -18,7 +18,9 @@ for the two-sided ``neighbor`` strategy (a plain collective in the JAX
 package; ``Mesh.shift`` across processes), kernel K4
 (:func:`schwarz_tpu_torch.ops.rdma_kernel.rdma_cyclic_shift`) for the
 one-sided ``rdma`` strategy, where one K4
-launch runs every round of an exchange with its pack and unpack.  Only
+launch runs every round of an exchange with its pack and unpack; across
+processes each process launches it for its ranks, which put into a peer
+process's ranks' windows through the mesh's CUDA IPC window.  Only
 offsets with any traffic get a round: a regular 1-D partition needs 2
 rounds, a 2-D grid partition about 8, whatever the rank count.
 
@@ -177,7 +179,8 @@ def exchange_rounds(nx: NeighborPlan, device, mesh=None) -> ExchangeRounds:
     """The plan's round tables as tensors on ``device``, built once per
     solver: K4 keeps its own tables and sequence words with them.  Under a
     ``mesh`` of several processes, the send tables of the process's ranks
-    and the receive tables of its subdomains."""
+    and the receive tables of its subdomains, and K4's window on the
+    mesh."""
     ranks = subs = slice(None)
     n_ranks = nx.n_devices
     if mesh is not None:
@@ -192,7 +195,8 @@ def exchange_rounds(nx: NeighborPlan, device, mesh=None) -> ExchangeRounds:
     return ExchangeRounds(
         [i64(s[ranks]) for s in nx.send_idx], nx.offsets,
         i64(nx.recv_round[subs]), i64(nx.recv_pos[subs]),
-        i64(nx.local_src[subs]), t(nx.is_local[subs]), n_ranks, nx.max_h)
+        i64(nx.local_src[subs]), t(nx.is_local[subs]), n_ranks, nx.max_h,
+        mesh)
 
 
 def exchange_halo_neighbor(

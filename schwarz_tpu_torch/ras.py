@@ -50,8 +50,13 @@ keeps its block of S / P subdomains of every plan array; the exchange, the
 convergence round, the coarse solve and FGMRES's inner products then cross
 the processes through the mesh's collectives, and every process returns
 the same :class:`RASResult`.  A mesh of one process is the single-process
-path.  Across processes the one-sided ``rdma`` strategy, ``free_running``
-and the checkpoints raise ``NotImplementedFeature``.
+path.  Across processes the one-sided ``rdma`` strategy launches K4 in each
+process for its ranks, which put into peer processes' windows through the
+mesh's CUDA IPC window (on CPU tensors its plain version moves the rounds
+through ``Mesh.shift``); ``free_running`` deals the free-running tiers'
+ranks to the processes the same way (:func:`make_free_running_solver`);
+and the checkpoints gather the state's blocks, process 0 writes the JAX
+package's file, and each process reads back its block.
 """
 
 from __future__ import annotations
@@ -87,7 +92,7 @@ from schwarz_tpu_torch.ops.async_ras_general import AsyncGeneralRASolver
 from schwarz_tpu_torch.ops.dia import dia_ell_spmv, dia_spmv, split_dia_ell
 from schwarz_tpu_torch.ops.dia_kernel import dia_spmv_chain
 from schwarz_tpu_torch.ops.fused_cg import fused_cg_solve, fused_cg_supported
-from schwarz_tpu_torch.ops.rdma_kernel import rdma_shift_finish
+from schwarz_tpu_torch.ops.rdma_kernel import rdma_fault, rdma_shift_finish
 from schwarz_tpu_torch.ops.spmv import ell_spmv_batched
 from schwarz_tpu_torch.parallel.convergence import (ConvState, conv_step,
                                                     init_conv_state)
@@ -95,7 +100,7 @@ from schwarz_tpu_torch.parallel.exchange import (
     exchange_halo_allgather,
     segments_of,
 )
-from schwarz_tpu_torch.parallel.mesh import Mesh
+from schwarz_tpu_torch.parallel.mesh import Mesh, cut, write_once
 from schwarz_tpu_torch.parallel.neighbor_exchange import (
     build_neighbor_plan,
     exchange_halo_neighbor,
@@ -125,6 +130,11 @@ ITERATIVE = (LocalSolver.iterative_cg, LocalSolver.iterative_gmres)
 STATE_KEYS = ("conv", "diverged", "grn", "hist_global", "hist_inner",
               "hist_inner_rel", "hist_local", "it", "it_stop", "local_rn0",
               "nconv", "x_ext", "x_own", "z")
+# the axis of each state leaf that carries the subdomains, which processes
+# hold in blocks; the other leaves (scalars, hist_global, the protocol
+# state) are whole in every process
+SUBD_AXIS = {"x_own": 0, "x_ext": 0, "z": 0, "local_rn0": 0,
+             "hist_local": 1, "hist_inner": 1, "hist_inner_rel": 1}
 _HOST_SCALARS = {"diverged": np.bool_, "it": np.int32, "it_stop": np.int32,
                  "nconv": np.int32}
 
@@ -236,8 +246,12 @@ class RASolver:
         self._check_supported()
         s = self.settings
         # status words of K4 launches not yet checked (read at the outer
-        # iteration's one host sync)
+        # iteration's one host sync); across processes, how many of them
+        # went through the iteration's gather, and their largest error word
+        # over every process
         self._pending_shifts: list = []
+        self._folded: Optional[int] = None
+        self._folded_err: Optional[torch.Tensor] = None
         self._lc_dtype = None
         if (s.local_compute_dtype is not None
                 and s.local_compute_dtype != s.dtype):
@@ -325,22 +339,6 @@ class RASolver:
                 "free_running is the free-running solvers' mode: solve() "
                 "dispatches it to them (make_free_running_solver); the "
                 "synchronous RASolver does not run it")
-        if self._mesh is not None and s.comm.strategy == HaloStrategy.rdma:
-            raise NotImplementedFeature(
-                "the rdma strategy across processes: K4 runs every rank in "
-                "one cooperative launch on one card and would need the "
-                "other processes' receive windows mapped into it (CUDA IPC "
-                "on one card, peer memory across cards); use "
-                "strategy='neighbor', which moves the same packed buffers "
-                "two-sided through the mesh")
-
-    def _refuse_checkpoint(self, what: str) -> None:
-        """Raise when a checkpoint is asked for across processes."""
-        if self._mesh is not None:
-            raise NotImplementedFeature(
-                f"{what} across processes: a checkpoint holds the whole "
-                "solver state, and each process holds only its block of "
-                "subdomains; run it in one process")
 
     def _check_local_solver(self) -> None:
         """The JAX package's gates on the direct applies and on
@@ -843,9 +841,18 @@ class RASolver:
             rn_all, rn0_all = local_rn, rn0
             if self._mesh is not None:
                 # every subdomain's norms, one gather an iteration; each
-                # process then takes the same transition on the same state
-                both = self._mesh.all_gather(torch.stack((local_rn, rn0), 1))
+                # process then takes the same transition on the same state.
+                # The error words of the K4 launches pending here ride along,
+                # so that every process raises together on a fault
+                cols = [local_rn, rn0]
+                pend = self._pending_shifts
+                self._folded = len(pend)
+                if pend:
+                    err = torch.stack([t[-1] for t in pend]).amax()
+                    cols.append(err.to(local_rn.dtype).expand_as(local_rn))
+                both = self._mesh.all_gather(torch.stack(cols, 1))
                 rn_all, rn0_all = both[:, 0], both[:, 1]
+                self._folded_err = both[:, 2].amax() if pend else None
             locally_conv = ((rn_all * rn_all)
                             < (s.tolerance ** 2) * (rn0_all * rn0_all))
             conv, nconv, grn = conv_step(s, S, conv, rn_all, rn0_all,
@@ -915,12 +922,24 @@ class RASolver:
                           residual_recompute=residual_recompute)
         return stages
 
-    def _drain_shifts(self) -> None:
+    def _drain_shifts(self, folded: Optional[int] = None) -> None:
         """Raise now if a K4 wait timed out; called where the card is idle
-        anyway (the outer iteration's one host read)."""
-        if self._pending_shifts:
-            shifts, self._pending_shifts[:] = list(self._pending_shifts), []
-            rdma_shift_finish(shifts)
+        anyway (the outer iteration's one host read).  Across processes
+        ``folded`` launches had their error words checked in the iteration's
+        gather and only they are read here (a later one waits for the next
+        gather); without it (FGMRES's operator) the launches' error words
+        are gathered here, so that every process raises together."""
+        pending = self._pending_shifts
+        if not pending:
+            return
+        if self._mesh is not None and folded is None:
+            err = torch.stack([t[-1] for t in pending]).amax().reshape(1)
+            worst = int(self._mesh.all_gather(err).amax())
+            if worst:
+                rdma_fault(worst)
+        n = len(pending) if folded is None else folded
+        shifts, pending[:] = pending[:n], pending[n:]
+        rdma_shift_finish(shifts)
 
     def _gate_nconv(self, nconv: int, it: int) -> int:
         """The converged count the loop acts on: none with a non-positive
@@ -962,10 +981,16 @@ class RASolver:
         diverged = torch.isnan(grn) | (grn > DIVERGENCE_LIMIT)
         st["hist_local"][it] = local_rn
         st["hist_global"][it] = grn
-        nconv_h, div_h = torch.stack(
-            (nconv.to(torch.float64), diverged.to(torch.float64))).tolist()
+        flags = [nconv, diverged]
+        if self._folded_err is not None:
+            flags.append(self._folded_err)
+        nconv_h, div_h, *err = torch.stack(
+            [f.to(torch.float64) for f in flags]).tolist()
         div_h = bool(div_h)
-        self._drain_shifts()
+        if err and err[0]:
+            rdma_fault(int(err[0]))
+        self._drain_shifts(self._folded)
+        self._folded, self._folded_err = None, None
         nconv_h = self._gate_nconv(int(nconv_h), it)
         # --- local_solve + local_to_global (skipped on the exit pass) ----
         z_prev = st["z"]
@@ -1075,8 +1100,9 @@ class RASolver:
     def save_checkpoint(self, state: Dict[str, Any], path: str) -> None:
         """Write a solver state (iterate, counters, histories) as the JAX
         package's ``.npz``: ``arr_i`` in its ``jax.tree.flatten`` order
-        (:data:`STATE_KEYS`), so either package resumes the other's."""
-        self._refuse_checkpoint("save_checkpoint")
+        (:data:`STATE_KEYS`), so either package resumes the other's.
+        Across processes every leaf is gathered whole (:data:`SUBD_AXIS`)
+        and process 0 writes the file."""
         flat = []
         for k in STATE_KEYS:
             v = state[k]
@@ -1084,23 +1110,29 @@ class RASolver:
                 flat += [t.cpu().numpy() for t in v]
             elif k in _HOST_SCALARS:
                 flat.append(np.asarray(_HOST_SCALARS[k](v)))
+            elif k in SUBD_AXIS:
+                flat.append(self._global(v, SUBD_AXIS[k]))
             else:
                 flat.append(v.cpu().numpy())
-        np.savez_compressed(path, *flat)
+        write_once(self._mesh, lambda: np.savez_compressed(path, *flat))
 
     def load_checkpoint(self, path: str) -> Dict[str, Any]:
         """A state saved by :meth:`save_checkpoint` (or by the JAX
-        package).  History arrays are re-fitted when this solver's
+        package), by any number of processes: each process keeps its block
+        of the subdomains.  History arrays are re-fitted when this solver's
         ``max_iters`` differs from the writer's (resume with a larger
         budget)."""
-        self._refuse_checkpoint("load_checkpoint")
         template = self.init_state()
-        leaves = []
+        leaves, axes = [], []
         for k in STATE_KEYS:
             v = template[k]
             leaves += list(v) if k == "conv" else [v]
+            axes += ([None] * len(v) if k == "conv"
+                     else [SUBD_AXIS.get(k)])
         with np.load(path) as data:
             arrs = [np.asarray(data[f"arr_{i}"]) for i in range(len(leaves))]
+        arrs = [a if ax is None else cut(self._mesh, a, ax)
+                for a, ax in zip(arrs, axes)]
         loaded = []
         for i, (arr, tmpl) in enumerate(zip(arrs, leaves)):
             t = (tmpl.cpu().numpy() if isinstance(tmpl, torch.Tensor)
@@ -1149,10 +1181,6 @@ class RASolver:
         results equal the unchunked run."""
         S = self.meta.num_subdomains
         max_iters = self.settings.max_iters
-        if (resume_state is not None or checkpoint_path is not None
-                or self.settings.write_debug_out):
-            self._refuse_checkpoint("checkpoints (resume_state, "
-                                 "checkpoint_path, write_debug_out)")
         if resume_state is not None:
             # the steps write into the state's tensors: work on a copy
             st = {k: (ConvState(*(t.clone() for t in v)) if k == "conv"
@@ -1330,9 +1358,6 @@ class RASolver:
         :meth:`load_accel_checkpoint`) continues it.  ``instrument`` adds
         ``stage_timings`` for ``accel_matvec`` and ``accel_precond``
         (:meth:`_accel_stage_timings`)."""
-        if resume_state is not None or checkpoint_path is not None:
-            self._refuse_checkpoint("FGMRES checkpoints (resume_state, "
-                                 "checkpoint_path)")
         s = self.settings
         dec = self.dec
         S, R_int = self.meta.num_subdomains, self.meta.max_interior
@@ -1371,11 +1396,11 @@ class RASolver:
         elapsed = time.perf_counter() - t0
 
         if checkpoint_path is not None:
-            x_c, rnorm, it, cycles, active, hist = carry
-            np.savez_compressed(
-                checkpoint_path, x_c.cpu().numpy(), np.asarray(rnorm),
+            _, rnorm, it, cycles, active, hist = carry
+            write_once(self._mesh, lambda: np.savez_compressed(
+                checkpoint_path, x, np.asarray(rnorm),
                 np.asarray(it, np.int32), np.asarray(cycles, np.int32),
-                np.asarray(active, np.bool_), np.asarray(hist))
+                np.asarray(active, np.bool_), np.asarray(hist)))
         iters = int(carry[2])
         rel_v = float(carry[1]) / max(bnorm, 1e-300)
         hist_g = np.asarray(carry[5])[: iters + 1]
@@ -1413,11 +1438,12 @@ class RASolver:
 
     def load_accel_checkpoint(self, path: str):
         """A resumable FGMRES cycle state saved by ``checkpoint_path`` (by
-        either package)."""
-        self._refuse_checkpoint("load_accel_checkpoint")
+        either package, in any number of processes); its iterate cut to
+        this process's subdomains."""
         with np.load(path) as data:
             leaves = [np.asarray(data[f"arr_{i}"]) for i in range(6)]
-        x = torch.from_numpy(np.ascontiguousarray(leaves[0])).to(
+        x = torch.from_numpy(np.ascontiguousarray(
+            self._local_rows(leaves[0]))).to(
             self.settings.value_dtype).to(self.device)
         return (x, leaves[1][()], np.int32(leaves[2]), np.int32(leaves[3]),
                 np.bool_(leaves[4]), leaves[5])
@@ -1465,14 +1491,16 @@ def free_running_tier(mat, num_subdomains: int, settings: Settings,
 def make_free_running_solver(mat, rhs, num_subdomains, settings,
                              partition_indices=None, num_ranks=None,
                              ninner=None, chunk_rounds=16,
-                             fresh_read=None, device=None):
+                             fresh_read=None, device=None, mesh=None):
     """Pick the free-running kernel for this matrix and partition, as the
     JAX package's ``make_free_running_solver`` does.
 
     Dispatch chain: the 2-D block-grid tier (K6), the 1-D banded tier (K5),
     the general-graph tier (K7), which takes any matrix and any partition.
     ``num_ranks`` takes the place of the JAX package's mesh: the number of
-    asynchronous ranks, one per subdomain by default.
+    asynchronous ranks, one per subdomain by default.  ``mesh`` deals the
+    ranks to the processes of a group (its rank count is the tier's), and
+    every tier then runs across them.
 
     Returns ``(solver, refine)``: ``refine`` says the caller should use
     ``run_refined(tol=settings.tolerance)``, because the tolerance sits
@@ -1493,6 +1521,8 @@ def make_free_running_solver(mat, rhs, num_subdomains, settings,
     oras_c = oras_weight(settings)
 
     S = num_subdomains
+    if mesh is not None:
+        num_ranks = mesh.num_ranks
     if ninner is None:
         ninner = (settings.local_max_iters
                   if settings.local_max_iters > 0 else 16)
@@ -1517,6 +1547,7 @@ def make_free_running_solver(mat, rhs, num_subdomains, settings,
             staleness=staleness, ninner=ninner, chunk_rounds=chunk_rounds,
             num_ranks=num_ranks, device=device, fresh_read=fresh_read,
             oras_weight=oras_c, nonsym=nonsym, overlap=settings.overlap,
+            mesh=mesh,
         ), refine
     if tier == "general":
         if fresh_read:
@@ -1534,23 +1565,23 @@ def make_free_running_solver(mat, rhs, num_subdomains, settings,
             mat, rhs, num_subdomains=S, overlap=settings.overlap,
             tolerance=inner_tol, staleness=staleness, ninner=ninner,
             chunk_rounds=chunk_rounds, part=part, num_ranks=num_ranks,
-            device=device, oras_weight=oras_c, nonsym=nonsym,
+            device=device, oras_weight=oras_c, nonsym=nonsym, mesh=mesh,
         ), refine
     return AsyncRASolver(
         mat, rhs, num_subdomains=S, overlap=settings.overlap,
         tolerance=inner_tol, staleness=staleness, ninner=ninner,
         chunk_rounds=chunk_rounds, num_ranks=num_ranks, device=device,
-        fresh_read=fresh_read, oras_weight=oras_c, nonsym=nonsym,
+        fresh_read=fresh_read, oras_weight=oras_c, nonsym=nonsym, mesh=mesh,
     ), refine
 
 
 def _solve_free_running(mat, rhs, settings, S, partition_indices,
-                        num_ranks, device) -> RASResult:
+                        num_ranks, device, mesh=None) -> RASResult:
     """The free-running branch of :func:`solve` (``schwarz_tpu/ras.py:
     2532-2558``): the RASResult carries no histories."""
     fr, refine = make_free_running_solver(
         mat, rhs, S, settings, partition_indices=partition_indices,
-        num_ranks=num_ranks, device=device)
+        num_ranks=num_ranks, device=device, mesh=mesh)
     if refine:
         x, info = fr.run_refined(
             tol=settings.tolerance, max_rounds=settings.max_iters,
@@ -1613,13 +1644,9 @@ def solve(
     if not isinstance(mat, CSRMatrix) and hasattr(mat, "tocsr"):
         mat = CSRMatrix.from_scipy(mat)
     if settings.free_running:
-        if mesh is not None and mesh.num_processes > 1:
-            raise NotImplementedFeature(
-                "free_running across processes: the free-running kernels "
-                "(K5-K7) run every rank inside one launch on one card, "
-                "their rings in its memory; run them in one process")
         return _solve_free_running(mat, rhs, settings, num_subdomains or 1,
-                                   partition_indices, num_ranks, device)
+                                   partition_indices, num_ranks, device,
+                                   mesh)
     dec = decompose(
         mat, rhs, settings, num_subdomains or 1, partition_indices,
         cell_weights=cell_weights,

@@ -1098,3 +1098,72 @@ def test_mesh_two_processes_on_card(dev, tmp_path):
             np.testing.assert_allclose(o[f"{name}.global"], h,
                                        rtol=RTOL.get(name, 1e-8),
                                        atol=1e-12 * h.max(), err_msg=name)
+
+
+def test_rdma_exchange_across_processes_on_card(dev, tmp_path):
+    """K4 in each of 2 processes on the one card (``mesh.launch``), a
+    rank's peers in the other process reached through the CUDA IPC window:
+    five launches of every kind on one set of sequence words equal
+    ``exchange_rounds_plain`` with ``Mesh.shift``, and the one-sided solve
+    on 2 processes gives the two-sided one's history bit for bit
+    (``tests/torch_mesh_async_worker.py``)."""
+    from torch_mesh_async_worker import RDMA, run_group
+
+    outs = run_group(2, str(tmp_path), "k4,rdma", device="cuda",
+                     timeout_s=400)
+    for o in outs:
+        for i in range(5):
+            assert bool(o[f"k4_{i}.equal"]), i
+        assert int(o["k4.longest_wait_ns"]) > 0
+        for v in RDMA:
+            np.testing.assert_array_equal(o[f"rdma_{v}.global"],
+                                          o["neighbor.global"], err_msg=v)
+
+
+def test_free_running_across_processes_on_card(dev, tmp_path):
+    """K5, K6 and K7 in each of 2 processes on the one card: ``done_at``
+    and the round counts of the single-process plain runs on the CPU, x
+    within float32 rounding of them; and ``run_refined`` to 1e-8."""
+    from torch_mesh_async_worker import (FREE_1D, FREE_1D_ROUNDS, FREE_2D,
+                                         FREE_2D_ROUNDS, FREE_GEN,
+                                         FREE_GEN_ROUNDS, run_group)
+
+    outs = run_group(2, str(tmp_path), "free", device="cuda", timeout_s=400)
+    A16, A12 = laplacian_2d(16), laplacian_2d(12)
+    b16 = generate_rhs(A16.n, random=False)
+    refs = {
+        "free_1d": AsyncRASolver(A16, b16, 4, num_ranks=4, device="cpu",
+                                 **FREE_1D).run(max_rounds=FREE_1D_ROUNDS),
+        "free_2d": AsyncRASolver2D(
+            A16, np.random.default_rng(11).uniform(0.5, 1.5, A16.n),
+            num_ranks=4, device="cpu", **FREE_2D).run(
+                max_rounds=FREE_2D_ROUNDS),
+        "free_general": AsyncGeneralRASolver(
+            A12, np.ones(A12.n), 4, part=partition_metis(A12, 4),
+            device="cpu", **FREE_GEN).run(max_rounds=FREE_GEN_ROUNDS),
+    }
+    for o in outs:
+        for name, (x, info) in refs.items():
+            np.testing.assert_array_equal(o[f"{name}.done_at"],
+                                          info["done_at"], err_msg=name)
+            assert int(o[f"{name}.rounds"]) == info["rounds"], name
+            np.testing.assert_allclose(o[f"{name}.x"], x, rtol=0,
+                                       atol=1e-5 * np.abs(x).max())
+        assert float(o["refined.rel"]) <= 1e-8
+
+
+def test_checkpoints_across_processes_on_card(dev, tmp_path):
+    """Checkpoints written and read by 2 processes on the card: the
+    synchronous solve, FGMRES and the 1-D free-running tier resume to
+    their straight runs bit for bit."""
+    from torch_mesh_async_worker import run_group
+
+    outs = run_group(2, str(tmp_path), "ckpt", device="cuda", timeout_s=400)
+    for o in outs:
+        for a, b in (("ck_resumed", "ck_straight"),
+                     ("fg_resumed", "fg_straight")):
+            for k in ("iters", "global", "solution"):
+                np.testing.assert_array_equal(o[f"{a}.{k}"], o[f"{b}.{k}"])
+        for k in ("x", "done_at", "total_rounds"):
+            np.testing.assert_array_equal(o[f"fr_resumed.{k}"],
+                                          o[f"fr_straight.{k}"])

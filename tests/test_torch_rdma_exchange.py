@@ -151,7 +151,7 @@ def test_argument_checks():
 
 def test_fault_drops_every_set_of_sequence_words():
     card = rk._Card([1, 3], [5, 2], 4, "cpu")
-    card.seq += 7
+    card.seq.add_(7)
     card.totals = [3, 1, 2, 4]
     ok = torch.zeros(2 * 2 * 4 + 1, dtype=torch.int32)
     assert rk.rdma_shift_finish([ok])[0].shape == (8, 2)

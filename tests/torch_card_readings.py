@@ -41,8 +41,18 @@ round), and gloo's own gather of one float64 host value (no staging); each
 group with the processes' thread count left as it is and set to one
 (``OMP_NUM_THREADS=1``).
 
+``mesh_async``: the waits of the kernels whose ranks span processes, on
+the card, in one process and in a group of 2 on the one card (each process
+reaching the other's ranks through the CUDA IPC window): K4 on the
+synchronous slice's plan (``laplacian_2d(1024)``, 16 subdomains on 16
+ranks, float32), 50 put exchanges, their mean ms (CUDA events around each
+launch) and the longest wait of a rank; K5 on the converging 1-D solve of
+``chip_smoke.py`` phase 10 (``laplacian_2d(64)``, 8 ranks), its ms per
+16-round launch and the longest wait.  The kernels keep the longest wait
+across processes only: it reads 0 in one process.  Card only.
+
     python tests/torch_card_readings.py [gmres] [profile] [exchange] [k1]
-        [mesh]
+        [mesh] [mesh_async]
 """
 
 import os
@@ -320,9 +330,96 @@ def mesh_readings():
                       f"{line[0][5:] if line else out[-2000:]}", flush=True)
 
 
+def _async_waits():
+    """K4's ms per exchange and longest wait on the slice's plan (16
+    ranks), then K5's ms per launch and longest wait on the 64^2 solve (8
+    ranks), on the default group's processes (one without a group)."""
+    from schwarz_tpu_torch.parallel import mesh as pmesh
+
+    from schwarz_tpu_torch.ops.async_ras import AsyncRASolver
+    from schwarz_tpu_torch.ops.async_ras_kernel import async_ras_rounds
+    from schwarz_tpu_torch.ops.rdma_kernel import (rdma_exchange_launch,
+                                                   rdma_shift_finish)
+    from schwarz_tpu_torch.parallel.neighbor_exchange import (
+        build_neighbor_plan, exchange_rounds)
+
+    mesh = pmesh.make_mesh(num_ranks=16)
+    A = laplacian_2d(1024)
+    s = Settings(overlap=3, dtype="float32", row_pad_multiple=1024,
+                 spmv_format="dia", precond=Precond.jacobi)
+    dec = decompose(A, generate_rhs(A.n, random=False), s, 16)
+    rounds = exchange_rounds(build_neighbor_plan(
+        dec, 16, process_of=mesh.process_of), mesh.device, mesh)
+    x = torch.ones((16 // mesh.num_processes, dec.meta.max_interior),
+                   dtype=torch.float32, device=mesh.device)
+    rdma_shift_finish([rdma_exchange_launch(x, rounds, None, "put")[1]])
+    pairs, sts = [], []
+    for _ in range(50):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        sts.append(rdma_exchange_launch(x, rounds, None, "put")[1])
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    rdma_shift_finish(sts)
+    k4 = sum(a.elapsed_time(b) for a, b in pairs) / len(pairs)
+    k4_wait = rounds._card.longest_wait_ns() / 1e6
+    A64 = laplacian_2d(64)
+    solver = AsyncRASolver(A64, np.ones(A64.n), 8, overlap=2,
+                           tolerance=1e-4, ninner=20, chunk_rounds=16,
+                           mesh=pmesh.make_mesh(num_ranks=8))
+    waits, t = [], []
+    state = solver.init_state()
+    x5 = state[0].reshape(solver.Dl, -1)
+    st = [x5, *state[1:]]
+    d = solver._dev
+    p = solver.plan
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = list(async_ras_rounds(
+            d["dia"], d["b"], d["dinv"], d["mask_dom"], d["mask_int"], *st,
+            offsets=p.offsets, total=p.total, hw=p.hw, rounds=16,
+            staleness=1, ninner=20, tol=1e-4, mesh=solver._mesh))
+        torch.cuda.synchronize()
+        t.append(time.perf_counter() - t0)
+        waits.append(async_ras_rounds.longest_wait_ns / 1e6)
+    return (f"K4 {k4:.4f} ms per exchange, longest wait {k4_wait:.3f} ms; "
+            f"K5 {1e3 * float(np.median(t)):.3f} ms per 16-round launch "
+            f"(host clock, median of 10), longest wait "
+            f"{max(waits):.3f} ms, cluster {async_ras_rounds.cluster}")
+
+
+def mesh_async_child(pid, nproc, port):
+    from schwarz_tpu_torch.parallel import mesh as pmesh
+
+    pmesh.initialize(f"localhost:{port}", nproc, pid, timeout_s=120)
+    print("MESH_ASYNC " + _async_waits(), flush=True)
+    pmesh.shutdown()
+
+
+def mesh_async_readings():
+    from schwarz_tpu_torch.parallel import mesh as pmesh
+
+    print("mesh_async, one process: " + _async_waits(), flush=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    logs = pmesh.launch(
+        [sys.executable, os.path.abspath(__file__), "mesh-async-child"], 2,
+        os.path.join(os.path.dirname(here), "build", "mesh_async_readings"),
+        300)
+    for pid, out in enumerate(logs):
+        line = [ln for ln in out.splitlines() if ln.startswith("MESH_ASYNC")]
+        print(f"mesh_async, process {pid} of 2: "
+              f"{line[0][11:] if line else out[-2000:]}", flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["mesh-child"]:
         mesh_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["mesh-async-child"]:
+        mesh_async_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         sys.exit(0)
     what = sys.argv[1:] or ["gmres", "profile"]
     if torch.cuda.is_available():
@@ -344,3 +441,5 @@ if __name__ == "__main__":
         k1_readings()
     if "mesh" in what:
         mesh_readings()
+    if "mesh_async" in what and torch.cuda.is_available():
+        mesh_async_readings()
