@@ -2247,6 +2247,7 @@ def direct_phases(sm: Smoke) -> None:
     from schwarz_tpu_torch.core.decompose import decompose
     from schwarz_tpu_torch.models import generate_rhs, laplacian_2d
     from schwarz_tpu_torch.solvers.direct import inverse_apply
+    from schwarz_tpu_torch.utils import timing
 
     A = laplacian_2d(512)
     b = generate_rhs(A.n)
@@ -2257,13 +2258,18 @@ def direct_phases(sm: Smoke) -> None:
     dec = decompose(A, b, s, 64)
     t_dec = time.perf_counter() - t0
     t0 = time.perf_counter()
+    prev = timing.recording(True)
     solver = RASolver(dec)
+    timing.recording(prev)
     torch.cuda.synchronize()
     t_plan = time.perf_counter() - t0
     peak_setup = torch.cuda.max_memory_allocated() / 1e9
     m = solver.meta
     inv = solver._plan["factor_inv"]
-    fs = solver.factor_seconds
+    # the set-up spans of the factor and the inverse, each synchronized
+    fs = {sp.name: (sp.end_ns - sp.start_ns) * 1e-9 for sp in timing.spans()
+          if sp.name in ("factor", "inverse")}
+    timing.clear_spans()
     print(f"direct 512^2, 64 subdomains: decompose {t_dec:.2f} s, plan "
           f"{t_plan:.2f} s of which factor {fs['factor']:.3f} s and inverse "
           f"{fs['inverse']:.3f} s; R_int={m.max_interior} R_rows={m.max_rows} "

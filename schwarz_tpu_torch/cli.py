@@ -13,7 +13,7 @@ exit codes.  Three differences, by design:
     ``solve()`` default), and the ``config:`` line prints the port's device
     count;
   - ``--profile_dir DIR`` writes a ``torch.profiler`` Chrome trace of the
-    solve into DIR.
+    solve into DIR, with the port's layer spans (``schwarz.*``) on it.
 
 Run e.g.::
 
@@ -272,8 +272,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-stage timing (unfused loop; slower)")
     p.add_argument("--profile_dir", default=None,
                    help="capture a torch.profiler Chrome trace of the solve "
-                        "into DIR (CPU and CUDA activities); replaces the "
-                        "reference's easy_profiler hookup, CMakeLists.txt:236-239")
+                        "into DIR (CPU and CUDA activities), with the "
+                        "port's layer spans (schwarz.*) on it; replaces "
+                        "the reference's easy_profiler hookup, "
+                        "CMakeLists.txt:236-239")
     p.add_argument("--checkpoint", default=None,
                    help="write the final solver state to this .npz")
     p.add_argument("--resume", default=None,
@@ -581,10 +583,13 @@ def _run_free_running(args, mat, rhs, S, settings, device) -> int:
 
 def _profiled(profile_dir, device):
     """A ``torch.profiler`` window that writes ``trace.json`` (Chrome
-    format) into ``profile_dir`` when it closes; a no-op without one."""
+    format) into ``profile_dir`` when it closes, with the program's spans
+    recorded inside it; a no-op without one."""
     if not profile_dir:
         return contextlib.nullcontext()
     from torch.profiler import ProfilerActivity, profile
+
+    from schwarz_tpu_torch.utils import timing
 
     @contextlib.contextmanager
     def window():
@@ -592,7 +597,11 @@ def _profiled(profile_dir, device):
         if device == "cuda":
             activities.append(ProfilerActivity.CUDA)
         with profile(activities=activities) as prof:
-            yield
+            prev = timing.recording(True)
+            try:
+                yield
+            finally:
+                timing.recording(prev)
         os.makedirs(profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
 

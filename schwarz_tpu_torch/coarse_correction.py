@@ -34,6 +34,13 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from schwarz_tpu_torch.utils.timing import HOST_READS, count, spanned
+
+
+def _above(rn: torch.Tensor, bound: torch.Tensor) -> bool:
+    count(HOST_READS, "coarse_cg.active")
+    return bool(rn > bound)
+
 
 def coarse_cg(Am: torch.Tensor, r_c: torch.Tensor) -> torch.Tensor:
     """CG on the Galerkin coarse system ``Am c = r_c`` (``coarse_solver=
@@ -53,7 +60,7 @@ def coarse_cg(Am: torch.Tensor, r_c: torch.Tensor) -> torch.Tensor:
     x = torch.zeros_like(r)
     p = r
     it = 0
-    while it < dim and bool(rn > tol2 * rn0):
+    while it < dim and _above(rn, tol2 * rn0):
         ap = Am @ p
         pap = torch.sum(p * ap)
         alpha = torch.where(pap > 0, rn / torch.clamp(pap, min=fin.eps),
@@ -70,6 +77,7 @@ def coarse_cg(Am: torch.Tensor, r_c: torch.Tensor) -> torch.Tensor:
     return x.reshape(r_c.shape)
 
 
+@spanned("coarse_correction")
 def coarse_correct(plan, r_int_win: torch.Tensor,
                    mesh=None) -> torch.Tensor:
     """Coarse correction field (S, R_int) from the interior residual

@@ -27,6 +27,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from schwarz_tpu_torch.utils.timing import spanned
+
 
 # Lanczos residual tolerance for the per-subdomain eigensolves.  The coarse
 # space only needs to SPAN the near-kernel, not resolve eigenpairs to machine
@@ -161,6 +163,7 @@ def _coarse_cache_path(A, boundaries, q: int):
     return os.path.join(cache_dir, f"coarse_{h.hexdigest()[:32]}.npz")
 
 
+@spanned("eigensolve")
 def neumann_spectral_vectors(A, boundaries, q: int, workers=None):
     """Per-subdomain Neumann-block eigenvectors.
 

@@ -35,6 +35,7 @@ from schwarz_tpu_torch.core.partition import (
 )
 from schwarz_tpu_torch.exceptions import assert_eq, assert_valid_partition
 from schwarz_tpu_torch.models.csr import CSRMatrix
+from schwarz_tpu_torch.utils.timing import spanned
 
 
 def _round_up(x: int, m: int) -> int:
@@ -150,6 +151,7 @@ def _permute_matrix(mat: CSRMatrix, perm: np.ndarray, iperm: np.ndarray) -> CSRM
                      n=mat.n)
 
 
+@spanned("decompose")
 def decompose(
     mat: CSRMatrix,
     rhs: np.ndarray,

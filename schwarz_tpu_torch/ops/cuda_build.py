@@ -21,6 +21,8 @@ import tempfile
 
 import torch
 
+from schwarz_tpu_torch.utils.timing import span
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
@@ -143,14 +145,18 @@ def _finish_build(job) -> None:
 
 
 def build_all(names=KERNEL_SOURCES) -> None:
-    """Compile every kernel source not built yet, all nvcc runs at once."""
+    """Compile every kernel source not built yet, all nvcc runs at once
+    (the span ``kernel_build`` when nvcc runs)."""
     jobs = [j for j in (_start_build(n) for n in names) if j is not None]
+    if not jobs:
+        return
     errors = []
-    for job in jobs:
-        try:
-            _finish_build(job)
-        except RuntimeError as e:
-            errors.append(str(e))
+    with span("kernel_build"):
+        for job in jobs:
+            try:
+                _finish_build(job)
+            except RuntimeError as e:
+                errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
 

@@ -62,6 +62,7 @@ package's file, and each process reads back its block.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import sys
 import time
 from typing import Any, Callable, Dict, Optional
@@ -120,7 +121,8 @@ from schwarz_tpu_torch.solvers.precond import (block_jacobi_inverse,
                                               build_fsai, build_ilu0,
                                               ell_to_dia, ilu_apply_ell,
                                               jacobi_inverse)
-from schwarz_tpu_torch.utils.timing import StageTimer
+from schwarz_tpu_torch.utils.timing import (HOST_READS, StageTimer, count,
+                                            new_request, span, spanned)
 
 DIVERGENCE_LIMIT = 1e12  # schwarz_base.cpp:424: abort when ||r|| exceeds this
 ITERATIVE = (LocalSolver.iterative_cg, LocalSolver.iterative_gmres)
@@ -166,6 +168,31 @@ def oras_weight(settings: Settings) -> float:
             f"{settings.oras_weight!r}") from None
 
 
+def _host(t: torch.Tensor, site: str) -> np.ndarray:
+    """``t`` on the host: a read that waits for the device, counted as
+    ``host_reads`` at ``site``."""
+    count(HOST_READS, site)
+    return t.cpu().numpy()
+
+
+def _request_span(name: str, entry: bool):
+    """Decorator for a solver's request methods: the call is the span
+    ``name`` under the solver's open request id.  A request is the
+    ``set_rhs`` calls before an entry and the entry (``entry=True``), which
+    closes it; a call with no request open takes a new id."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(self, *args, **kwargs):
+            solve = self._request = self._request or new_request()
+            if entry:
+                self._request = 0
+            with span(name, solve):
+                return fn(self, *args, **kwargs)
+        return inner
+    return wrap
+
+
+@spanned("to_device")
 def plan_from_numpy(arrays: Dict[str, np.ndarray],
                     device) -> Dict[str, torch.Tensor]:
     """Host plan arrays (decomposition fields, DIA split, run tables) as
@@ -215,6 +242,7 @@ class RASResult:
 class RASolver:
     """Set up once, run many times (cf. SolverRAS construct/initialize/run)."""
 
+    @spanned("solver_setup")
     def __init__(self, dec: Decomposition, device=None,
                  num_ranks: Optional[int] = None, mesh: Optional[Mesh] = None):
         if mesh is not None:
@@ -224,6 +252,7 @@ class RASolver:
                     f"{mesh.num_ranks} ranks")
             num_ranks = mesh.num_ranks
             device = mesh.device if device is None else device
+        self._request = 0       # the open request's span id (_request_span)
         self.device = resolve_device(device)
         self.dec = dec
         self.settings = dec.settings
@@ -263,8 +292,6 @@ class RASolver:
             s.convergence.criterion == LocalCriterion.residual_based
             or self._lc_dtype is not None)
         self._check_local_solver()
-        # seconds of the direct factorization on the device, by step
-        self.factor_seconds: Dict[str, float] = {}
         self._plan = self._build_plan()
         # the neighbour strategies' round tables, kept with K4's state
         self._rounds = (exchange_rounds(self._neighbor_plan, self.device,
@@ -544,12 +571,14 @@ class RASolver:
                              f"by {S} subdomains")
         return a[self._sub.start * k:self._sub.stop * k]
 
-    def _global(self, t: torch.Tensor, axis: int = 0) -> np.ndarray:
+    def _global(self, t: torch.Tensor, site: str,
+                axis: int = 0) -> np.ndarray:
         """The whole of a per-subdomain array on the host: the processes'
         blocks along ``axis`` gathered, or the tensor itself in one
-        process."""
+        process; one ``host_reads`` at ``site``."""
         if self._mesh is None:
-            return t.cpu().numpy()
+            return _host(t, site)
+        count(HOST_READS, site)
         if axis == 0:
             return self._mesh.process_allgather(t.contiguous())
         return self._mesh.process_allgather(
@@ -560,27 +589,27 @@ class RASolver:
         """Dense factors of every local matrix, once at setup
         (solve.cpp:237-238), on the device.  With ``direct_apply=
         'inverse'`` only the explicit inverse stays: the densified operator
-        and the factor are freed as soon as it exists.  The seconds of each
-        step go to ``factor_seconds``."""
+        and the factor are freed as soon as it exists.  Each step is the
+        span ``factor`` or ``inverse``, the device synchronized inside it
+        (once an operator)."""
         s = self.settings
 
-        def timed(name, fn):
-            t0 = time.perf_counter()
-            out = fn()
-            self._synchronize()
-            self.factor_seconds[name] = time.perf_counter() - t0
+        def step(name, fn):
+            with span(name):
+                out = fn()
+                self._synchronize()
             return out
 
         if s.local_solver == LocalSolver.direct_lu:
-            lu, piv = timed("factor", lambda: lu_factor(vals, cols))
+            lu, piv = step("factor", lambda: lu_factor(vals, cols))
             return {"factor_lu": lu, "factor_piv": piv}
-        L = timed("factor", lambda: cholesky_factor(vals, cols))
+        L = step("factor", lambda: cholesky_factor(vals, cols))
         if s.direct_apply == "inverse":
-            return {"factor_inv": timed("inverse",
-                                        lambda: cholesky_inverse(L))}
+            return {"factor_inv": step("inverse",
+                                       lambda: cholesky_inverse(L))}
         if s.direct_apply == "blocked":
             blk = pick_trisolve_block(int(L.shape[-1]))
-            return {"factor_L": L, "factor_Dinv": timed(
+            return {"factor_L": L, "factor_Dinv": step(
                 "inverse", lambda: block_diag_inverses(L, blk))}
         return {"factor_L": L}
 
@@ -622,30 +651,34 @@ class RASolver:
                 out.update(ilu_l_vals=lv.astype(pdtype), ilu_l_cols=lc,
                            ilu_u_vals=uv.astype(pdtype), ilu_u_cols=uc)
         elif s.precond == Precond.fsai:
-            if dia:
-                # the pattern restricted to the DIA offsets keeps both
-                # factors banded when the operator has an ELL remainder;
-                # M stays SPD, only a weaker approximation
-                rows = np.arange(pv.shape[1])[None, :, None]
-                on_dia = np.isin(cols.astype(np.int64) - rows,
-                                 np.asarray(self._dia_offsets))
-                pv = np.where(on_dia, pv, 0.0)
-            glv, glc, guv, guc = build_fsai(pv, cols)
-            if dia:
-                go, gd = ell_to_dia(glv, glc)
-                uo, ud = ell_to_dia(guv, guc)
-                self._fsai_offsets = (go, uo)
-                out["fsai_gl_dia"] = gd.astype(pdtype)
-                out["fsai_gu_dia"] = ud.astype(pdtype)
-            else:
-                out.update(fsai_gl_vals=glv.astype(pdtype), fsai_gl_cols=glc,
-                           fsai_gu_vals=guv.astype(pdtype), fsai_gu_cols=guc)
+            with span("fsai"):
+                if dia:
+                    # the pattern restricted to the DIA offsets keeps both
+                    # factors banded when the operator has an ELL remainder;
+                    # M stays SPD, only a weaker approximation
+                    rows = np.arange(pv.shape[1])[None, :, None]
+                    on_dia = np.isin(cols.astype(np.int64) - rows,
+                                     np.asarray(self._dia_offsets))
+                    pv = np.where(on_dia, pv, 0.0)
+                glv, glc, guv, guc = build_fsai(pv, cols)
+                if dia:
+                    go, gd = ell_to_dia(glv, glc)
+                    uo, ud = ell_to_dia(guv, guc)
+                    self._fsai_offsets = (go, uo)
+                    out["fsai_gl_dia"] = gd.astype(pdtype)
+                    out["fsai_gu_dia"] = ud.astype(pdtype)
+                else:
+                    out.update(fsai_gl_vals=glv.astype(pdtype),
+                               fsai_gl_cols=glc,
+                               fsai_gu_vals=guv.astype(pdtype),
+                               fsai_gu_cols=guc)
         elif s.precond == Precond.block_jacobi:
             out["precond_blockinv"] = block_jacobi_inverse(
                 pv, cols, s.block_jacobi_block_size).astype(pdtype)
         return out
 
     # ------------------------------------------------------------- the stages --
+    @spanned("exchange")
     def _exchange(self, x_own: torch.Tensor) -> torch.Tensor:
         """Halo exchange (strategy dispatch): x_ext from the interiors."""
         plan = self._plan
@@ -748,6 +781,7 @@ class RASolver:
         win = torch.gather(z, 1, plan["int_cols"])
         return torch.where(plan["interior_mask"], win, torch.zeros_like(win))
 
+    @spanned("interface_update")
     def _interface_update(self, x_ext: torch.Tensor):
         """``(rhs_eff, g)``: rhs_eff = local_rhs - A_interface @ x_ext
         (update_boundary, restricted_schwarz.cpp:991-1017) in the gather
@@ -756,6 +790,7 @@ class RASolver:
         return (_interface_scatter(self._plan, -g, self._plan["local_rhs"]),
                 g)
 
+    @spanned("local_solve")
     def _local_solve(self, rhs_eff, z_prev, outer_it: Optional[int] = None,
                      robin_trace: Optional[torch.Tensor] = None,
                      budget: Optional[int] = None):
@@ -833,6 +868,7 @@ class RASolver:
         R_rows = self.meta.max_rows
         residual_update = self._residual_update
 
+        @spanned("convergence_check")
         def convergence_check(conv, x_ext, rhs_eff, rn0_in):
             # local residual (solve.cpp:795-856) and the protocol round
             r = rhs_eff - self._apply_local()(x_ext[:, :R_rows])
@@ -868,6 +904,7 @@ class RASolver:
                 detected[:, None] | ~plan["interior_mask"],
                 torch.zeros_like(cfield), cfield)
 
+        @spanned("residual_recompute")
         def residual_recompute(x_ext, rhs_eff):
             return rhs_eff - self._apply_local()(x_ext[:, :R_rows])
 
@@ -905,6 +942,7 @@ class RASolver:
             z = torch.where(detected[:, None], z_prev, z)
             return z, sol_field, inner, inner_rel
 
+        @spanned("expand")
         def expand_local_vec(z, sol_field, x_own, detected):
             z_int = self._extract_int(z if sol_field is None else sol_field)
             x_new = x_own + z_int if residual_update else z_int
@@ -934,11 +972,14 @@ class RASolver:
             return
         if self._mesh is not None and folded is None:
             err = torch.stack([t[-1] for t in pending]).amax().reshape(1)
+            count(HOST_READS, "rdma.status")
             worst = int(self._mesh.all_gather(err).amax())
             if worst:
                 rdma_fault(worst)
         n = len(pending) if folded is None else folded
         shifts, pending[:] = pending[:n], pending[n:]
+        if shifts:
+            count(HOST_READS, "rdma.status")
         rdma_shift_finish(shifts)
 
     def _gate_nconv(self, nconv: int, it: int) -> int:
@@ -953,6 +994,7 @@ class RASolver:
             return 0
         return nconv
 
+    @spanned("step")
     def _step(self, st: Dict[str, Any]) -> Dict[str, Any]:
         """One outer iteration (the body of the JAX package's run loop)."""
         s = self.settings
@@ -984,6 +1026,7 @@ class RASolver:
         flags = [nconv, diverged]
         if self._folded_err is not None:
             flags.append(self._folded_err)
+        count(HOST_READS, "step.flags")
         nconv_h, div_h, *err = torch.stack(
             [f.to(torch.float64) for f in flags]).tolist()
         div_h = bool(div_h)
@@ -1070,6 +1113,7 @@ class RASolver:
         proc = np.asarray(self.mesh.process_of)[np.arange(S) // self.Sl]
         return proc[:, None] == proc[None, :]
 
+    @_request_span("set_rhs", entry=False)
     def set_rhs(self, rhs) -> None:
         """Re-target the solver at a new right-hand side of the same
         operator (``schwarz_tpu/ras.py:433-464``).  The decomposition, the
@@ -1107,13 +1151,13 @@ class RASolver:
         for k in STATE_KEYS:
             v = state[k]
             if k == "conv":
-                flat += [t.cpu().numpy() for t in v]
+                flat += [_host(t, "checkpoint") for t in v]
             elif k in _HOST_SCALARS:
                 flat.append(np.asarray(_HOST_SCALARS[k](v)))
             elif k in SUBD_AXIS:
-                flat.append(self._global(v, SUBD_AXIS[k]))
+                flat.append(self._global(v, "checkpoint", SUBD_AXIS[k]))
             else:
-                flat.append(v.cpu().numpy())
+                flat.append(_host(v, "checkpoint"))
         write_once(self._mesh, lambda: np.savez_compressed(path, *flat))
 
     def load_checkpoint(self, path: str) -> Dict[str, Any]:
@@ -1165,6 +1209,7 @@ class RASolver:
                 pos += 1
         return st
 
+    @_request_span("run", entry=True)
     def run(self, x0: Optional[np.ndarray] = None,
             resume_state: Optional[Dict[str, Any]] = None,
             checkpoint_path: Optional[str] = None,
@@ -1181,13 +1226,15 @@ class RASolver:
         results equal the unchunked run."""
         S = self.meta.num_subdomains
         max_iters = self.settings.max_iters
-        if resume_state is not None:
-            # the steps write into the state's tensors: work on a copy
-            st = {k: (ConvState(*(t.clone() for t in v)) if k == "conv"
-                      else v.clone() if isinstance(v, torch.Tensor) else v)
-                  for k, v in resume_state.items()}
-        else:
-            st = self.init_state(x0)
+        with span("prepare"):
+            if resume_state is not None:
+                # the steps write into the state's tensors: work on a copy
+                st = {k: (ConvState(*(t.clone() for t in v)) if k == "conv"
+                          else v.clone() if isinstance(v, torch.Tensor)
+                          else v)
+                      for k, v in resume_state.items()}
+            else:
+                st = self.init_state(x0)
         # a resumed state carries the previous run's stop marker
         st["it_stop"] = max_iters
         t0 = time.perf_counter()
@@ -1200,32 +1247,35 @@ class RASolver:
                    and st["nconv"] < S and not st["diverged"]):
                 st = self._step(st)
             if self.settings.enable_logging:
+                count(HOST_READS, "run.log")
                 print(f"[schwarz_tpu_torch] it={st['it']} "
                       f"nconv={st['nconv']}/{S} grn={float(st['grn']):.6e}",
                       file=sys.stderr, flush=True)
             if (chunk_iters is None or st["nconv"] >= S or st["diverged"]
                     or st["it"] >= max_iters):
                 break
-        x_own = self._global(st["x_own"])
-        elapsed = time.perf_counter() - t0
+        with span("assemble_result"):
+            x_own = self._global(st["x_own"], "result")
+            elapsed = time.perf_counter() - t0
+            it = st["it"]
+            converged = st["nconv"] >= S and not st["diverged"]
+            iters = it - 1 if converged else it
+            # histories hold rows 0..it-1 (the detecting pass is the last
+            # one)
+            result = self._assemble_result(
+                x_own, converged, st["diverged"], iters,
+                self._global(st["hist_local"][:it], "result", axis=1),
+                _host(st["hist_global"][:it], "result"),
+                self._global(st["hist_inner"][:it], "result", axis=1),
+                elapsed,
+            )
         if checkpoint_path is not None:
             self.save_checkpoint(st, checkpoint_path)
         if self.settings.write_debug_out:
             # the reference's write_debug_out role (settings.hpp:127-207):
             # the whole final solver state
             self.save_checkpoint(st, "schwarz_debug_out.npz")
-
-        it = st["it"]
-        converged = st["nconv"] >= S and not st["diverged"]
-        iters = it - 1 if converged else it
-        # histories hold rows 0..it-1 (the detecting pass is the last one)
-        return self._assemble_result(
-            x_own, converged, st["diverged"], iters,
-            self._global(st["hist_local"][:it], axis=1),
-            st["hist_global"][:it].cpu().numpy(),
-            self._global(st["hist_inner"][:it], axis=1),
-            elapsed,
-        )
+        return result
 
     def _synchronize(self) -> None:
         if self.device.type == "cuda":
@@ -1314,6 +1364,7 @@ class RASolver:
         S, R_rows = self.S_local, self.meta.max_rows
         dtype = self.settings.value_dtype
 
+        @spanned("matvec")
         def matvec(v):
             v_ext = self._exchange(v)
             av = self._apply_local()(v_ext[:, :R_rows])
@@ -1325,6 +1376,7 @@ class RASolver:
             self._drain_shifts()
             return self._extract_int(av)
 
+        @spanned("precond")
         def precond(r):
             r_ext = self._exchange(r)
             z, _, _ = self._local_solve(
@@ -1340,6 +1392,7 @@ class RASolver:
 
         return matvec, precond
 
+    @_request_span("run_accelerated", entry=True)
     def run_accelerated(self, x0: Optional[np.ndarray] = None,
                         resume_state=None,
                         checkpoint_path: Optional[str] = None,
@@ -1367,12 +1420,13 @@ class RASolver:
         budget = None if chunk_iters is None else max(1, -(-chunk_iters // m))
         matvec, precond = self._accel_closures()
 
-        b_own = np.zeros((S, R_int), dtype)
-        for p in range(S):
-            lo, hi = dec.first_row[p], dec.first_row[p + 1]
-            b_own[p, : hi - lo] = dec.global_rhs[lo:hi]
-        b_dev = torch.from_numpy(self._local_rows(b_own)).to(self.device)
-        bnorm = float(np.linalg.norm(b_own))
+        with span("prepare"):
+            b_own = np.zeros((S, R_int), dtype)
+            for p in range(S):
+                lo, hi = dec.first_row[p], dec.first_row[p + 1]
+                b_own[p, : hi - lo] = dec.global_rhs[lo:hi]
+            b_dev = torch.from_numpy(self._local_rows(b_own)).to(self.device)
+            bnorm = float(np.linalg.norm(b_own))
 
         t0 = time.perf_counter()
         # a carry (resumed, or the previous chunk's) overrides the start
@@ -1392,22 +1446,22 @@ class RASolver:
                            cycle_budget=budget, psum=psum).state
             if budget is None or not carry[4] or int(carry[3]) >= max_cycles:
                 break
-        x = self._global(carry[0])
-        elapsed = time.perf_counter() - t0
-
+        with span("assemble_result"):
+            x = self._global(carry[0], "result")
+            elapsed = time.perf_counter() - t0
+            iters = int(carry[2])
+            rel_v = float(carry[1]) / max(bnorm, 1e-300)
+            hist_g = np.asarray(carry[5])[: iters + 1]
+            result = self._assemble_result(
+                x, rel_v <= s.tolerance, bool(np.isnan(rel_v)), iters,
+                np.zeros((len(hist_g), S)), hist_g,
+                np.zeros((len(hist_g), S), np.int32), elapsed)
         if checkpoint_path is not None:
             _, rnorm, it, cycles, active, hist = carry
             write_once(self._mesh, lambda: np.savez_compressed(
                 checkpoint_path, x, np.asarray(rnorm),
                 np.asarray(it, np.int32), np.asarray(cycles, np.int32),
                 np.asarray(active, np.bool_), np.asarray(hist)))
-        iters = int(carry[2])
-        rel_v = float(carry[1]) / max(bnorm, 1e-300)
-        hist_g = np.asarray(carry[5])[: iters + 1]
-        result = self._assemble_result(
-            x, rel_v <= s.tolerance, bool(np.isnan(rel_v)), iters,
-            np.zeros((len(hist_g), S)), hist_g,
-            np.zeros((len(hist_g), S), np.int32), elapsed)
         if instrument:
             result.stage_timings = self._accel_stage_timings(
                 matvec, precond, b_dev)

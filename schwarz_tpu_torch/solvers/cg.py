@@ -5,7 +5,7 @@ subdomains that have met their criterion frozen by masking, and Ginkgo's
 ``Combined(Iteration, ResidualNormReduction)`` stop (``max_iters``, or
 ``||r|| / ||r0|| <= tol`` with ``r0`` the initial residual of this solve).
 The loop runs on the host; its condition reads one flag from the device per
-iteration.
+iteration (``host_reads`` site ``cg.active``).
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from schwarz_tpu_torch.ops.spmv import ell_spmv_batched
+from schwarz_tpu_torch.utils.timing import HOST_READS, count
 
 
 class KrylovResult(NamedTuple):
@@ -25,6 +26,11 @@ class KrylovResult(NamedTuple):
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(a * b, dim=-1)
+
+
+def _any(active: torch.Tensor) -> bool:
+    count(HOST_READS, "cg.active")
+    return bool(active.any())
 
 
 def cg_solve(
@@ -58,7 +64,7 @@ def cg_solve(
     active = (rnorm0_sq > tol2) & (rnorm0_sq > 0)
     iters = torch.zeros(b.shape[0], dtype=torch.int32, device=b.device)
     it = 0
-    while it < max_iters and bool(active.any()):
+    while it < max_iters and _any(active):
         Ap = apply_fn(p)
         pAp = _dot(p, Ap)
         alpha = torch.where(pAp > 0, rho / torch.clamp(pAp, min=eps),

@@ -28,6 +28,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from schwarz_tpu_torch.utils.timing import HOST_READS, count, span, spanned
+
 
 class FGMRESResult(NamedTuple):
     x: torch.Tensor         # (S, R_int)
@@ -73,19 +75,21 @@ def fgmres(
     tiny = dt.type(torch.finfo(b.dtype).tiny)
     one, zero = dt.type(1.0), dt.type(0.0)
 
-    def host(t):
+    def host(t, site):
+        count(HOST_READS, site)
         return t.detach().cpu().numpy()
 
-    bnorm = np.sqrt(host(_gdot(b, b, psum)))
+    bnorm = np.sqrt(host(_gdot(b, b, psum), "fgmres.norm"))
     target = tol * np.maximum(bnorm, tiny)
     max_cycles = -(-max_iters // m)
 
+    @spanned("fgmres.cycle")
     def cycle(carry):
         x, rnorm, it_total, cycles, active, hist = carry
         r = b - matvec(x)
         beta_d = torch.sqrt(_gdot(r, r, psum))
         V = [r / torch.clamp(beta_d, min=float(tiny))]
-        beta = host(beta_d)
+        beta = host(beta_d, "fgmres.norm")
         Z = []
         Rm = np.zeros((m, m), dt)
         g = np.zeros(m + 1, dt)
@@ -99,30 +103,31 @@ def fgmres(
             z = precond(V[j])
             w = matvec(z)
             Z.append(z)
-            hs = []
-            # modified Gram-Schmidt against v_0 .. v_j
-            for i in range(j + 1):
-                hij = _gdot(V[i], w, psum)
-                w = w - hij * V[i]
-                hs.append(hij)
-            hnext_d = torch.sqrt(_gdot(w, w, psum))
-            V.append(w / torch.clamp(hnext_d, min=float(tiny)))
-            h = np.zeros(m + 1, dt)
-            h[:j + 2] = host(torch.stack(hs + [hnext_d]))
-            for i in range(j):
-                hi, hip = h[i], h[i + 1]
-                h[i] = cs[i] * hi + sn[i] * hip
-                h[i + 1] = -sn[i] * hi + cs[i] * hip
-            hj, hj1 = h[j], h[j + 1]
-            den = np.sqrt(hj * hj + hj1 * hj1)
-            c_new = hj / np.maximum(den, tiny) if den > 0 else one
-            s_new = hj1 / np.maximum(den, tiny) if den > 0 else zero
-            cs[j], sn[j] = c_new, s_new
-            h[j] = c_new * hj + s_new * hj1
-            Rm[:, j] = h[:m]
-            gj = g[j]
-            g[j] = c_new * gj
-            g[j + 1] = -s_new * gj
+            with span("fgmres.orthogonalize"):
+                hs = []
+                # modified Gram-Schmidt against v_0 .. v_j
+                for i in range(j + 1):
+                    hij = _gdot(V[i], w, psum)
+                    w = w - hij * V[i]
+                    hs.append(hij)
+                hnext_d = torch.sqrt(_gdot(w, w, psum))
+                V.append(w / torch.clamp(hnext_d, min=float(tiny)))
+                h = np.zeros(m + 1, dt)
+                h[:j + 2] = host(torch.stack(hs + [hnext_d]), "fgmres.column")
+                for i in range(j):
+                    hi, hip = h[i], h[i + 1]
+                    h[i] = cs[i] * hi + sn[i] * hip
+                    h[i + 1] = -sn[i] * hi + cs[i] * hip
+                hj, hj1 = h[j], h[j + 1]
+                den = np.sqrt(hj * hj + hj1 * hj1)
+                c_new = hj / np.maximum(den, tiny) if den > 0 else one
+                s_new = hj1 / np.maximum(den, tiny) if den > 0 else zero
+                cs[j], sn[j] = c_new, s_new
+                h[j] = c_new * hj + s_new * hj1
+                Rm[:, j] = h[:m]
+                gj = g[j]
+                g[j] = c_new * gj
+                g[j + 1] = -s_new * gj
             it_total = it_total + np.int32(1)
             hist[it_total] = np.abs(g[j + 1])
             act = bool(np.abs(g[j + 1]) > target) and it_total < max_iters
@@ -137,13 +142,13 @@ def fgmres(
             yd = torch.from_numpy(y[:n]).to(b.device)
             x = x + torch.einsum("m,msr->sr", yd, torch.stack(Z))
         r2 = b - matvec(x)
-        rnorm = np.sqrt(host(_gdot(r2, r2, psum)))
+        rnorm = np.sqrt(host(_gdot(r2, r2, psum), "fgmres.norm"))
         active = np.bool_(bool(rnorm > target) and it_total < max_iters)
         return x, rnorm, it_total, cycles + np.int32(1), active, hist
 
     if state is None:
         r0 = b - matvec(x0)
-        rnorm0 = np.sqrt(host(_gdot(r0, r0, psum)))
+        rnorm0 = np.sqrt(host(_gdot(r0, r0, psum), "fgmres.norm"))
         hist0 = np.zeros(max_iters + 2, dt)
         hist0[0] = rnorm0
         carry = (x0, rnorm0, np.int32(0), np.int32(0),

@@ -28,9 +28,11 @@ import torch
 
 from schwarz_tpu_torch.ops.spmv import ell_spmv_batched
 from schwarz_tpu_torch.solvers.cg import KrylovResult, _dot
+from schwarz_tpu_torch.utils.timing import HOST_READS, count
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
+def _host(t: torch.Tensor, site: str) -> np.ndarray:
+    count(HOST_READS, site)
     return t.detach().cpu().numpy()
 
 
@@ -54,7 +56,7 @@ def gmres_solve(
     if apply_fn is None:
         apply_fn = lambda x: ell_spmv_batched(vals, cols, x)  # noqa: E731
     M = precond if precond is not None else (lambda r: r)
-    dt = _host(b[:0]).dtype
+    dt = b.detach()[:0].cpu().numpy().dtype     # no element: no wait
     tiny = torch.finfo(b.dtype).tiny
     tiny_h = dt.type(tiny)
     dev = b.device
@@ -64,7 +66,7 @@ def gmres_solve(
         return torch.sqrt(_dot(r, r)), r
 
     rnorm0_d, _ = pnorm(x0)
-    rnorm0 = _host(rnorm0_d)
+    rnorm0 = _host(rnorm0_d, "gmres.norm")
     target = tol * rnorm0
     max_cycles = -(-max_iters // m)
     V = torch.empty((m + 1, S, R), dtype=b.dtype, device=dev)
@@ -73,7 +75,7 @@ def gmres_solve(
         """One m-step cycle; returns (x_new, rnorm_new on the device)."""
         beta_d, r = pnorm(x)
         V[0] = r / torch.clamp(beta_d, min=tiny)[:, None]
-        beta = _host(beta_d)
+        beta = _host(beta_d, "gmres.norm")
         Rm = np.zeros((S, m, m), dt)            # upper-triangular factor
         g = np.zeros((S, m + 1), dt)
         g[:, 0] = beta
@@ -97,7 +99,8 @@ def gmres_solve(
             V[j + 1] = torch.where(
                 act_d[:, None], w / torch.clamp(hnext, min=tiny)[:, None],
                 torch.zeros_like(w))
-            h = _host(torch.stack(hs + [hnext], dim=1))    # (S, j + 2)
+            h = _host(torch.stack(hs + [hnext], dim=1),    # (S, j + 2)
+                      "gmres.column")
             # the previous Givens rotations on the new column
             for i in range(j):
                 hi, hip = h[:, i].copy(), h[:, i + 1].copy()
@@ -155,7 +158,7 @@ def gmres_solve(
         act_d = torch.from_numpy(active).to(dev)
         x = torch.where(act_d[:, None], x_new, x)
         rnorm = torch.where(act_d, rnorm_new, rnorm)
-        active = active & (_host(rnorm) > target)
+        active = active & (_host(rnorm, "gmres.norm") > target)
         cycles += 1
     rel = rnorm / torch.where(rnorm0_d > 0, rnorm0_d,
                               torch.ones_like(rnorm0_d))

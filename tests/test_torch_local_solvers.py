@@ -28,6 +28,7 @@ from schwarz_tpu_torch.core.decompose import decompose as tdecompose
 from schwarz_tpu_torch.ras import RASolver as TSolver
 from schwarz_tpu_torch.solvers.gmres import gmres_solve as tgmres
 from schwarz_tpu_torch.solvers.precond import jacobi_inverse
+from schwarz_tpu_torch.utils import timing
 
 
 def settings(cfg, **kw):
@@ -275,11 +276,23 @@ def test_gates_raise_like_jax(kw, match):
 
 
 def test_direct_plan_frees_all_but_the_inverse():
-    """With the explicit inverse the plan keeps the inverse alone; the
-    factor's seconds are recorded by step."""
-    _, ts = both(16, 4, **SOLVES["cholesky_inverse"][2])
+    """With the explicit inverse the plan keeps the inverse alone; built
+    with the spans recorded, the factor and the inverse are one set-up
+    span each, inside the solver's."""
+    prev = timing.recording(True)
+    timing.clear_spans()
+    try:
+        _, ts = both(16, 4, **SOLVES["cholesky_inverse"][2])
+        spans = timing.spans()
+    finally:
+        timing.recording(prev)
+        timing.clear_spans()
     assert "factor_inv" in ts._plan and "factor_L" not in ts._plan
-    assert set(ts.factor_seconds) == {"factor", "inverse"}
+    steps = [s for s in spans if s.name in ("factor", "inverse")]
+    assert [s.name for s in steps] == ["factor", "inverse"]
+    for s in steps:
+        assert spans[s.parent].name == "solver_setup" and s.solve == 0
+        assert s.end_ns > s.start_ns
     _, tl = both(12, 4, problem="advection_diffusion_2d", local_solver="lu")
     assert {"factor_lu", "factor_piv"} <= set(tl._plan)
 
