@@ -107,10 +107,9 @@
    two-level spectral coarse space (q = 32), through ``RASolver`` on the
    card (the host setup timed: decompose, the 16 eigensolves into a cache
    under ``build/coarse_cache``, the plan), cold and warm, with K1, K2 and
-   K3 counted (K1 per operand, checked against the inner iteration
-   history: the float64 operator twice an outer iteration and once on the
-   exit pass, the float32 operator and the chained FSAI apply G^T (G r)
-   once per inner CG step) and one warm run profiled; then the second rhs of ``bench.py:550-556``
+   K3 counted (K1 per operand: the float64 operator twice an outer
+   iteration and once on the exit pass; the local FSAI-CG one K3 launch an
+   outer iteration) and one warm run profiled; then the second rhs of ``bench.py:550-556``
    (``generate_rhs(n, seed=7)``) through ``set_rhs`` on the same solver,
    which must converge in the iterations of a fresh card solver on that
    rhs with its history within rtol 1e-10; then the same recipe on the CPU
@@ -125,7 +124,9 @@
    more after a 128 MB ``zero_`` (an L2 full of dirty lines) beside the
    read flush; the host us of a ``dia_spmv`` and a ``dia_spmv_chain`` call
    over 1000 calls, with the wrapper's per-operand cache and with it
-   cleared before every call;
+   cleared before every call; K3's FSAI mode on the flagship's locals (one
+   pass: tolerance 1e-6, at most 20 iterations) against its plain version,
+   timed;
 22. holds K3 to its plain version on the O-RAS operator of a converging
    run (``laplacian_2d(128)``, 16 strips, overlap 6, ``oras_weight=
    'auto'``, float32 Jacobi locals under a float64 outer loop), then runs
@@ -193,9 +194,8 @@
    (a) the flagship recipe of phase 20 on 2 processes of 8 strips each (16
    ranks): 18 iterations, true relative residual <= 1e-8, every process the
    same result, its history against phase 20's card history, K1 and K2
-   launched in each process at phase 20's rate (2 residuals and 2 (n + 1)
-   inner launches, the operator and the chained FSAI apply, an outer
-   iteration of n inner iterations, K2 twice); (b)
+   launched in each process at phase 20's rate (2 residuals and one K3
+   launch an outer iteration, K2 twice); (b)
    the configuration of ``tests/distributed_worker.py`` on 4 processes of 4
    subdomains (16 ranks): the ``neighbor`` strategy, float64, overlap 3,
    tolerance 1e-7, one-level at 64^2, two-level spectral (q = 2, the CG
@@ -356,13 +356,18 @@ def k2_entry(sm, solver, what: str) -> dict:
                 library_ms=sm.ms(lambda: torch.take(src, index), 50))
 
 
-def _k3_bound(iters, S: int, K: int, R: int):
+def _k3_bound(iters, S: int, K: int, R: int, Kf: int = 0):
     """K3's bound: the operator, b, x0, dinv read once and x written once
     (float32), against the iterations this run's data took, 2K + 13
-    operations a row each, plus the set-up pass."""
-    n_ops = float(((iters.to("cpu").long() * (2 * K + 13)).sum()
-                   + S * (2 * K + 6)) * R)
-    return _bound_ms((S * K * R + 4 * S * R) * 4 + S * 8, n_ops, "float32")
+    operations a row each, plus the set-up pass.  Under FSAI (``Kf`` the
+    planes of G and G^T together) the factors replace dinv: 2(K + Kf) + 12
+    operations a row an iteration."""
+    per_it, setup, vectors = 2 * K + 13, 2 * K + 6, 4
+    if Kf:
+        per_it, setup, vectors = 2 * (K + Kf) + 12, 2 * (K + Kf) + 5, 3
+    n_ops = float(((iters.to("cpu").long() * per_it).sum() + S * setup) * R)
+    return _bound_ms((S * (K + Kf) * R + vectors * S * R) * 4 + S * 8, n_ops,
+                     "float32")
 
 
 class Smoke:
@@ -834,6 +839,7 @@ def counted(fn):
     for f in fns.values():
         f.launches = 0
     fns["dia_spmv"].launches_by = {}
+    fns["fused_cg"].launches_by = {}
     torch.cuda.synchronize()
     res = fn()
     torch.cuda.synchronize()
@@ -1773,6 +1779,7 @@ def flagship_phases(sm: Smoke) -> None:
           f"remainder={solver._dia_has_remainder}", flush=True)
     res, launches = counted(solver.run)
     by_operand = dict(dia_spmv.launches_by)    # before any other K1 launch
+    k3_by = dict(fused_cg_solve.launches_by)   # and K3 launch
     sm.flagship_iters = res.iters
     sm.flagship_hist = res.global_resnorm_history
     warm = solver.run()
@@ -1796,17 +1803,15 @@ def flagship_phases(sm: Smoke) -> None:
                 "chain": ("chain", tuple(go), tuple(uo), "float32")}
     k1 = {key: by_operand.get(op, 0) for key, op in operands.items()}
     # per outer iteration: the residual and the check (A_f64, and once on
-    # the exit pass); the inner CG's A_f32 and FSAI apply once per step,
-    # n + 1 for n inner iterations (the largest subdomain's count)
-    n_steps = int((res.inner_iters_history[:res.iters].max(axis=1)
-                   + 1).sum())
-    want_k1 = {"A_f64": 2 * res.iters + 1, "A_f32": n_steps,
-               "chain": n_steps}
+    # the exit pass); the inner CG is one K3 launch (its FSAI mode), so no
+    # K1 launch of A_f32 or of FSAI's chain
+    want_k1 = {"A_f64": 2 * res.iters + 1, "A_f32": 0, "chain": 0}
     print(f"flagship K1 launches per outer iteration: "
           + ", ".join(f"{k} {v / max(res.iters, 1):.2f}"
                       for k, v in k1.items())
           + f"; all {launches['dia_spmv'] / max(res.iters, 1):.2f} (the "
-          f"first version: 65.06, G and G^T two launches)", flush=True)
+          f"first version: 65.06, G and G^T two launches; the unfused CG "
+          f"with the chain 44.06)", flush=True)
     sm.check(res.converged and res.relative_residual_norm <= 1e-8
              and res.solution.shape == (A.n,)
              and bool(np.isfinite(res.solution).all()),
@@ -1814,18 +1819,19 @@ def flagship_phases(sm: Smoke) -> None:
              f"true relative residual {res.relative_residual_norm:.3e} "
              f"<= 1e-8 (the JAX package on a TPU: 18, 6.21e-9, "
              f"BENCH_r05.json)")
-    sm.check(set(by_operand) == set(operands.values())
+    sm.check(set(by_operand) == {operands["A_f64"]}
              and k1 == want_k1
              and launches["dia_spmv"] == sum(k1.values())
              and launches["halo_runs"] == 2 * res.iters + 1
-             and launches["fused_cg"] == 0,
+             and launches["fused_cg"] == res.iters
+             and k3_by == {"fsai": res.iters},
              f"flagship: K1 launched {launches['dia_spmv']} times, by "
              f"operand {k1} as its wrapper counted them = {want_k1} from "
-             f"the {res.iters} outer and {n_steps} inner steps (FSAI's G^T "
-             f"(G r) one chained launch; launches by offsets and type "
-             f"{by_operand}), K2 "
+             f"the {res.iters} outer iterations (launches by offsets and "
+             f"type {by_operand}), K2 "
              f"{launches['halo_runs']} = 2 per outer iteration + the exit "
-             f"pass, K3 not at all (FSAI locals)")
+             f"pass, K3 {launches['fused_cg']} = one FSAI launch per outer "
+             f"iteration ({k3_by})")
     # the profiler's view of one warm run: launches by kernel, device busy.
     # The profiler keeps only the device records that lie inside its
     # window as placed on the host's clock, so the run is kept clear of the
@@ -1846,29 +1852,31 @@ def flagship_phases(sm: Smoke) -> None:
     n_chain = sum(e.count for e in events
                   if "dia_spmv_chain_kernel" in e.key)
     n_k2 = sum(e.count for e in events if "assemble_kernel" in e.key)
+    n_k3 = sum(e.count for e in events if "fused_cg_kernel" in e.key)
     print(f"flagship profile, one warm run of {n_run} passes: wall "
           f"{wall * 1e3:.2f} ms, device busy {dev_us / 1e3:.2f} ms "
           f"({100 * dev_us / 1e3 / (wall * 1e3):.1f}%); K1 {n_k1} launches "
           f"({n_k1 / max(res.iters, 1):.2f} per outer iteration, {n_chain} "
           f"of them the chain), K2 {n_k2} "
-          f"({n_k2 / max(res.iters, 1):.2f} per outer iteration)",
-          flush=True)
+          f"({n_k2 / max(res.iters, 1):.2f} per outer iteration), K3 "
+          f"{n_k3}", flush=True)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:14]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
               f"{e.key[:70]}", flush=True)
     groups = {"K1": "dia_spmv_", "K2": "assemble_kernel",
-              "reductions": "reduce_kernel", "products (cuBLAS)": "gemm",
-              "copies": "Memcpy"}
+              "K3": "fused_cg_kernel", "reductions": "reduce_kernel",
+              "products (cuBLAS)": "gemm", "copies": "Memcpy"}
     share = {g: sum(e.self_device_time_total for e in events
                     if k in e.key) / 1e3 for g, k in groups.items()}
     print(f"flagship device ms by kind: {share}, the rest "
           f"{dev_us / 1e3 - sum(share.values()):.3f}", flush=True)
     chain_p = dia_spmv.launches_by.get(operands["chain"], 0)
     sm.check(n_k1 == lp["dia_spmv"] and n_k2 == lp["halo_runs"]
-             and n_chain == chain_p > 0,
-             f"flagship profile: K1 {n_k1} launches ({n_chain} chained) and "
-             f"K2 {n_k2}, as counted by their wrappers ({lp['dia_spmv']}, "
-             f"{chain_p}, {lp['halo_runs']})")
+             and n_chain == chain_p == 0 and n_k3 == lp["fused_cg"] > 0,
+             f"flagship profile: K1 {n_k1} launches ({n_chain} chained), "
+             f"K2 {n_k2} and K3 {n_k3}, as counted by their wrappers "
+             f"({lp['dia_spmv']}, {chain_p}, {lp['halo_runs']}, "
+             f"{lp['fused_cg']})")
     # the second rhs of bench.py:550-556 on the same solver, against a
     # fresh card solver on that rhs (its basis read from the cache): the
     # same plan on the same card, so bit for bit is what to expect
@@ -1971,6 +1979,35 @@ def flagship_phases(sm: Smoke) -> None:
           f"G^T G) two torch.sparse.mm {e['library_two_ms']:.5f}; "
           f"{e['launches']} launches in the run, "
           f"{e['launches'] / max(res.iters, 1):.2f} per outer iteration",
+          flush=True)
+    # K3's FSAI mode on the flagship's locals, one pass of the solve
+    # (tolerance 1e-6, at most 20 iterations, from x0 = 0)
+    k3_args = (a_off, plan["dia_vals_lc"], x32, torch.zeros_like(x32), None,
+               s.local_tolerance, s.local_max_iters)
+    k3_kw = dict(fsai=(go, gd, uo, ud))
+    ref = fused_cg_solve_plain(*k3_args, **k3_kw)
+    got = fused_cg_solve(*k3_args, **k3_kw)
+    torch.cuda.synchronize()
+    err = float((got.x - ref.x).abs().max())
+    tol = 1e-3 * float(ref.x.abs().max())
+    d_it = int((got.iters - ref.iters).abs().max())
+    C, var = fused_cg_solve.cluster, fused_cg_solve.variant
+    sm.check(err <= tol and d_it <= 1,
+             f"K3 FSAI on the flagship's locals, {C} blocks per subdomain "
+             f"({var} memory): max abs err {err:.3e} <= {tol:.3e}, "
+             f"iterations within {d_it} <= 1")
+    Sx, Kx, Rx = plan["dia_vals_lc"].shape
+    bound, by = _k3_bound(got.iters, Sx, Kx, Rx, len(go) + len(uo))
+    e = dict(max_abs_err=err, cluster=C, variant=var,
+             launches=launches["fused_cg"],
+             ms=sm.ms(lambda: fused_cg_solve(*k3_args, **k3_kw), 20),
+             plain_ms=sm.ms(lambda: fused_cg_solve_plain(*k3_args, **k3_kw),
+                            2),
+             bound_ms=bound, bound_by=by, library_ms=None)
+    sm.kernels["fused_cg_flagship_fsai"] = e
+    print(f"K3 FSAI flagship (16, 5 + 3 + 3, 21504), C = {C} ({var}): "
+          f"ms={e['ms']:.5f} plain_ms={e['plain_ms']:.5f} bound_ms="
+          f"{bound:.5f} ({by}); {e['launches']} launches in the run",
           flush=True)
     # the harness's read flush against a write flush, which leaves L2 full
     # of dirty lines
@@ -2912,8 +2949,9 @@ def mesh_phases(sm: Smoke) -> None:
     for pid, o in enumerate(outs):
         c, w = o["cold"], o["warm"]
         lo, hi = o["block"]
-        n_inner = np.asarray(c["inner"])[:c["iters"], lo:hi].max(axis=1)
-        k1_rate = 2 * c["iters"] + 1 + 2 * int((n_inner + 1).sum())
+        # the residual's two K1 launches an outer iteration and one on the
+        # exit pass; the local CG is one K3 launch
+        k1_rate = 2 * c["iters"] + 1
         o["k1_rate"] = k1_rate
         print(f"flagship, process {pid} of 2 (subdomains {lo}-{hi - 1}): "
               f"setup {o['setup_s']:.2f} s, {c['iters']} iterations, true "
@@ -2953,13 +2991,16 @@ def mesh_phases(sm: Smoke) -> None:
     sm.check(all(o["cold"]["launches"]["dia_spmv"] == o["k1_rate"]
                  and o["cold"]["launches"]["halo_runs"]
                  == 2 * o["cold"]["iters"] + 1
-                 and o["cold"]["launches"]["fused_cg"] == 0 for o in outs),
-             "flagship on 2 processes: K1 and K2 launched in each process at "
-             "phase 20's rate (K1 " + ", ".join(
+                 and o["cold"]["launches"]["fused_cg"] == o["cold"]["iters"]
+                 for o in outs),
+             "flagship on 2 processes: K1, K2 and K3 launched in each "
+             "process at phase 20's rate (K1 " + ", ".join(
                  f"{o['cold']['launches']['dia_spmv']} = {o['k1_rate']}"
                  for o in outs) + "; K2 " + ", ".join(
                  str(o["cold"]["launches"]["halo_runs"]) for o in outs)
-             + " = 2 per outer iteration + the exit pass)")
+             + " = 2 per outer iteration + the exit pass; K3 " + ", ".join(
+                 str(o["cold"]["launches"]["fused_cg"]) for o in outs)
+             + " = 1 per outer iteration)")
 
     # --- (b) the JAX worker's configuration on 4 processes -------------------
     t0 = time.perf_counter()
@@ -3648,6 +3689,8 @@ def _phases(sm, torch) -> int:
                                       "schwarz_tpu/ops/pallas_kernels.py:110")
            for k in ("A_f64", "A_f32", "chain")},
         "fused_cg_oras": ("csrc/fused_cg.cu", "schwarz_tpu/ops/fused_cg.py:84"),
+        "fused_cg_flagship_fsai": ("csrc/fused_cg.cu",
+                                   "schwarz_tpu/ops/fused_cg.py:84"),
         **{f"dia_spmv_{k}": ("csrc/dia_spmv.cu",
                              "schwarz_tpu/ops/pallas_kernels.py:110")
            for k in ("campaign", "direct")},

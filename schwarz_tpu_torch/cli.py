@@ -136,7 +136,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fused_local_cg", action="store_true",
                    help="run each local CG solve as ONE CUDA kernel launch "
                         "(K3; needs --local_solver cg, a pure-DIA operator, "
-                        "f32 local compute; implies row padding to 128)")
+                        "f32 local compute, precond none, jacobi or fsai; "
+                        "implies row padding to 128); on the card a run "
+                        "that meets these takes K3 without the flag")
     p.add_argument("--precond_max_block_size", type=int, default=16)
     # reference-named aliases (bench_base.hpp:119-140) for the knobs above —
     # scripted reference campaigns port without edits

@@ -144,7 +144,8 @@ class Settings:
     # kernel and halo kernel always run
     use_pallas: str = "auto"
     halo_fused: str = "auto"
-    # whole local CG in one kernel launch (ops/fused_cg.py)
+    # the whole local CG in one kernel launch (K3, ops/fused_cg.py) on any
+    # device, or raise; a plan on the card takes K3 whenever its gate holds
     fused_local_cg: bool = False
     oras_weight: object = 0.0                # float, or the string "auto"
     two_level: bool = False

@@ -56,20 +56,27 @@ def split_rows(n_rows: int, C: int, align: int = 1) -> Tuple[int, list]:
                    for c in range(C)]
 
 
-def fused_cg_smem_bytes(n_rows: int, C: int, jacobi: bool) -> int:
+def fused_cg_smem_bytes(n_rows: int, C: int, precond: str = "none",
+                        planes: int = 0) -> int:
     """Dynamic shared memory of a block of K3's shared-memory variant: its
-    chunk of x, r, p and A p, float32, and of dinv too (with Jacobi) when
-    that still fits; otherwise dinv is read from device memory."""
+    chunk of x, r, p and A p, float32.  Under ``precond`` 'jacobi' the
+    chunk of dinv too, when that still fits (else dinv is read from device
+    memory).  Under 'fsai' the chunk of w = G r as a fifth vector, and the
+    chunk of the ``planes`` diagonal planes of A, G and G^T when those
+    still fit (else they stream from L2)."""
     chunk, _ = split_rows(n_rows, C, 32)
-    five = chunk * 5 * 4
-    return five if jacobi and five <= _SMEM_CAP else chunk * 4 * 4
+    four, five = chunk * 4 * 4, chunk * 5 * 4
+    if precond == "fsai":
+        full = five + planes * chunk * 4
+        return full if full <= _SMEM_CAP else five
+    return five if precond == "jacobi" and five <= _SMEM_CAP else four
 
 
-def fused_cg_variant(n_rows: int, C: int, jacobi: bool) -> str:
-    """'shared' when a block's chunk of K3's x, r, p and A p fits its shared
-    memory, else 'global' (the same kernel with the vectors in device
-    memory)."""
-    fits = fused_cg_smem_bytes(n_rows, C, jacobi) <= _SMEM_CAP
+def fused_cg_variant(n_rows: int, C: int, precond: str = "none") -> str:
+    """'shared' when a block's chunk of K3's work vectors (x, r, p, A p;
+    FSAI's w too) fits its shared memory, else 'global' (the same kernel
+    with the vectors in device memory)."""
+    fits = fused_cg_smem_bytes(n_rows, C, precond) <= _SMEM_CAP
     return "shared" if fits else "global"
 
 

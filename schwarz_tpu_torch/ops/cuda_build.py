@@ -56,9 +56,9 @@ SIGNATURES = {
         "halo_assemble_f64": (_P,) * 5 + (_I,) * 5 + (_P,),
     },
     "fused_cg": {
-        "fused_cg_max_clusters": (_I, _I, _I),
-        "fused_cg_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                         _P, _F, _I, _I, _I, _I, _P),
+        "fused_cg_max_clusters": (_I, _I, _I, _I),
+        "fused_cg_f32": (_P,) * 13 + (_I,) * 5 + (_P,) * 3
+        + (_F, _I, _I, _I, _I, _P),
     },
     "async_ras": {
         "async_ras_max_clusters": (_I, _I),

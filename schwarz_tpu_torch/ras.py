@@ -17,9 +17,9 @@ with all S subdomains batched on one device:
   - local_solve        -> batched CG or GMRES with a local preconditioner
                           (Jacobi, block-Jacobi, ILU(0), FSAI(0); their
                           banded factors through K1), the fused CG kernel
-                          (K3), or a dense Cholesky / LU factor applied by
-                          triangular solves or an explicit inverse
-                          (solvers/direct.py)
+                          (K3, on the card whenever its gate holds), or a
+                          dense Cholesky / LU factor applied by triangular
+                          solves or an explicit inverse (solvers/direct.py)
   - local_to_global    -> interior-window write                (communicate.cpp:64-94)
 
 Optimized Schwarz (``oras_weight``) adds a Robin term to the local solve
@@ -494,29 +494,31 @@ class RASolver:
                                                lc_np or dtype))
         if s.two_level:
             arrays.update(coarse_arrays(dec, s, dtype, lc_np))
-        # fused whole-solve CG kernel: opt-in and gated; an unsatisfiable
-        # request fails loudly with the recipe
-        self._use_fused_cg = False
-        if s.fused_local_cg:
-            if s.local_solver != LocalSolver.iterative_cg:
+        # K3, the whole local CG in one launch: a plan on the card takes it
+        # whenever the gate holds; fused_local_cg asks for it on any device
+        # and fails loudly with the recipe when the gate does not hold
+        cg_local = s.local_solver == LocalSolver.iterative_cg
+        gate = (cg_local and self._dia_offsets is not None
+                and fused_cg_supported(
+                    S, R_rows, len(self._dia_offsets),
+                    self._lc_dtype or s.value_dtype,
+                    self._dia_has_remainder, s.precond.value,
+                    factors_dia="fsai_gl_dia" in arrays))
+        if s.fused_local_cg and not gate:
+            if not cg_local:
                 raise ValueError("fused_local_cg requires local_solver='cg'")
             if self._dia_offsets is None:
                 raise ValueError(
                     "fused_local_cg requires the DIA operator "
                     "(spmv_format='dia' or a banded matrix under 'auto')")
-            inner_dtype = self._lc_dtype or s.value_dtype
-            if not fused_cg_supported(
-                S, R_rows, len(self._dia_offsets), inner_dtype,
-                self._dia_has_remainder, s.precond.value,
-            ):
-                raise ValueError(
-                    "fused_local_cg requirements not met: needs f32 local "
-                    "compute (dtype='float32' or local_compute_dtype="
-                    "'float32'), a pure-DIA operator with zero ELL remainder "
-                    f"(got remainder={self._dia_has_remainder}), rows % 128 "
-                    f"== 0 (set row_pad_multiple=128; got {R_rows}), and "
-                    "precond in (none, jacobi)")
-            self._use_fused_cg = True
+            raise ValueError(
+                "fused_local_cg requirements not met: needs f32 local "
+                "compute (dtype='float32' or local_compute_dtype="
+                "'float32'), a pure-DIA operator with zero ELL remainder "
+                f"(got remainder={self._dia_has_remainder}), rows % 128 "
+                f"== 0 (set row_pad_multiple=128; got {R_rows}), and "
+                "precond in (none, jacobi, fsai)")
+        self._use_fused_cg = gate and (s.fused_local_cg or on_cuda)
         # K2's segments of x_ext: the halo as runs of the gathered
         # interiors, or as the neighbour strategies' compact halo values,
         # whose packed per-rank-pair tables come with them; rounds within a
@@ -822,10 +824,15 @@ class RASolver:
         if self._use_fused_cg:
             lc = "_lc" if self._lc_dtype is not None else ""
             solve = "_solve" if self._oras else ""
+            fsai = None
+            if "fsai_gl_dia" in plan:
+                go, uo = self._fsai_offsets
+                fsai = (go, plan["fsai_gl_dia"], uo, plan["fsai_gu_dia"])
             res = fused_cg_solve(
                 self._dia_offsets, plan["dia_vals" + solve + lc],
                 rhs_eff.contiguous(), z_prev.contiguous(),
-                plan.get("precond_dinv"), s.local_tolerance, max_it)
+                plan.get("precond_dinv"), s.local_tolerance, max_it,
+                fsai=fsai)
         elif s.local_solver == LocalSolver.iterative_cg:
             res = cg_solve(
                 None, None, rhs_eff, z_prev, s.local_tolerance, max_it,

@@ -91,24 +91,65 @@ def test_k6_bands_of_the_2d_slice():
     assert band == 39 and parts[-1] == (234, 272)
 
 
-@pytest.mark.parametrize("C,jacobi,nbytes,variant", [
-    (8, True, 8704 * 5 * 4, "shared"),
-    (7, True, 9952 * 5 * 4, "shared"),
-    (6, True, 11616 * 4 * 4, "shared"),    # dinv stays in device memory
-    (5, True, 13952 * 4 * 4, "shared"),
-    (4, True, 17408 * 4 * 4, "global"),
-    (8, False, 8704 * 4 * 4, "shared"),
-    (1, False, 69632 * 4 * 4, "global"),
+@pytest.mark.parametrize("C,precond,nbytes,variant", [
+    (8, "jacobi", 8704 * 5 * 4, "shared"),
+    (7, "jacobi", 9952 * 5 * 4, "shared"),
+    (6, "jacobi", 11616 * 4 * 4, "shared"),    # dinv stays in device memory
+    (5, "jacobi", 13952 * 4 * 4, "shared"),
+    (4, "jacobi", 17408 * 4 * 4, "global"),
+    (8, "none", 8704 * 4 * 4, "shared"),
+    (1, "none", 69632 * 4 * 4, "global"),
 ])
-def test_fused_cg_shared_memory_of_the_slice(C, jacobi, nbytes, variant):
+def test_fused_cg_shared_memory_of_the_slice(C, precond, nbytes, variant):
     """69632 rows a subdomain (laplacian_2d(1024), 16 strips, overlap 3,
     rows padded to a multiple of 1024): the card holds 17 clusters of 6
     blocks, so the slice runs at C = 6 with x, r, p and A p in shared
     memory."""
-    assert fused_cg_smem_bytes(69632, C, jacobi) == nbytes
-    assert fused_cg_variant(69632, C, jacobi) == variant
+    assert fused_cg_smem_bytes(69632, C, precond) == nbytes
+    assert fused_cg_variant(69632, C, precond) == variant
     if variant == "shared":
         assert nbytes <= SMEM_PER_BLOCK
+
+
+# the flagship's FSAI mode: 21504 rows a subdomain, A's 5 planes, G's 3 and
+# G^T's 3; five vectors (x, r, p, A p, w) and, when they fit, the 11 planes
+@pytest.mark.parametrize("C,nbytes,planes_in,variant", [
+    (8, 2688 * (5 + 11) * 4, True, "shared"),
+    (7, 3072 * (5 + 11) * 4, True, "shared"),
+    (6, 3584 * (5 + 11) * 4, True, "shared"),    # 229376 of 230400 bytes
+    (5, 4320 * 5 * 4, False, "shared"),          # the planes stream from L2
+    (2, 10752 * 5 * 4, False, "shared"),
+    (1, 21504 * 5 * 4, False, "global"),
+])
+def test_fused_cg_fsai_shared_memory_of_the_flagship(C, nbytes, planes_in,
+                                                     variant):
+    """The card holds 17 clusters of 6 blocks and 15 of 7 or 8, so the
+    flagship's 16 subdomains run at C = 6 with the planes in shared
+    memory."""
+    cap = SMEM_PER_BLOCK - SMEM_STATIC_RESERVE
+    assert fused_cg_smem_bytes(21504, C, "fsai", 11) == nbytes
+    assert fused_cg_variant(21504, C, "fsai") == variant
+    chunk = split_rows(21504, C, 32)[0]
+    assert (chunk * (5 + 11) * 4 <= cap) == planes_in
+    assert (nbytes <= cap) == (variant == "shared")
+    assert choose_cluster(16, H100.__getitem__, ANY_CLUSTER_SIZES) == 6
+    # FSAI keeps w where Jacobi keeps dinv: one vector more than 'none'
+    assert fused_cg_smem_bytes(21504, C, "fsai") == chunk * 5 * 4
+
+
+@pytest.mark.parametrize("planes,edge", [(0, 11520), (11, 3584)])
+def test_fused_cg_fsai_planes_at_the_edge_of_shared_memory(planes, edge):
+    """The largest chunk whose vectors (and planes) fit keeps them in
+    shared memory; one 32-row step more falls back: the planes to L2, then
+    the vectors to device memory."""
+    cap = SMEM_PER_BLOCK - SMEM_STATIC_RESERVE
+    full = lambda chunk: fused_cg_smem_bytes(chunk, 1, "fsai", planes)  # noqa
+    assert full(edge) == edge * (5 + planes) * 4 <= cap
+    assert full(edge + 32) == (edge + 32) * 5 * 4
+    assert fused_cg_variant(edge, 1, "fsai") == (
+        "shared" if edge * 5 * 4 <= cap else "global")
+    if planes == 0:
+        assert fused_cg_variant(edge + 32, 1, "fsai") == "global"
 
 
 def test_cpu_wrappers_take_the_plain_versions_whatever_the_cluster():

@@ -260,6 +260,90 @@ def test_fused_cg_refuses_a_cluster_it_cannot_hold(dev):
         fused_cg_solve(*args, cluster=9)
 
 
+@pytest.fixture(scope="module")
+def flagship_locals():
+    """The flagship's local operator and FSAI factors on the card (one
+    level of its recipe: 16 strips of laplacian_2d(512), overlap 6, rows
+    padded to 128, float32 locals): A (16, 5, 21504), G and G^T (16, 3,
+    21504), offsets (-512, -1, 0) and (0, 1, 512)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    A = laplacian_2d(512)
+    s = Settings(partition=Partition.regular, overlap=6, dtype="float64",
+                 local_compute_dtype="float32", local_tolerance=1e-6,
+                 local_max_iters=20, precond=Precond.fsai,
+                 row_pad_multiple=128)
+    t = RASolver(decompose(A, generate_rhs(A.n), s, 16))
+    p = t._plan
+    go, uo = t._fsai_offsets
+    assert t._use_fused_cg and p["dia_vals_lc"].shape == (16, 5, 21504)
+    return (t._dia_offsets, p["dia_vals_lc"],
+            (go, p["fsai_gl_dia"], uo, p["fsai_gu_dia"]))
+
+
+def _fsai_check(flagship_locals, C, variant, tol, max_iters, warm=False):
+    """K3's FSAI mode against its plain version on the card: iterations
+    within one, x within 1e-3 of its largest entry (float32 CG, sums in
+    another order), the last subdomain (zero rhs, x0 = 0) at 0 iterations
+    and x = 0."""
+    offsets, dia, fsai = flagship_locals
+    S, _, R = dia.shape
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b = torch.rand((S, R), generator=gen, device="cuda")
+    x0 = torch.zeros_like(b)
+    if warm:
+        x0 = 0.01 * torch.rand((S, R), generator=gen, device="cuda")
+        x0[-1] = 0.0
+    b[-1] = 0.0
+    n0 = fused_cg_solve.launches
+    k0 = fused_cg_solve.launches_by.get("fsai", 0)
+    got = fused_cg_solve(offsets, dia, b, x0, None, tol, max_iters,
+                         cluster=C, fsai=fsai)
+    torch.cuda.synchronize()
+    assert fused_cg_solve.launches == n0 + 1
+    assert fused_cg_solve.launches_by["fsai"] == k0 + 1
+    assert fused_cg_solve.variant == variant
+    ref = fused_cg_solve_plain(offsets, dia, b, x0, None, tol, max_iters,
+                               fsai)
+    assert int(got.iters[-1]) == 0 and not got.x[-1].any()
+    assert (got.iters - ref.iters).abs().max().item() <= 1
+    assert int(got.iters.max()) <= max_iters
+    torch.testing.assert_close(got.x, ref.x, rtol=0,
+                               atol=1e-3 * float(ref.x.abs().max()))
+    return got, ref
+
+
+@pytest.mark.parametrize("C,variant", [(None, "shared"), (8, "shared"),
+                                       (5, "shared"), (1, "global")])
+def test_fused_cg_fsai_matches_plain_at_the_flagship(flagship_locals, C,
+                                                     variant):
+    """The flagship's local solve (tolerance 1e-6, at most 20 iterations)
+    in K3's FSAI mode: the chosen cluster size and forced ones, the planes
+    of A, G and G^T in shared memory (C = 8, and the size chosen), the
+    vectors only (C = 5), or everything in device memory (C = 1)."""
+    got, _ = _fsai_check(flagship_locals, C, variant, 1e-6, 20)
+    assert int(got.iters.max()) == 20     # the cap ends the flagship's pass
+
+
+@pytest.mark.parametrize("C,variant", [(None, "shared"), (1, "global")])
+def test_fused_cg_fsai_converges_like_plain(flagship_locals, C, variant):
+    """Run to 1e-5 from a warm start: every other subdomain stops on its
+    own, within one iteration of the plain version."""
+    got, ref = _fsai_check(flagship_locals, C, variant, 1e-5, 2000,
+                           warm=True)
+    assert (got.rel_resnorm[:-1] <= 1e-5).all()
+    assert int(ref.iters.max()) < 2000
+
+
+@pytest.mark.parametrize("C", [None, 1])
+def test_fused_cg_fsai_max_iters_cap(flagship_locals, C):
+    """A tolerance no subdomain meets: each one that iterates stops at the
+    run-time cap."""
+    got, _ = _fsai_check(flagship_locals, C, "shared" if C is None
+                         else "global", 1e-12, 3)
+    assert got.iters[:-1].tolist() == [3] * 15
+
+
 def test_smoke_x2_matches_plain(dev):
     x = torch.randn((256, 256), device=dev)
     n0 = dg.smoke_x2.launches
@@ -904,10 +988,16 @@ def test_two_level_and_oras_solve_on_card_like_cpu(dev, case, monkeypatch):
     s = Settings(spmv_format="dia", **_TWO_LEVEL[case])
     k1, k3 = dia_spmv.launches, fused_cg_solve.launches
     k4 = rdma_cyclic_shift.launches
+    k3_fsai = fused_cg_solve.launches_by.get("fsai", 0)
     r_c = solve(A, b, s, 4, device=dev)
     r_h = solve(A, b, s, 4, device="cpu")
     assert dia_spmv.launches > k1
-    assert (fused_cg_solve.launches > k3) == s.fused_local_cg
+    # K3 wherever its gate holds on the card (float32 CG locals): the
+    # flagship's FSAI once per outer iteration, against the CPU's unfused CG
+    assert (fused_cg_solve.launches > k3) == (
+        s.fused_local_cg or case == "flagship-analog")
+    if case == "flagship-analog":
+        assert fused_cg_solve.launches_by["fsai"] - k3_fsai == r_c.iters
     # K4 once per exchange: two per two-level iteration, one on the exit
     rdma = s.comm.strategy == HaloStrategy.rdma
     assert rdma_cyclic_shift.launches - k4 == (2 * r_c.iters + 1 if rdma

@@ -32,6 +32,16 @@ launches, and K1 and K8, each timed after a flush of L2 that leaves it
 dirty (a 128 MB ``zero_``) and clean (a 128 MB sum), in turns.  Card
 only.
 
+``k3``: K3's FSAI mode (``ops/fused_cg.py``) on the flagship's local
+operator and factors (one level of its recipe; 16 x 21504 rows, A's 5
+planes, G's and G^T's 3), one pass of the flagship's local solve
+(tolerance 1e-6, at most 20 iterations, from x0 = 0, a uniform rhs): the
+clusters of C blocks the card holds, then device ms at the chosen C with
+the planes of A, G and G^T in shared memory and streamed from L2, at
+each C of 8, 7, 5 and 1, the plain version, and the unfused CG of the
+solver (K1 with PyTorch's kernels and a host read an iteration) on the
+host clock, in turns.  Card only.
+
 ``mesh``: the host time of one collective of ``parallel/mesh.py`` in
 groups of 2 and 4 processes on localhost (on the card when there is one,
 else on the CPU), each process's medians over repeated calls with the
@@ -52,7 +62,7 @@ launch) and the longest wait of a rank; K5 on the converging 1-D solve of
 across processes only: it reads 0 in one process.  Card only.
 
     python tests/torch_card_readings.py [gmres] [profile] [exchange] [k1]
-        [mesh] [mesh_async]
+        [k3] [mesh] [mesh_async]
 """
 
 import os
@@ -272,6 +282,75 @@ def k1_readings(reps=50):
         for fl, ts in got.items()) + " ms", flush=True)
 
 
+def k3_readings(reps=20):
+    from chip_smoke import Smoke, _k3_bound
+
+    from schwarz_tpu_torch import Partition, RASolver
+    from schwarz_tpu_torch.ops import fused_cg as k3
+    from schwarz_tpu_torch.solvers.cg import cg_solve
+
+    A = laplacian_2d(512)
+    s = Settings(partition=Partition.regular, overlap=6, dtype="float64",
+                 local_compute_dtype="float32", local_tolerance=1e-6,
+                 local_max_iters=20, precond=Precond.fsai,
+                 row_pad_multiple=128)
+    t = RASolver(decompose(A, generate_rhs(A.n), s, 16))
+    p = t._plan
+    go, uo = t._fsai_offsets
+    fsai = (go, p["fsai_gl_dia"], uo, p["fsai_gu_dia"])
+    dia = p["dia_vals_lc"]
+    S, K, R = dia.shape
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b = torch.rand((S, R), generator=gen, device="cuda")
+    args = (t._dia_offsets, dia, b, torch.zeros_like(b), None, 1e-6, 20)
+    sm = Smoke(torch)
+    got = k3.fused_cg_solve(*args, fsai=fsai)
+    C0, variant = k3.fused_cg_solve.cluster, k3.fused_cg_solve.variant
+    bound, by = _k3_bound(got.iters, S, K, R, len(go) + len(uo))
+    holds = {k[2]: v for k, v in k3._max_clusters.items() if k[4]}
+    print(f"K3 FSAI, flagship locals {tuple(dia.shape)} + G {go} + G^T "
+          f"{uo}: chosen C = {C0} ({variant}), clusters held by C {holds}, "
+          f"iterations {got.iters.tolist()}; bound {bound:.5f} ms ({by})",
+          flush=True)
+    smem = k3.fused_cg_smem_bytes
+
+    def no_planes(n_rows, C, precond="none", planes=0):
+        return smem(n_rows, C, precond)
+
+    def run(C=None, planes=True):
+        k3.fused_cg_smem_bytes = smem if planes else no_planes
+        try:
+            return sm.ms(lambda: k3.fused_cg_solve(*args, cluster=C,
+                                                   fsai=fsai), reps)
+        finally:
+            k3.fused_cg_smem_bytes = smem
+
+    def unfused():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cg_solve(None, None, b, args[3], 1e-6, 20, precond=t._precond_fn(),
+                 apply_fn=t._apply_local(inner=True))
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    got = {}
+    for turn in range(2):
+        got.setdefault(f"C = {C0}, planes in shared memory", []).append(
+            run())
+        got.setdefault(f"C = {C0}, planes from L2", []).append(
+            run(planes=False))
+        for C in (8, 7, 5, 1):
+            got.setdefault(f"C = {C}", []).append(run(C))
+        got.setdefault("plain", []).append(
+            sm.ms(lambda: k3.fused_cg_solve_plain(*args, fsai=fsai), 2))
+        unfused()
+        got.setdefault("unfused CG, host clock", []).append(
+            float(np.median([unfused() for _ in range(10)])))
+    print("K3 FSAI ms a flagship local solve: " + ", ".join(
+        f"{k} {' / '.join(f'{v:.5f}' for v in vs)}"
+        for k, vs in got.items()), flush=True)
+
+
 def _median_us(fn, reps, device):
     samples = []
     for _ in range(reps):
@@ -439,6 +518,8 @@ if __name__ == "__main__":
         exchange_readings()
     if "k1" in what and torch.cuda.is_available():
         k1_readings()
+    if "k3" in what and torch.cuda.is_available():
+        k3_readings()
     if "mesh" in what:
         mesh_readings()
     if "mesh_async" in what and torch.cuda.is_available():
