@@ -49,3 +49,7 @@ class Readings:
     # instrumented solves: {"stage_timings", "loop_s", "iters"} each;
     # None where the configuration names no instrumented entry
     instrumented: Optional[List[Dict[str, Any]]] = None
+    # the mesh layer over the window: the delta of process 0's
+    # ``Mesh.stats`` (calls, seconds, wait_seconds, bytes); None in a run
+    # of one process
+    mesh: Optional[Dict[str, float]] = None

@@ -23,10 +23,16 @@ configuration, traffic mix and metrics are files found by name
    limit as the last lines on standard error, and the result as one JSON
    line on standard output, last.
 
+A configuration that names ``"processes": P`` runs in P worker processes
+of this script, one card each, in lockstep (:mod:`portbench.group`); this
+process then starts them and prints their result.
+
 Without a CUDA card, or with fewer than the cell's chips, it exits with 3
-and prints no result; if JAX or the JAX package was loaded, with 4.  The
-per-solve times go to ``$TMPDIR/portbench/``.  Run as a command it first
-makes its process steady (:func:`portbench.steady_process`).
+and prints no result; if JAX or the JAX package was loaded, in this process
+or a worker, with 4; if a worker failed or the group outlasted the run's
+bound, with 5.  The per-solve times go to ``$TMPDIR/portbench/``.  Run as
+a command it first makes its process steady
+(:func:`portbench.steady_process`).
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from __future__ import annotations
 import time
 
 _T_START = time.perf_counter()
+_T_START_MONO = time.monotonic()
 
 import argparse  # noqa: E402
 import gc  # noqa: E402
@@ -47,6 +54,7 @@ import tempfile  # noqa: E402
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(_HERE)
+RUN_PY = os.path.join(_HERE, "run.py")
 # run as a script, sys.path[0] is this directory: its modules must not
 # shadow the standard library's, so the checkout's root takes its place
 if sys.path and os.path.abspath(sys.path[0] or os.curdir) == _HERE:
@@ -59,12 +67,13 @@ import portbench  # noqa: E402
 if __name__ == "__main__":
     portbench.steady_process()
 
-from portbench import check, devtrace, generator, registry  # noqa: E402
+from portbench import check, devtrace, generator, group, registry  # noqa: E402
 from portbench.readings import Readings, Solve  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "schwarz_tpu")
 EXIT_NO_DEVICE = 3
 EXIT_FORBIDDEN = 4
+EXIT_GROUP_FAILED = 5
 TOP = 10
 # solves under the profiler, and solves through the configuration's
 # instrumented entry, in a run with --trace 1
@@ -157,11 +166,12 @@ def counter_delta(before: dict, after: dict) -> dict:
     return out
 
 
-def card_reading() -> str:
-    """Name, clocks, power and temperature of card 0 from ``nvidia-smi``."""
+def card_reading(ids: str = "0") -> str:
+    """Name, clocks, power and temperature of the cards ``ids`` (``0``,
+    or ``0,1,2,3``) from ``nvidia-smi``."""
     try:
         out = subprocess.run(
-            ["nvidia-smi", "-i", "0", "--query-gpu=name,clocks.sm,"
+            ["nvidia-smi", "-i", ids, "--query-gpu=name,clocks.sm,"
              "clocks.max.sm,power.draw,power.limit,temperature.gpu",
              "--format=csv,noheader"],
             capture_output=True, text=True, timeout=30, check=True)
@@ -178,9 +188,37 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     card 0 and raises :class:`NoDevice` without one; the CPU tests pass
     ``"cpu"``.  ``settings_override`` replaces settings of the
     configuration (the control's lower precision), and ``program_hook``
-    gets the built solver (the tests' planted faults)."""
-    t_start = _T_START if t_start is None else t_start
-    clock = time.perf_counter
+    gets the built solver (the tests' planted faults).  A configuration of
+    several processes runs in a process group (:mod:`portbench.group`),
+    one card a process; its ``t_start`` is on ``time.monotonic``, which
+    every process reads alike."""
+    bench = registry.load_benchmark(root)
+    cell = registry.workload(bench, workload)
+    cfg = registry.config(root, cell["config"])
+    if group.processes(cfg) > 1:
+        return group.run_cell(
+            sys.modules[__name__], workload, seed, seconds, trace, root=root,
+            bench=bench, cfg=cfg, chips=int(cell["chips"]), device=device,
+            settings_override=settings_override, program_hook=program_hook,
+            t_start=_T_START_MONO if t_start is None else t_start)
+    m = measure(workload, seed, seconds, trace, root=root, device=device,
+                settings_override=settings_override,
+                program_hook=program_hook,
+                t_start=_T_START if t_start is None else t_start)
+    chk, limit = judge(m)
+    out = result(m["bench"], workload, readings(m), chk, limit, m["kind"],
+                 int(m["cell"]["chips"]), m["peak"], root)
+    report(m)
+    return out
+
+
+def measure(workload: str, seed: int, seconds: float, trace: bool, *,
+            root: str, device, settings_override, program_hook,
+            t_start: float, clock=time.perf_counter, team=None) -> dict:
+    """Set-up, the window and the traced solves of one run, up to the
+    program freed: everything the check, the metrics and the report read.
+    ``team`` (:class:`portbench.group.Team`) is a worker's place in a
+    process group, None in a run of one process."""
     bench = registry.load_benchmark(root)
     cell = registry.workload(bench, workload)
     cfg = registry.config(root, cell["config"])
@@ -216,17 +254,23 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         cfg["operator"])
     split["operator"], t = clock() - t, clock()
     requests = generator.make_requests(mix, A.shape[0], seed, device)
+    if team is not None:
+        team.agree("pools", group.pool_digest(requests))
     split["requests"], t = clock() - t, clock()
     settings = make_settings({**cfg["settings"], **(settings_override or {})})
     dec = prog.decompose(prog.CSRMatrix.from_scipy(A), requests[0], settings,
                          int(cfg["num_subdomains"]))
     split["decompose"], t = clock() - t, clock()
-    solver = prog.RASolver(dec, device=device)
+    if team is None:
+        solver = prog.RASolver(dec, device=device)
+    else:
+        solver = prog.RASolver(dec, mesh=team.mesh)
     sync()
     split["solver"], t = clock() - t, clock()
     if program_hook is not None:
         program_hook(solver)
     entry = getattr(solver, cfg["entry"])
+    lead = team is None or team.rank == 0
 
     def solve(row, call=entry, label=False):
         # traced solves carry the harness's spans, which name the device's
@@ -245,35 +289,59 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
 
     for _ in range(int(mix["warmup_solves"])):
         solve(0)
+    if team is not None:
+        team.mesh.barrier()
     split["warmup"] = clock() - t
 
     # --- the window ---------------------------------------------------------
+    # in a group process 0's clock decides, and every process hears go or
+    # stop before each solve, outside its timed interval
     c0 = launch_counters()
+    mesh0 = dict(team.mesh.stats) if team is not None else None
     solves, solved = [], []
     t_w0 = clock()
     setup_s = t_w0 - t_start
     deadline = t_w0 + float(seconds)
-    while clock() < deadline:
+    while (clock() < deadline if team is None
+           else team.go(lead and clock() < deadline)):
         s, res = solve(generator.row(mix, len(solves)))
         solves.append(s)
-        solved.append((s.row, res.solution))
-    window_s = clock() - t_w0
+        if lead:
+            solved.append((s.row, res.solution))
+    t_w1 = clock()
+    window_s = t_w1 - t_w0
     counters = counter_delta(c0, launch_counters())
+    mesh_stats = ({k: v - mesh0[k] for k, v in team.mesh.stats.items()}
+                  if team is not None else None)
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
-    card = card_reading() if cuda else "cpu"
+    if not cuda:
+        card = "cpu"
+    elif team is None:
+        card = card_reading()
+    elif lead:
+        # every card of the group
+        n = torch.cuda.device_count()
+        card = card_reading(",".join(
+            str(i) for i in sorted({p % n for p in range(team.size)})))
+    else:
+        card = None
+    kind = torch.cuda.get_device_name(device) if cuda else "cpu"
 
     # --- traced solves, after the window ------------------------------------
     profile, instrumented = None, None
     k = len(solves)
+    n_traced = 0
     if trace:
         c1 = launch_counters()
         rows = (generator.row(mix, i) for i in itertools.count(k))
         profile, outs = devtrace.profile_solves(
-            lambda: solve(next(rows), label=True), PROFILED_SOLVES, device)
+            lambda: solve(next(rows), label=lead), PROFILED_SOLVES, device)
         profile["counters"] = counter_delta(c1, launch_counters())
         profile["solves"] = [s for s, _ in outs]
-        solved += [(s.row, res.solution) for s, res in outs]
+        if lead:
+            solved += [(s.row, res.solution) for s, res in outs]
         k += len(outs)
+        n_traced = len(outs)
         inst = cfg.get("instrumented_entry")
         if inst:
             instrumented = []
@@ -282,12 +350,14 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
                                getattr(solver, inst))
                 instrumented.append({"stage_timings": res.stage_timings,
                                      "loop_s": s.loop_s, "iters": s.iters})
-                solved.append((s.row, res.solution))
+                if lead:
+                    solved.append((s.row, res.solution))
 
+    tail = {"traced solves": clock() - t_w1}
     meta = solver.meta
     plan = getattr(solver, "_plan", {})
     inv = plan.get("factor_inv")
-    shapes = dict(S=meta.num_subdomains, R_int=meta.max_interior,
+    shapes = dict(S=solver.S_local, R_int=meta.max_interior,
                   R_rows=meta.max_rows, R_ext=meta.max_ext,
                   dtype=settings.dtype,
                   halo_strategy=settings.comm.strategy.value,
@@ -300,47 +370,83 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
+    if team is not None:
+        # every process has freed its program before the check
+        team.mesh.barrier()
+    tail["freeing"] = clock() - t_w1 - tail["traced solves"]
+    return dict(bench=bench, cell=cell, cfg=cfg, mix=mix, A=A,
+                requests=requests, solved=solved, solves=solves,
+                workload=workload, seed=seed, setup_s=setup_s, split=split,
+                window_s=window_s, counters=counters, mesh=mesh_stats,
+                peak=peak, card=card, kind=kind, cuda=cuda, profile=profile,
+                instrumented=instrumented, shapes=shapes, tables=tables,
+                tail=tail,
+                counts=(len(solves), n_traced, len(instrumented or ())))
 
-    # --- the check, once the program is freed -------------------------------
-    limit = float(cfg["guarantee"]["relative_residual"])
-    chk = check.check_solves(A, requests, solved, limit)
-    _report_residuals(chk["residuals"], solves, requests)
 
-    ctx = Readings(cell=workload, config=cfg, traffic=mix,
-                   platform="gpu" if cuda else "cpu", setup_s=setup_s,
-                   setup_split=split, window_s=window_s, solves=solves,
-                   counters=counters, shapes=shapes, tables=tables,
-                   profile=profile, instrumented=instrumented)
+def judge(m: dict) -> tuple:
+    """The check, once the program is freed: every solution the run kept
+    against the configuration's guarantee; returns it and the limit."""
+    limit = float(m["cfg"]["guarantee"]["relative_residual"])
+    t = time.perf_counter()
+    chk = check.check_solves(m["A"], m["requests"], m["solved"], limit)
+    m["tail"]["check"] = time.perf_counter() - t
+    _report_residuals(chk["residuals"], m["solves"], m["requests"])
+    return chk, limit
+
+
+def readings(m: dict) -> Readings:
+    return Readings(cell=m["workload"], config=m["cfg"], traffic=m["mix"],
+                    platform="gpu" if m["cuda"] else "cpu",
+                    setup_s=m["setup_s"], setup_split=m["split"],
+                    window_s=m["window_s"], solves=m["solves"],
+                    counters=m["counters"], shapes=m["shapes"],
+                    tables=m["tables"], profile=m["profile"],
+                    instrumented=m["instrumented"], mesh=m["mesh"])
+
+
+def result(bench: dict, workload: str, ctx: Readings, chk: dict,
+           limit: float, kind: str, count: int, peak: int,
+           root: str) -> dict:
+    """The result line's object from the readings, the check and the
+    device, and the numbers compared."""
     metrics = {}
-    for m in registry.cell_metrics(bench, workload, trace):
+    for m in registry.cell_metrics(bench, workload, ctx.profile is not None):
         v = registry.reader(root, m["name"])(ctx)
         if v is not None and math.isfinite(v):
             metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
 
-    dev = {"platform": "gpu" if cuda else "cpu",
-           "kind": torch.cuda.get_device_name(device) if cuda else "cpu",
-           "count": int(cell["chips"]), "memory_peak_bytes": int(peak)}
-    result = {"correct": chk["failed"] == 0 and chk["checked"] > 0,
-              "attempted": chk["checked"], "failed": chk["failed"],
-              "metrics": metrics, "device": dev}
+    gpu = ctx.platform == "gpu"
+    dev = {"platform": ctx.platform, "kind": kind if gpu else "cpu",
+           "count": int(count), "memory_peak_bytes": int(peak)}
+    out = {"correct": chk["failed"] == 0 and chk["checked"] > 0,
+           "attempted": chk["checked"], "failed": chk["failed"],
+           "metrics": metrics, "device": dev}
+    profile = ctx.profile
     if profile is not None:
         dev["busy_s"] = profile["busy_s"]
         dev["window_s"] = profile["window_s"]
-        result["breakdown"] = {
+        out["breakdown"] = {
             "device_ops": [[n[:160], s] for n, (_, s) in sorted(
                 profile["kernels"].items(), key=lambda kv: -kv[1][1])][:TOP],
             "idle_gaps": [[n[:160], s] for n, s in sorted(
                 profile["idle_by_host"].items(), key=lambda kv: -kv[1])][:TOP]}
     checks = {"rel_residual_max": {"value": chk["rel_residual_max"],
                                    "limit": limit}}
-    result["checks"] = checks
-    _report(workload, seed, setup_s, split, solves, window_s, counters, peak,
-            card, profile, instrumented)
-    return {"result": result, "checks": checks}
+    out["checks"] = checks
+    return {"result": out, "checks": checks}
+
+
+def report(m: dict) -> None:
+    _report(m["workload"], m["seed"], m["setup_s"], m["split"], m["solves"],
+            m["window_s"], m["counters"], m["peak"], m["card"], m["profile"],
+            m["instrumented"], m["mesh"])
+    _log("after the window: " + ", ".join(
+        f"{k} {v:.4f} s" for k, v in m["tail"].items()))
 
 
 def _report(workload, seed, setup_s, split, solves, window_s, counters, peak,
-            card, profile, instrumented) -> None:
+            card, profile, instrumented, mesh=None) -> None:
     """The run's details: a summary on standard error, the per-solve
     times in ``$TMPDIR/portbench/<cell>.<seed>.json``."""
     import numpy as np
@@ -361,6 +467,11 @@ def _report(workload, seed, setup_s, split, solves, window_s, counters, peak,
     _log(f"launches in the window: "
          + ", ".join(f"{k} {v['launches']}" for k, v in counters.items()
                      if v["launches"]))
+    if mesh is not None:
+        _log("mesh layer in the window: {} calls, {:.6f} s ({:.6f} s "
+             "waiting for the device), {} bytes".format(
+                 mesh["calls"], mesh["seconds"], mesh["wait_seconds"],
+                 mesh["bytes"]))
     _log(f"device memory peak {peak} bytes; card: {card}")
     if profile is not None:
         _log(f"traced stretch: {len(profile['solves'])} solves, window "
@@ -421,6 +532,9 @@ def emit(out: dict) -> None:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--group-worker"]:
+        return group.worker_main(argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
@@ -434,7 +548,10 @@ def main(argv=None) -> int:
     except NoDevice as e:
         print(f"[portbench] no result: {e}", file=sys.stderr)
         return EXIT_NO_DEVICE
-    found = forbidden_modules()
+    except group.GroupFailed as e:
+        print(f"[portbench] no result: {e}", file=sys.stderr)
+        return EXIT_GROUP_FAILED
+    found = sorted(set(forbidden_modules()) | set(out.pop("forbidden", ())))
     if found:
         print(f"[portbench] no result: JAX or the JAX package was loaded: "
               f"{found}", file=sys.stderr)

@@ -13,7 +13,8 @@ import subprocess
 import sys
 
 from portbench import registry, run
-from portbench.conftest import HERE, ROOT, load, write
+from portbench.conftest import (GROUP_CELL, GROUP_PER_LAYER, HERE,
+                                MESH_METRICS, ROOT, load, make_root, write)
 
 
 def _digests(root):
@@ -77,6 +78,59 @@ def test_metrics_of_a_cell():
     assert "solve_s.host_bound" not in names
     for m in bench["end_to_end"] + bench["per_layer"]:
         assert callable(registry.reader(ROOT, m["name"]))
+
+
+def test_tiny_root_maps_every_cell(tiny_root):
+    """Every cell of BENCHMARK.json, and the group configuration's, has a
+    tiny cell of the same chips and processes."""
+    bench = registry.load_benchmark(ROOT)
+    tiny = registry.load_benchmark(tiny_root)
+    real = bench["workloads"]
+    if all(c["name"] != GROUP_CELL["name"] for c in real):
+        real = real + [GROUP_CELL]
+    assert len(tiny["workloads"]) == len(real)
+    for cell, small in zip(real, tiny["workloads"]):
+        assert small["chips"] == cell["chips"]
+        assert registry.config(tiny_root, small["config"]).get(
+            "processes", 1) == registry.config(ROOT, cell["config"]).get(
+            "processes", 1)
+    assert [m["name"] for m in registry.cell_metrics(
+        tiny, "tiny_flagship_4proc.rhs_stream", True)] == [
+        "solve_s.host_bound", "outer_iters", "k1_launches_per_iter",
+        "k1_roofline", "k2_roofline", "device_idle",
+        "collective_ms_per_iter", "collective_calls_per_iter"]
+    for m in MESH_METRICS:
+        assert callable(registry.reader(ROOT, m["name"]))
+
+
+def test_tiny_root_maps_the_group_cell_once(tmp_path):
+    """With the group cell and the mesh metrics entered in
+    ``BENCHMARK.json``, as a later PR enters them, each is mapped once."""
+    bench = registry.load_benchmark(ROOT)
+    cell = dict(GROUP_CELL, why="the flagship over 4 processes")
+    bench["workloads"].append(cell)
+    for m in bench["per_layer"]:
+        if m["name"] in GROUP_PER_LAYER:
+            m["workloads"].append(cell["name"])
+    bench["per_layer"] += [dict(m, workloads=[cell["name"]])
+                           for m in MESH_METRICS]
+    root = make_root(str(tmp_path), bench)
+    tiny = registry.load_benchmark(root)
+    names = [c["name"] for c in tiny["workloads"]]
+    assert sorted(names) == sorted(set(names))
+    assert len(names) == len(bench["workloads"])
+    metrics = [m["name"] for m in tiny["end_to_end"] + tiny["per_layer"]]
+    assert sorted(metrics) == sorted(set(metrics))
+    for m in tiny["end_to_end"] + tiny["per_layer"]:
+        ws = m.get("workloads", [])
+        assert sorted(ws) == sorted(set(ws)), m["name"]
+    assert [m["name"] for m in registry.cell_metrics(
+        tiny, "tiny_flagship_4proc.rhs_stream", True)] == [
+        "solve_s.host_bound", "outer_iters", "k1_launches_per_iter",
+        "k1_roofline", "k2_roofline", "device_idle",
+        "collective_ms_per_iter", "collective_calls_per_iter"]
+    # the repository's own BENCHMARK.json maps to the same tiny benchmark
+    assert tiny == registry.load_benchmark(make_root(str(tmp_path / "r")))
 
 
 def test_forbidden_names_compared_whole():

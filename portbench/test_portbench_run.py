@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 
 from portbench import run
-from portbench.conftest import ROOT
+from portbench.conftest import ROOT, group_workers
 from portbench.operators import laplacian_2d
 from portbench.reference import direct, residual
 
@@ -53,19 +53,38 @@ def test_last_line_format(tiny_root, cell):
     assert err[-1].startswith("correct true")
 
 
-def test_traced_line_format(tiny_root):
-    out = run.run_cell("tiny_flagship.rhs_stream", 11, 0.3, True,
-                       root=tiny_root, device="cpu")
+# a CPU run launches no kernel: only the counters, spans and, across
+# processes, the mesh layer read
+TRACED = {"tiny_flagship.rhs_stream": {"outer_iters", "local_solve_share",
+                                       "solve_s.host_bound"},
+          "tiny_flagship_4proc.rhs_stream": {"outer_iters",
+                                             "solve_s.host_bound",
+                                             "collective_ms_per_iter",
+                                             "collective_calls_per_iter"}}
+
+
+@pytest.mark.parametrize("cell", sorted(TRACED))
+def test_traced_line_format(tiny_root, run_tmpdir, cell):
+    out = run.run_cell(cell, 11, 0.3, True, root=tiny_root, device="cpu")
     line = json.loads(_emit(out)[0][-1])
     assert list(line) == KEYS[:5] + ["breakdown", "checks"]
-    # a CPU run launches no kernel: only the counters and spans read
-    assert set(line["metrics"]) == {"outer_iters", "local_solve_share",
-                                    "solve_s.host_bound"}
-    assert 0 < line["metrics"]["local_solve_share"]["value"] < 100
+    assert set(line["metrics"]) == TRACED[cell]
     assert line["device"]["window_s"] > 0
     assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
-    # window, profiled and instrumented solves all judged
-    assert line["attempted"] >= 1 + 2 + 2
+    if "local_solve_share" in TRACED[cell]:
+        assert 0 < line["metrics"]["local_solve_share"]["value"] < 100
+        # window, profiled and instrumented solves all judged
+        assert line["attempted"] >= 1 + 2 + 2
+        return
+    assert line["device"]["count"] == 4
+    assert line["metrics"]["collective_calls_per_iter"]["value"] > 1
+    assert line["metrics"]["collective_ms_per_iter"]["value"] > 0
+    counts = {w["counts"] for w in group_workers(run_tmpdir, cell, 11)}
+    assert len(counts) == 1
+    window, traced, instrumented = counts.pop()
+    assert traced == run.PROFILED_SOLVES and instrumented == 0
+    # window and profiled solves all judged
+    assert line["attempted"] == window + traced
 
 
 def test_same_seed_same_requests():
