@@ -12,10 +12,13 @@ import numpy as np
 import pytest
 import torch
 
-from portbench import control, run
+from portbench import control, group, run
+from portbench.conftest import tiny_cells
 
-CELLS = ["tiny_flagship.rhs_stream", "tiny_direct.rhs_stream"]
-GROUP = "tiny_flagship_4proc.rhs_stream"
+CELLS = [name for name, _, _ in tiny_cells()]
+ONE_PROCESS = [name for name, cfg, _ in tiny_cells()
+               if group.processes(cfg) == 1]
+GROUPS = [name for name in CELLS if name not in ONE_PROCESS]
 
 
 def step_unchanged(solver):
@@ -92,7 +95,7 @@ def answer_altered(solver):
         setattr(solver, name, altered)
 
 
-@pytest.mark.parametrize("cell", CELLS + [GROUP])
+@pytest.mark.parametrize("cell", CELLS)
 def test_control_is_not_correct(tiny_root, cell):
     res = control.control(cell, 2**31 + 99, 0.2, root=tiny_root,
                           device="cpu")
@@ -102,7 +105,7 @@ def test_control_is_not_correct(tiny_root, cell):
 
 @pytest.mark.parametrize("fault", [step_unchanged, half_left_out,
                                    exchange_left_out, answer_altered])
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", ONE_PROCESS)
 def test_fault_is_not_correct(tiny_root, cell, fault):
     sound = run.run_cell(cell, 2**31 + 5, 0.2, False, root=tiny_root,
                          device="cpu")["result"]
@@ -117,9 +120,12 @@ def test_fault_is_not_correct(tiny_root, cell, fault):
                                    exchange_left_out, chips_exchange_left_out,
                                    answer_altered])
 def test_fault_across_processes_is_not_correct(tiny_root, fault):
-    """Each fault planted in every worker of the group cell; its sound
-    run on this seed is ``test_portbench_group``'s."""
-    res = run.run_cell(GROUP, 2**31 + 5, 0.2, False, root=tiny_root,
-                       device="cpu", program_hook=fault)["result"]
-    assert res["correct"] is False and res["failed"] >= 1
-    assert res["checks"]["rel_residual_max"]["value"] > 1e-8
+    """Each fault planted in every worker of each cell of several
+    processes; the tiny flagship group's sound run on this seed is
+    ``test_portbench_group``'s."""
+    assert GROUPS
+    for cell in GROUPS:
+        res = run.run_cell(cell, 2**31 + 5, 0.2, False, root=tiny_root,
+                           device="cpu", program_hook=fault)["result"]
+        assert res["correct"] is False and res["failed"] >= 1, cell
+        assert res["checks"]["rel_residual_max"]["value"] > 1e-8, cell

@@ -11,20 +11,11 @@ from __future__ import annotations
 import pytest
 
 from portbench import control, registry, run
+from portbench.conftest import tiny_cells
 
 pytestmark = pytest.mark.cuda
 
-CELLS = {"tiny_flagship.rhs_stream": {"outer_iters", "k1_launches_per_iter",
-                                      "local_solve_share", "k1_roofline",
-                                      "k2_roofline", "device_idle",
-                                      "solve_s.host_bound"},
-         "tiny_direct.rhs_stream": {"outer_iters", "k1_launches_per_iter",
-                                    "inverse_apply_roofline", "k1_roofline",
-                                    "k2_roofline", "device_idle"},
-         "tiny_flagship_4proc.rhs_stream": {
-             "outer_iters", "k1_launches_per_iter", "k1_roofline",
-             "k2_roofline", "device_idle", "solve_s.host_bound",
-             "collective_ms_per_iter", "collective_calls_per_iter"}}
+CELLS = sorted(name for name, _, _ in tiny_cells())
 
 
 @pytest.fixture
@@ -44,7 +35,7 @@ def as_many_cards(monkeypatch, root: str, cell: str) -> None:
         monkeypatch.setattr(torch.cuda, "device_count", lambda: chips)
 
 
-@pytest.mark.parametrize("cell", sorted(CELLS))
+@pytest.mark.parametrize("cell", CELLS)
 def test_traced_run_on_the_card(card, tiny_root, monkeypatch, cell):
     as_many_cards(monkeypatch, tiny_root, cell)
     out = run.run_cell(cell, 2**31 + 21, 0.5, True, root=tiny_root)
@@ -54,14 +45,16 @@ def test_traced_run_on_the_card(card, tiny_root, monkeypatch, cell):
     assert line["device"]["platform"] == "gpu"
     assert line["device"]["memory_peak_bytes"] > 0
     assert 0 < line["device"]["busy_s"] <= line["device"]["window_s"]
-    assert set(line["metrics"]) == CELLS[cell]
+    want = registry.cell_metrics(registry.load_benchmark(tiny_root), cell,
+                                 True)
+    assert set(line["metrics"]) == {m["name"] for m in want}
     for name, m in line["metrics"].items():
         if m["unit"] == "%":
             assert 0 < m["value"] <= 100, (name, m)
     assert line["breakdown"]["device_ops"]
 
 
-@pytest.mark.parametrize("cell", sorted(CELLS))
+@pytest.mark.parametrize("cell", CELLS)
 def test_control_on_the_card(card, tiny_root, monkeypatch, cell):
     as_many_cards(monkeypatch, tiny_root, cell)
     res = control.control(cell, 2**31 + 22, 0.5, root=tiny_root)

@@ -16,8 +16,8 @@ from contextlib import redirect_stderr, redirect_stdout
 import numpy as np
 import pytest
 
-from portbench import run
-from portbench.conftest import ROOT, group_workers
+from portbench import group, registry, run
+from portbench.conftest import ROOT, group_workers, tiny_cells
 from portbench.operators import laplacian_2d
 from portbench.reference import direct, residual
 
@@ -31,8 +31,8 @@ def _emit(out):
     return o.getvalue().splitlines(), e.getvalue().splitlines()
 
 
-@pytest.mark.parametrize("cell", ["tiny_flagship.rhs_stream",
-                                  "tiny_direct.rhs_stream"])
+@pytest.mark.parametrize("cell", [name for name, cfg, _ in tiny_cells()
+                                  if group.processes(cfg) == 1])
 def test_last_line_format(tiny_root, cell):
     out = run.run_cell(cell, 2**31 + 7, 0.3, False, root=tiny_root,
                        device="cpu")
@@ -41,8 +41,8 @@ def test_last_line_format(tiny_root, cell):
     assert list(line) == KEYS
     assert line["correct"] is True and line["failed"] == 0
     assert line["attempted"] >= 1
-    assert set(line["metrics"]) == {"setup_s", "solve_s.p90"} | (
-        {"solve_s"} if cell == "tiny_direct.rhs_stream" else set())
+    assert set(line["metrics"]) == {m["name"] for m in registry.cell_metrics(
+        registry.load_benchmark(tiny_root), cell, False)}
     for m in line["metrics"].values():
         assert m["value"] > 0 and m["unit"] == "s"
     assert line["device"] == {"platform": "cpu", "kind": "cpu", "count": 1,
@@ -54,13 +54,10 @@ def test_last_line_format(tiny_root, cell):
 
 
 # a CPU run launches no kernel: only the counters, spans and, across
-# processes, the mesh layer read
-TRACED = {"tiny_flagship.rhs_stream": {"outer_iters", "local_solve_share",
-                                       "solve_s.host_bound"},
-          "tiny_flagship_4proc.rhs_stream": {"outer_iters",
-                                             "solve_s.host_bound",
-                                             "collective_ms_per_iter",
-                                             "collective_calls_per_iter"}}
+# processes, the mesh layer read; each tiny file that names what they
+# read (``cpu_trace_metrics``) has its cell's traced line checked
+TRACED = {name: set(tiny["cpu_trace_metrics"])
+          for name, _, tiny in tiny_cells() if "cpu_trace_metrics" in tiny}
 
 
 @pytest.mark.parametrize("cell", sorted(TRACED))
@@ -71,12 +68,17 @@ def test_traced_line_format(tiny_root, run_tmpdir, cell):
     assert set(line["metrics"]) == TRACED[cell]
     assert line["device"]["window_s"] > 0
     assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
+    cfg = registry.config(tiny_root, registry.workload(
+        registry.load_benchmark(tiny_root), cell)["config"])
     if "local_solve_share" in TRACED[cell]:
         assert 0 < line["metrics"]["local_solve_share"]["value"] < 100
+    P = group.processes(cfg)
+    if P == 1:
         # window, profiled and instrumented solves all judged
-        assert line["attempted"] >= 1 + 2 + 2
+        assert line["attempted"] >= 1 + run.PROFILED_SOLVES + (
+            run.INSTRUMENTED_SOLVES if cfg.get("instrumented_entry") else 0)
         return
-    assert line["device"]["count"] == 4
+    assert line["device"]["count"] == P
     assert line["metrics"]["collective_calls_per_iter"]["value"] > 1
     assert line["metrics"]["collective_ms_per_iter"]["value"] > 0
     counts = {w["counts"] for w in group_workers(run_tmpdir, cell, 11)}
