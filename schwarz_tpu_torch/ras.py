@@ -293,6 +293,7 @@ class RASolver:
             or self._lc_dtype is not None)
         self._check_local_solver()
         self._plan = self._build_plan()
+        self._io = self._io_plan()
         # the neighbour strategies' round tables, kept with K4's state
         self._rounds = (exchange_rounds(self._neighbor_plan, self.device,
                                         self._mesh)
@@ -561,6 +562,50 @@ class RASolver:
             plan["factor_inv_iface"] = torch.where(rows < R, cols,
                                                    torch.zeros_like(cols))
         return plan
+
+    def _io_plan(self) -> Dict[str, torch.Tensor]:
+        """What a request's data moves through on the device, built once:
+        the permuted global rhs with a zero appended (row N; the
+        decomposition's until :meth:`set_rhs`), the gather indices of
+        ``set_rhs``, of ``run_accelerated``'s ``b_own`` and of the result
+        (each padding slot points at row N), and the permuted global
+        operator as a float64 CSR tensor for the true residual."""
+        dec, meta = self.dec, self.meta
+        N, S = meta.global_size, meta.num_subdomains
+        R_int, R_rows = meta.max_interior, meta.max_rows
+        perm = dec.perm.astype(np.int64)
+        first = dec.first_row.astype(np.int64)
+        counts = np.diff(first)
+        # interior slot j of subdomain p is permuted row first[p] + j
+        slots = np.arange(R_int)
+        own = np.where(slots < counts[:, None], first[:-1, None] + slots, N)
+        # local row r of subdomain p is permuted row local_to_global[p, r],
+        # original row perm[local_to_global[p, r]]
+        rows_valid = np.arange(R_rows) < dec.rows_count[:, None]
+        local = np.where(rows_valid, perm[dec.local_to_global[:, :R_rows]], N)
+        # permuted row i is interior slot i - first[p] of its owner p
+        owner = np.repeat(np.arange(S), counts)
+        x_perm = owner * R_int + np.arange(N) - first[owner]
+        A = dec.global_matrix
+        io = plan_from_numpy({
+            "global_rhs": np.append(dec.global_rhs, 0).astype(
+                np.dtype(self.settings.dtype)),
+            "rhs_perm": np.append(perm, N),
+            "rhs_local": self._local_rows(local),
+            "b_own": self._local_rows(own),
+            "x_perm": x_perm,
+            "x_orig": x_perm[dec.iperm],
+            "crow": A.row_ptrs.astype(np.int64),
+            "col": A.col_idxs.astype(np.int64),
+            "val": A.values.astype(np.float64),
+        }, self.device)
+        io["global_matrix"] = torch.sparse_csr_tensor(
+            io.pop("crow"), io.pop("col"), io.pop("val"), size=(N, N),
+            check_invariants=True)
+        # set_rhs's copy lands here; row N stays zero
+        io["rhs_in"] = torch.zeros(N + 1, dtype=torch.float64,
+                                   device=self.device)
+        return io
 
     def _local_rows(self, a: np.ndarray) -> np.ndarray:
         """This process's rows of a plan array whose leading axis is S k."""
@@ -1125,25 +1170,24 @@ class RASolver:
         """Re-target the solver at a new right-hand side of the same
         operator (``schwarz_tpu/ras.py:433-464``).  The decomposition, the
         factors, the preconditioner, the coarse space and the plan stay;
-        ``local_rhs`` and ``global_rhs`` are replaced.  Under
+        the device's permuted global rhs and ``local_rhs`` are replaced by
+        one copy of ``rhs`` to the device and two gathers there.  The
+        ``Decomposition``'s host ``local_rhs`` and ``global_rhs`` keep the
+        rhs it was built with: set-up reads them, nothing after.  Under
         ``comm.overlap_split`` the hoisted ``z_base`` is recomputed from
         the new rhs (the JAX package keeps the old one, and its split
         solve then iterates towards the old system)."""
-        dec = self.dec
-        N = dec.meta.global_size
+        N = self.meta.global_size
         rhs = np.asarray(rhs).reshape(-1)
         if rhs.shape[0] != N:
             raise ValueError(
                 f"rhs has {rhs.shape[0]} entries, operator has {N} rows")
-        rhs_p = rhs.astype(np.float64)[dec.perm]
-        local_rhs = np.zeros_like(dec.local_rhs)
-        for p in range(dec.meta.num_subdomains):
-            rc = int(dec.rows_count[p])
-            local_rhs[p, :rc] = rhs_p[dec.local_to_global[p, :rc]]
-        dec.local_rhs = local_rhs
-        dec.global_rhs = rhs_p.astype(dec.global_rhs.dtype)
-        self._plan["local_rhs"] = torch.from_numpy(self._local_rows(
-            local_rhs.astype(np.dtype(self.settings.dtype)))).to(self.device)
+        io = self._io
+        b = io["rhs_in"]
+        b[:N].copy_(torch.from_numpy(np.ascontiguousarray(rhs, np.float64)))
+        dtype = self.settings.value_dtype
+        io["global_rhs"] = b[io["rhs_perm"]].to(dtype)
+        self._plan["local_rhs"] = b[io["rhs_local"]].to(dtype)
         if self._overlap_split:
             self._plan["z_base"] = self._split_z_base()
 
@@ -1262,19 +1306,29 @@ class RASolver:
                     or st["it"] >= max_iters):
                 break
         with span("assemble_result"):
-            x_own = self._global(st["x_own"], "result")
+            self._synchronize()
             elapsed = time.perf_counter() - t0
             it = st["it"]
             converged = st["nconv"] >= S and not st["diverged"]
-            iters = it - 1 if converged else it
             # histories hold rows 0..it-1 (the detecting pass is the last
             # one)
-            result = self._assemble_result(
-                x_own, converged, st["diverged"], iters,
-                self._global(st["hist_local"][:it], "result", axis=1),
-                _host(st["hist_global"][:it], "result"),
-                self._global(st["hist_inner"][:it], "result", axis=1),
-                elapsed,
+            x, (hist_l, hist_i), (hist_g,), res_norm, rhs_norm = (
+                self._assemble_result(
+                    st["x_own"],
+                    (st["hist_local"][:it], st["hist_inner"][:it]),
+                    (st["hist_global"][:it],)))
+            result = RASResult(
+                solution=x,
+                converged=converged,
+                diverged=st["diverged"],
+                iters=it - 1 if converged else it,
+                residual_norm=res_norm,
+                relative_residual_norm=res_norm / max(rhs_norm, 1e-300),
+                local_resnorm_history=hist_l,
+                global_resnorm_history=hist_g,
+                inner_iters_history=hist_i,
+                solve_time_s=elapsed,
+                comm_matrix=self.dec.comm_matrix,
             )
         if checkpoint_path is not None:
             self.save_checkpoint(st, checkpoint_path)
@@ -1327,39 +1381,42 @@ class RASolver:
         result.stage_timings = timer.summary()
         return result
 
-    def _assemble_result(
-        self, x_own, converged, diverged, iters, hist_l, hist_g, hist_i,
-        elapsed,
-    ) -> RASResult:
-        """Solution in the original ordering and the true residual, in
-        float64 on the host against the global matrix."""
-        dec = self.dec
-        S = self.meta.num_subdomains
-        N = self.meta.global_size
-        x_perm = np.zeros(N, dtype=x_own.dtype)
-        for p in range(S):
-            lo, hi = dec.first_row[p], dec.first_row[p + 1]
-            x_perm[lo:hi] = x_own[p, : hi - lo]
-        x_orig = np.zeros_like(x_perm)
-        x_orig[dec.perm] = x_perm
-        A = dec.global_matrix.to_scipy()
-        resid = dec.global_rhs.astype(np.float64) - A @ x_perm.astype(
-            np.float64)
-        rhs_norm = float(np.linalg.norm(dec.global_rhs.astype(np.float64)))
-        res_norm = float(np.linalg.norm(resid))
-        return RASResult(
-            solution=x_orig,
-            converged=converged,
-            diverged=diverged,
-            iters=iters,
-            residual_norm=res_norm,
-            relative_residual_norm=res_norm / max(rhs_norm, 1e-300),
-            local_resnorm_history=hist_l,
-            global_resnorm_history=hist_g,
-            inner_iters_history=hist_i,
-            solve_time_s=elapsed,
-            comm_matrix=dec.comm_matrix,
-        )
+    def _assemble_result(self, x_own: torch.Tensor, sub=(), whole=()):
+        """``(solution, sub, whole, ||b - A x||, ||b||)`` on the host from
+        one read at ``result``: the solution in the original ordering, the
+        per-subdomain leaves ``sub`` (``(k, S_local)`` each) whole, the
+        leaves ``whole``, each in its dtype, and the true residual's norms.
+        All of it is computed on the device: the solution is one gather of
+        the iterate, and ``b - A x`` is taken in float64 against the global
+        CSR operator, schwarz-lib's ``compute_residual_norm``, independent
+        of the decomposition it checks.  Across processes the iterate and
+        ``sub`` are gathered first, in one collective (one more read at
+        ``result``)."""
+        io = self._io
+        f64 = torch.float64
+        if self._mesh is not None:
+            count(HOST_READS, "result")
+            cols = [x_own] + [h.T for h in sub]
+            parts = torch.split(
+                self._mesh.all_gather(torch.cat([c.to(f64) for c in cols], 1)),
+                [c.shape[1] for c in cols], 1)
+            x_own = parts[0].to(x_own.dtype)
+            sub = [p.T.to(h.dtype) for p, h in zip(parts[1:], sub)]
+        flat = x_own.reshape(-1)
+        b = io["global_rhs"][:-1].to(f64)
+        resid = b - torch.mv(io["global_matrix"], flat[io["x_perm"]].to(f64))
+        leaves = [flat[io["x_orig"]], *sub, *whole]
+        norms = torch.stack([torch.linalg.vector_norm(resid),
+                             torch.linalg.vector_norm(b)])
+        host = _host(torch.cat([t.reshape(-1).to(f64) for t in leaves]
+                               + [norms]), "result")
+        out, pos = [], 0
+        for t in leaves:
+            out.append(host[pos:pos + t.numel()].reshape(t.shape).astype(
+                str(t.dtype).removeprefix("torch."), copy=False))
+            pos += t.numel()
+        return (out[0], out[1:1 + len(sub)], out[1 + len(sub):],
+                float(host[pos]), float(host[pos + 1]))
 
     # ------------------------------------------------- Krylov acceleration --
     def _accel_closures(self):
@@ -1419,21 +1476,17 @@ class RASolver:
         ``stage_timings`` for ``accel_matvec`` and ``accel_precond``
         (:meth:`_accel_stage_timings`)."""
         s = self.settings
-        dec = self.dec
         S, R_int = self.meta.num_subdomains, self.meta.max_interior
-        dtype = np.dtype(s.dtype)
         m = max(s.restart_iter, 2)
         max_cycles = -(-s.max_iters // m)
         budget = None if chunk_iters is None else max(1, -(-chunk_iters // m))
         matvec, precond = self._accel_closures()
 
         with span("prepare"):
-            b_own = np.zeros((S, R_int), dtype)
-            for p in range(S):
-                lo, hi = dec.first_row[p], dec.first_row[p + 1]
-                b_own[p, : hi - lo] = dec.global_rhs[lo:hi]
-            b_dev = torch.from_numpy(self._local_rows(b_own)).to(self.device)
-            bnorm = float(np.linalg.norm(b_own))
+            g = self._io["global_rhs"]
+            b_dev = g[self._io["b_own"]]
+            # every row is one subdomain's interior: ||b_own|| = ||g||
+            bnorm = torch.linalg.vector_norm(g)
 
         t0 = time.perf_counter()
         # a carry (resumed, or the previous chunk's) overrides the start
@@ -1454,19 +1507,31 @@ class RASolver:
             if budget is None or not carry[4] or int(carry[3]) >= max_cycles:
                 break
         with span("assemble_result"):
-            x = self._global(carry[0], "result")
+            self._synchronize()
             elapsed = time.perf_counter() - t0
             iters = int(carry[2])
-            rel_v = float(carry[1]) / max(bnorm, 1e-300)
+            x, _, (bnorm,), res_norm, rhs_norm = self._assemble_result(
+                carry[0], whole=(bnorm,))
+            rel_v = float(carry[1]) / max(float(bnorm), 1e-300)
             hist_g = np.asarray(carry[5])[: iters + 1]
-            result = self._assemble_result(
-                x, rel_v <= s.tolerance, bool(np.isnan(rel_v)), iters,
-                np.zeros((len(hist_g), S)), hist_g,
-                np.zeros((len(hist_g), S), np.int32), elapsed)
+            result = RASResult(
+                solution=x,
+                converged=rel_v <= s.tolerance,
+                diverged=bool(np.isnan(rel_v)),
+                iters=iters,
+                residual_norm=res_norm,
+                relative_residual_norm=res_norm / max(rhs_norm, 1e-300),
+                local_resnorm_history=np.zeros((len(hist_g), S)),
+                global_resnorm_history=hist_g,
+                inner_iters_history=np.zeros((len(hist_g), S), np.int32),
+                solve_time_s=elapsed,
+                comm_matrix=self.dec.comm_matrix,
+            )
         if checkpoint_path is not None:
-            _, rnorm, it, cycles, active, hist = carry
+            x_own, rnorm, it, cycles, active, hist = carry
+            x_own = self._global(x_own, "checkpoint")
             write_once(self._mesh, lambda: np.savez_compressed(
-                checkpoint_path, x, np.asarray(rnorm),
+                checkpoint_path, x_own, np.asarray(rnorm),
                 np.asarray(it, np.int32), np.asarray(cycles, np.int32),
                 np.asarray(active, np.bool_), np.asarray(hist)))
         if instrument:

@@ -1133,6 +1133,49 @@ def test_checkpoints_resume_bit_for_bit_on_card(dev, tmp_path):
     np.testing.assert_array_equal(a1.solution, a0.solution)
 
 
+_RESULT = {
+    # the flagship's recipe at 64^2: two-level, FSAI(0)-CG float32 locals
+    # through K3, rows padded to 128
+    "flagship": (dict(partition=Partition.regular, overlap=2,
+                      local_solver=LocalSolver.iterative_cg,
+                      precond=Precond.fsai, local_compute_dtype="float32",
+                      local_tolerance=1e-6, local_max_iters=20,
+                      row_pad_multiple=128, two_level=True,
+                      coarse_aggregates=4, coarse_space="spectral"), "run"),
+    # a permuted ordering: METIS blocks, direct locals under FGMRES
+    "fgmres-metis": (dict(partition=Partition.metis, overlap=2,
+                          local_solver=LocalSolver.direct_cholesky,
+                          direct_apply="inverse", accelerator="fgmres",
+                          restart_iter=20, row_pad_multiple=8),
+                     "run_accelerated"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_RESULT))
+def test_result_on_card_against_scipy(dev, case):
+    """The true residual the card takes against its float64 CSR operator
+    is SciPy's on the returned solution, in the original ordering; and
+    ``set_rhs`` b1 -> b2 -> b1 returns b1's solution bit for bit."""
+    kw, entry = _RESULT[case]
+    A = laplacian_2d(64)
+    rng = np.random.default_rng(3)
+    b1, b2 = rng.uniform(0, 1, A.n), rng.uniform(-1, 2, A.n)
+    s = Settings(tolerance=1e-8, max_iters=300, dtype="float64", **kw)
+    solver = RASolver(decompose(A, b1, s, 4), device=dev)
+    A_sp = A.to_scipy()
+    runs = []
+    for b in (b1, b2, b1):
+        solver.set_rhs(b)
+        r = getattr(solver, entry)()
+        rel = np.linalg.norm(b - A_sp @ r.solution) / np.linalg.norm(b)
+        assert r.converged and rel < 1e-7
+        assert r.relative_residual_norm == pytest.approx(rel, rel=1e-6)
+        runs.append(r)
+    np.testing.assert_array_equal(runs[2].solution, runs[0].solution)
+    np.testing.assert_array_equal(runs[2].global_resnorm_history,
+                                  runs[0].global_resnorm_history)
+
+
 def test_direct_factors_on_card_like_cpu(dev):
     """torch.linalg's factors and applies on the card against the CPU's,
     float64, within 1e-12 normwise."""

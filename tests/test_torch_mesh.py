@@ -135,6 +135,7 @@ def _check_case(outs, case):
         np.testing.assert_array_equal(first[f"{case}.inner"],
                                       rt.inner_iters_history)
         np.testing.assert_array_equal(first[f"{case}.solution"], rt.solution)
+        assert float(first[f"{case}.rel"]) == rt.relative_residual_norm
 
 
 @pytest.mark.parametrize("nproc", [2, 4])

@@ -155,7 +155,7 @@ def test_host_reads_by_site_against_the_results():
     trips = res.inner_iters_history[:res.iters].max(axis=1)
     cap = FLAGSHIP["local_max_iters"]
     assert reads == {"cg.active": int(sum(t + (t < cap) for t in trips)),
-                     "step.flags": res.iters + 1, "result": 4}
+                     "step.flags": res.iters + 1, "result": 1}
 
     A, solver = _build(DIRECT)
     res, reads = _reads(lambda: _solve(solver, _rhs(A.n, 5),
