@@ -574,7 +574,7 @@ def kernel_checks(sm: Smoke, solver) -> None:
     plan, meta = solver._plan, solver.meta
     S, R_int, R_rows, R_ext = (meta.num_subdomains, meta.max_interior,
                                meta.max_rows, meta.max_ext)
-    offsets = solver._dia_offsets
+    offsets = solver._local.dia_offsets
     K = len(offsets)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -862,14 +862,10 @@ def exchange_costs(sm: Smoke, cases) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from schwarz_tpu_torch.ops.rdma_kernel import rdma_shift_finish
-
     def finish(solver):
         # K4's status words are read, as at an outer iteration's sync
         torch.cuda.synchronize()
-        if solver._pending_shifts:
-            rdma_shift_finish(solver._pending_shifts)
-            solver._pending_shifts.clear()
+        solver._status.drain()
 
     xs = []
     for solver, _, _, _ in cases:
@@ -1775,8 +1771,9 @@ def flagship_phases(sm: Smoke) -> None:
           f"inverse, copies to the card) {t_plan:.2f} s, total "
           f"{t_dec + t_eig + t_plan:.2f} s; N={m.global_size} S={S} "
           f"R_int={m.max_interior} R_rows={m.max_rows} R_ext={m.max_ext} "
-          f"offsets={solver._dia_offsets} fsai={solver._fsai_offsets} "
-          f"remainder={solver._dia_has_remainder}", flush=True)
+          f"offsets={solver._local.dia_offsets} "
+          f"fsai={solver._local.fsai_offsets} "
+          f"remainder={solver._local.dia_has_remainder}", flush=True)
     res, launches = counted(solver.run)
     by_operand = dict(dia_spmv.launches_by)    # before any other K1 launch
     k3_by = dict(fused_cg_solve.launches_by)   # and K3 launch
@@ -1797,8 +1794,8 @@ def flagship_phases(sm: Smoke) -> None:
     hist = res.global_resnorm_history
     print("flagship card history: " + " ".join(f"{v:.9e}" for v in hist),
           flush=True)
-    go, uo = solver._fsai_offsets
-    a_off = tuple(solver._dia_offsets)
+    go, uo = solver._local.fsai_offsets
+    a_off = tuple(solver._local.dia_offsets)
     operands = {"A_f64": (a_off, "float64"), "A_f32": (a_off, "float32"),
                 "chain": ("chain", tuple(go), tuple(uo), "float32")}
     k1 = {key: by_operand.get(op, 0) for key, op in operands.items()}
@@ -1914,13 +1911,14 @@ def flagship_phases(sm: Smoke) -> None:
     cpu_solver = RASolver(decompose(A, b, dataclasses.replace(
         s, spmv_format="dia"), S), device="cpu")
     t_cpu_setup = time.perf_counter() - t0
-    same_layout = (cpu_solver._dia_offsets == solver._dia_offsets
-                   and cpu_solver._fsai_offsets == solver._fsai_offsets)
+    loc, cpu_loc = solver._local, cpu_solver._local
+    same_layout = (cpu_loc.dia_offsets == loc.dia_offsets
+                   and cpu_loc.fsai_offsets == loc.fsai_offsets)
     cpu = cpu_solver.run()
     h_cpu = cpu.global_resnorm_history
     print(f"flagship on the CPU (setup {t_cpu_setup:.2f} s, basis from the "
-          f"cache; DIA offsets {cpu_solver._dia_offsets}, FSAI "
-          f"{cpu_solver._fsai_offsets}): {cpu.iters} iterations, true "
+          f"cache; DIA offsets {cpu_solver._local.dia_offsets}, FSAI "
+          f"{cpu_solver._local.fsai_offsets}): {cpu.iters} iterations, true "
           f"relative residual "
           f"{cpu.relative_residual_norm:.6e}, run loop "
           f"{cpu.solve_time_s:.2f} s", flush=True)
@@ -1949,8 +1947,9 @@ def flagship_phases(sm: Smoke) -> None:
                       dtype=torch.float64)
     x32 = torch.randn((S, m.max_rows), generator=gen, device="cuda")
     for key, offs, dia, x in (
-            ("A_f64", solver._dia_offsets, plan["dia_vals"], x64[:, :m.max_rows]),
-            ("A_f32", solver._dia_offsets, plan["dia_vals_lc"], x32),
+            ("A_f64", solver._local.dia_offsets, plan["dia_vals"],
+             x64[:, :m.max_rows]),
+            ("A_f32", solver._local.dia_offsets, plan["dia_vals_lc"], x32),
             ("G", go, plan["fsai_gl_dia"], x32),
             ("GT", uo, plan["fsai_gu_dia"], x32)):
         e = k1_entry(sm, offs, dia, x,
@@ -2062,7 +2061,7 @@ def flagship_phases(sm: Smoke) -> None:
                   spmv_format="dia", oras_weight="auto")
     oras = RASolver(decompose(A3, b3, s3, 16))
     p3 = oras._plan
-    K3_args = (oras._dia_offsets, p3["dia_vals_solve_lc"],
+    K3_args = (oras._local.dia_offsets, p3["dia_vals_solve_lc"],
                p3["local_rhs"].float(), torch.zeros_like(p3["local_rhs"],
                                                          dtype=torch.float32),
                p3["precond_dinv"], s3.local_tolerance, s3.local_max_iters)
@@ -2213,8 +2212,8 @@ def campaign_phases(sm: Smoke) -> None:
     m = solver.meta
     print(f"campaign 512^2 setup on the host: METIS + decompose (native) "
           f"{t_dec:.2f} s; R_int={m.max_interior} R_rows={m.max_rows} "
-          f"R_ext={m.max_ext}, DIA offsets {solver._dia_offsets}, remainder "
-          f"{solver._dia_has_remainder}", flush=True)
+          f"R_ext={m.max_ext}, DIA offsets {solver._local.dia_offsets}, "
+          f"remainder {solver._local.dia_has_remainder}", flush=True)
     res, launches = counted(solver.run)
     warm = solver.run()
     n_run = len(res.global_resnorm_history)
@@ -2242,7 +2241,7 @@ def campaign_phases(sm: Smoke) -> None:
              f"global histories within the float64 bar ({bar:.3f} <= 1 of "
              f"rtol 1e-8 + 1e-12 max), K1 launched, K2 once per outer "
              f"iteration")
-    e1 = k1_entry(sm, solver._dia_offsets, solver._plan["dia_vals"],
+    e1 = k1_entry(sm, solver._local.dia_offsets, solver._plan["dia_vals"],
                   torch.randn((16, m.max_ext), device="cuda",
                               dtype=torch.float64)[:, :m.max_rows],
                   f"at the campaign's {tuple(solver._plan['dia_vals'].shape)}")
@@ -2335,7 +2334,7 @@ def direct_phases(sm: Smoke) -> None:
     print(f"direct 512^2: one preconditioner apply (batched product with "
           f"the inverse) {apply_ms:.3f} ms, bound {bound:.3f} ms (bytes)",
           flush=True)
-    e1 = k1_entry(sm, solver._dia_offsets, solver._plan["dia_vals"],
+    e1 = k1_entry(sm, solver._local.dia_offsets, solver._plan["dia_vals"],
                   torch.randn((64, m.max_ext), device="cuda",
                               dtype=torch.float64)[:, :m.max_rows],
                   f"at the direct phase's "
@@ -3501,8 +3500,8 @@ def _phases(sm, torch) -> int:
     m = solver.meta
     print(f"setup {time.perf_counter() - t0:.1f} s: N={m.global_size} "
           f"S={m.num_subdomains} R_int={m.max_interior} R_rows={m.max_rows} "
-          f"R_ext={m.max_ext} offsets={solver._dia_offsets} "
-          f"remainder={solver._dia_has_remainder}", flush=True)
+          f"R_ext={m.max_ext} offsets={solver._local.dia_offsets} "
+          f"remainder={solver._local.dia_has_remainder}", flush=True)
 
     # --- 3. kernels against their plain versions -----------------------------
     kernel_checks(sm, solver)

@@ -42,7 +42,7 @@ from schwarz_tpu_torch.ops import cuda_build
 from schwarz_tpu_torch.ops.cluster_geometry import (ANY_CLUSTER_SIZES,
                                                     choose_cluster,
                                                     require_cluster)
-from schwarz_tpu_torch.ras import resolve_device
+from schwarz_tpu_torch.utils.backend import resolve_device
 
 # CUDA device index -> the largest cluster size at which K9 passed there
 _FLAG_ORDER_PASSED: Dict[int, int] = {}

@@ -43,7 +43,9 @@ import numpy as np
 import torch
 
 from schwarz_tpu_torch.exceptions import NotImplementedFeature
-from schwarz_tpu_torch.parallel.mesh import cut, gather, group_of, write_once
+from schwarz_tpu_torch.parallel.mesh import (cut, gather, group_of,
+                                             mesh_ranks, write_once)
+from schwarz_tpu_torch.utils.backend import resolve_device
 from schwarz_tpu_torch.ops.async_ras_kernel import (  # noqa: F401
     LANES,
     async_ras_rounds,
@@ -234,9 +236,7 @@ class AsyncRASolver:
                  fresh_read: bool = False, oras_weight: float = 0.0,
                  nonsym: bool = False, nonsym_solver: str = "bicgstab",
                  mesh=None):
-        from schwarz_tpu_torch.ras import resolve_device
-
-        num_ranks, device = _mesh_ranks(mesh, num_ranks, device)
+        num_ranks, device = mesh_ranks(mesh, num_ranks, device)
         self.device = resolve_device(device)
         self.plan = build_async_plan(mat, rhs, num_subdomains, overlap,
                                      oras_weight=oras_weight)
@@ -419,18 +419,6 @@ def _all_done(mesh, aux: torch.Tensor) -> bool:
     if group_of(mesh) is not None:
         done = mesh.all_gather(done)
     return bool((done >= 0).all())
-
-
-def _mesh_ranks(mesh, num_ranks, device):
-    """(num_ranks, device) of a free-running solver under ``mesh``: its
-    rank count and device unless the caller gave them (a differing count
-    raises)."""
-    if mesh is None:
-        return num_ranks, device
-    if num_ranks is not None and int(num_ranks) != mesh.num_ranks:
-        raise ValueError(f"num_ranks {num_ranks} differs from the mesh's "
-                         f"{mesh.num_ranks} ranks")
-    return mesh.num_ranks, mesh.device if device is None else device
 
 
 def iterative_refinement_run(solver, tol: float = 1e-10,

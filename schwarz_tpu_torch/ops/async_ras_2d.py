@@ -47,9 +47,10 @@ import numpy as np
 import torch
 
 from schwarz_tpu_torch.exceptions import NotImplementedFeature
-from schwarz_tpu_torch.ops.async_ras import (_all_done, _mesh_ranks,
-                                             iterative_refinement_run)
-from schwarz_tpu_torch.parallel.mesh import cut, gather, group_of, write_once
+from schwarz_tpu_torch.ops.async_ras import _all_done, iterative_refinement_run
+from schwarz_tpu_torch.parallel.mesh import (cut, gather, group_of,
+                                             mesh_ranks, write_once)
+from schwarz_tpu_torch.utils.backend import resolve_device
 from schwarz_tpu_torch.ops.async_ras_2d_kernel import (  # noqa: F401
     HX,
     HY,
@@ -298,10 +299,8 @@ class AsyncRASolver2D:
                  fresh_read: bool = False, oras_weight: float = 0.0,
                  nonsym: bool = False, overlap: Optional[int] = None,
                  mesh=None):
-        from schwarz_tpu_torch.ras import resolve_device
-
         check_overlap(overlap)
-        num_ranks, device = _mesh_ranks(mesh, num_ranks, device)
+        num_ranks, device = mesh_ranks(mesh, num_ranks, device)
         self.device = resolve_device(device)
         self.plan = build_async_plan_2d(mat, rhs, px, py,
                                         oras_weight=oras_weight)

@@ -53,9 +53,10 @@ from schwarz_tpu_torch.core.partition import (
     partition_regular_1d,
 )
 from schwarz_tpu_torch.exceptions import NotImplementedFeature
-from schwarz_tpu_torch.ops.async_ras import (_all_done, _mesh_ranks,
-                                             iterative_refinement_run)
-from schwarz_tpu_torch.parallel.mesh import cut, gather, group_of, write_once
+from schwarz_tpu_torch.ops.async_ras import _all_done, iterative_refinement_run
+from schwarz_tpu_torch.parallel.mesh import (cut, gather, group_of,
+                                             mesh_ranks, write_once)
+from schwarz_tpu_torch.utils.backend import resolve_device
 from schwarz_tpu_torch.ops.async_ras_2d import _round_up, check_oras_weight
 from schwarz_tpu_torch.ops.async_ras_general_kernel import (  # noqa: F401
     LANES,
@@ -334,9 +335,7 @@ class AsyncGeneralRASolver:
                  ninner: int = 12, chunk_rounds: int = 16,
                  part=None, num_ranks: Optional[int] = None, device=None,
                  oras_weight: float = 0.0, nonsym: bool = False, mesh=None):
-        from schwarz_tpu_torch.ras import resolve_device
-
-        num_ranks, device = _mesh_ranks(mesh, num_ranks, device)
+        num_ranks, device = mesh_ranks(mesh, num_ranks, device)
         self.device = resolve_device(device)
         S = num_subdomains
         if part is None:

@@ -60,6 +60,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from schwarz_tpu_torch.utils.backend import resolve_device
+
 SUBD_AXIS = "subd"
 
 
@@ -398,15 +400,23 @@ def make_mesh(num_ranks: Optional[int] = None, device=None) -> Mesh:
     else:
         P, pid = 1, 0
     if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "schwarz_tpu_torch runs on a CUDA device and none is "
-                "available; pass device='cpu' to run the plain PyTorch "
-                "versions of its kernels on the CPU")
-        device = torch.device("cuda", pid % torch.cuda.device_count())
+        device = torch.device(resolve_device().type,
+                              pid % torch.cuda.device_count())
     return Mesh(num_ranks=P if num_ranks is None else int(num_ranks),
                 num_processes=P, process_index=pid,
                 device=torch.device(device))
+
+
+def mesh_ranks(mesh: Optional[Mesh], num_ranks, device):
+    """``(num_ranks, device)`` of a solver under ``mesh``: the mesh's rank
+    count and device unless the caller gave them (a differing count
+    raises)."""
+    if mesh is None:
+        return num_ranks, device
+    if num_ranks is not None and int(num_ranks) != mesh.num_ranks:
+        raise ValueError(f"num_ranks {num_ranks} differs from the mesh's "
+                         f"{mesh.num_ranks} ranks")
+    return mesh.num_ranks, mesh.device if device is None else device
 
 
 def launch(argv: Sequence[str], nproc: int, log_dir: str,

@@ -47,8 +47,10 @@ import torch
 from schwarz_tpu_torch.ops.rdma_kernel import (ExchangeRounds,
                                                exchange_rounds_plain,
                                                rdma_exchange_launch,
+                                               rdma_fault,
                                                rdma_shift_finish)
 from schwarz_tpu_torch.ops.halo_kernel import assemble_x_ext
+from schwarz_tpu_torch.utils.timing import HOST_READS, count
 
 
 @dataclasses.dataclass
@@ -238,3 +240,59 @@ def exchange_halo_neighbor(
             x_own, rounds, halo_dtype,
             shift or (lambda buf, r: torch.roll(buf, r, 0)))
     return assemble_x_ext(x_own, halo_vals, *segments, r_ext)
+
+
+class StatusWords:
+    """The status words of K4 launches not yet checked (``pending``), read
+    where the host waits anyway: an outer iteration's one host read, or
+    FGMRES's.  Across the processes of a ``mesh`` all raise together on a
+    fault: the words ride the iteration's gather (:meth:`fold`)."""
+
+    def __init__(self, mesh):
+        self.pending: List[torch.Tensor] = []
+        self.flags: List[torch.Tensor] = []
+        self._mesh = mesh
+        self._folded: Optional[int] = None
+
+    def fold(self, gather, cols: List[torch.Tensor]) -> torch.Tensor:
+        """``gather(torch.stack(cols, 1))``; the pending launches' largest
+        error word rides along as one more column, whose largest entry goes
+        to ``flags``, and :meth:`settle` finishes those launches."""
+        pend = self.pending
+        self._folded = len(pend)
+        if not pend:
+            return gather(torch.stack(cols, 1))
+        err = torch.stack([t[-1] for t in pend]).amax()
+        both = gather(torch.stack(
+            cols + [err.to(cols[0].dtype).expand_as(cols[0])], 1))
+        self.flags = [both[:, -1].amax()]
+        return both[:, :-1]
+
+    def settle(self, err) -> None:
+        """At the iteration's host read of ``flags`` (``err``): raise if a
+        wait timed out, then finish the launches the gather covered (in one
+        process every pending one, its words read here)."""
+        if err and err[0]:
+            rdma_fault(int(err[0]))
+        self.drain(self._folded)
+        self._folded, self.flags = None, []
+
+    def drain(self, folded: Optional[int] = None) -> None:
+        """Finish the first ``folded`` pending launches (those a gather
+        checked), or every one: FGMRES's operator, whose launches' error
+        words are gathered across processes here, so that all raise
+        together."""
+        pending = self.pending
+        if not pending:
+            return
+        if self._mesh is not None and folded is None:
+            err = torch.stack([t[-1] for t in pending]).amax().reshape(1)
+            count(HOST_READS, "rdma.status")
+            worst = int(self._mesh.all_gather(err).amax())
+            if worst:
+                rdma_fault(worst)
+        n = len(pending) if folded is None else folded
+        shifts, pending[:] = pending[:n], pending[n:]
+        if shifts:
+            count(HOST_READS, "rdma.status")
+        rdma_shift_finish(shifts)

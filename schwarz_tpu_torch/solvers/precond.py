@@ -9,20 +9,24 @@ approximate inverse ``M = G^T G ~= A^-1`` with G on the lower pattern of A
 
 Every factor is built once on the host in numpy, with the JAX package's
 arithmetic, so the builds agree with it bit for bit; the applies are torch
-ops.  Inside :class:`schwarz_tpu_torch.ras.RASolver` the banded factors go
-through :func:`ell_to_dia` and their products are K1
-(``ops/dia_kernel.py``) on the card.
+ops.  :func:`preconditioner` is the one dispatch on ``settings.precond``;
+on the solver's DIA operator the banded factors go through
+:func:`ell_to_dia` and their products are K1 (``ops/dia_kernel.py``) on
+the card.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from schwarz_tpu_torch.config import Precond, Settings
+from schwarz_tpu_torch.ops.dia_kernel import dia_spmv, dia_spmv_chain
 from schwarz_tpu_torch.ops.spmv import ell_spmv_batched
+from schwarz_tpu_torch.utils.timing import span
 
 
 def extract_diagonal(vals: np.ndarray, cols: np.ndarray) -> np.ndarray:
@@ -220,17 +224,17 @@ def build_ilu0(vals, cols):
     return l_vals, l_cols, u_vals, u_cols, udiag
 
 
-def ilu_apply_ell(l_vals, l_cols, u_vals, u_cols, udiag_inv, r,
-                  sweeps: int) -> torch.Tensor:
+def ilu_apply(l_mul, u_mul, udiag_inv, r, sweeps: int) -> torch.Tensor:
     """z ~= U^-1 L^-1 r with each triangular inverse expanded to ``sweeps``
     Jacobi iterations (truncated Neumann series; exact as sweeps -> R since
-    the strict factors are nilpotent).  Sparse products only."""
+    the strict factors are nilpotent); ``l_mul`` and ``u_mul`` are the
+    strict factors' products, sparse products only."""
     y = r
     for _ in range(sweeps):
-        y = r - ell_spmv_batched(l_vals, l_cols, y)
+        y = r - l_mul(y)
     x = udiag_inv * y
     for _ in range(sweeps):
-        x = udiag_inv * (y - ell_spmv_batched(u_vals, u_cols, x))
+        x = udiag_inv * (y - u_mul(x))
     return x
 
 
@@ -255,27 +259,27 @@ def ell_to_dia(vals, cols):
     return offsets, dia
 
 
-def make_preconditioner(
-    settings: Settings, vals: torch.Tensor, cols: torch.Tensor
-) -> Optional[Callable[[torch.Tensor], torch.Tensor]]:
-    """The apply function ``z = M^{-1} r`` (batched (S, R) -> (S, R)) of
-    ``settings.precond`` for the ELL operator ``vals``/``cols`` (S, R, W),
-    built on the host and kept on the operator's device."""
-    if settings.precond == Precond.none:
-        return None
-    dev, dt = vals.device, vals.dtype
-    v = vals.cpu().numpy()
-    c = cols.cpu().numpy()
-
-    def put(a, dtype=dt):
-        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
-
-    if settings.precond == Precond.jacobi:
-        dinv = put(jacobi_inverse(v, c))
-        return lambda r: dinv * r
-    if settings.precond == Precond.block_jacobi:
-        bs = settings.block_jacobi_block_size
-        inv_blocks = put(block_jacobi_inverse(v, c, bs))
+def preconditioner(settings: Settings, pv: np.ndarray, cols: np.ndarray,
+                   pdtype, put: Callable[..., Dict[str, torch.Tensor]],
+                   dia_offsets: Optional[Tuple[int, ...]] = None):
+    """``(apply, offsets)`` of ``settings.precond`` on the ELL operator
+    ``pv`` / ``cols`` (S, R, W): the factors are built on the host and go in
+    ``pdtype`` through ``put`` (entries under the JAX package's plan keys,
+    ``ras.py:965-1060``, to device tensors); ``apply`` is ``z = M^-1 r`` or
+    None, ``offsets`` the ILU(0) / FSAI(0) factors' diagonals.  Given the
+    operator's ``dia_offsets`` those factors go to DIA form (K1 on the
+    card), FSAI's pattern cut to the offsets to keep them banded."""
+    s = settings
+    if s.precond == Precond.none:
+        return None, None
+    if s.precond == Precond.jacobi:
+        dinv = put(precond_dinv=jacobi_inverse(pv, cols).astype(pdtype))[
+            "precond_dinv"]
+        return (lambda r: dinv * r), None
+    if s.precond == Precond.block_jacobi:
+        bs = s.block_jacobi_block_size
+        inv_blocks = put(precond_blockinv=block_jacobi_inverse(
+            pv, cols, bs).astype(pdtype))["precond_blockinv"]
 
         def apply_block_jacobi(r):
             S, R = r.shape
@@ -283,18 +287,63 @@ def make_preconditioner(
                               r.reshape(S, R // bs, bs))
             return zb.reshape(S, R)
 
-        return apply_block_jacobi
-    if settings.precond == Precond.ilu:
-        lv, lc, uv, uc, ud = build_ilu0(v, c)
-        lv, uv, udinv = put(lv), put(uv), put(1.0 / ud)
-        lc, uc = put(lc, torch.int64), put(uc, torch.int64)
-        sweeps = settings.ilu_sweeps
-        return lambda r: ilu_apply_ell(lv, lc, uv, uc, udinv, r, sweeps)
-    if settings.precond == Precond.fsai:
-        glv, glc, guv, guc = build_fsai(v, c)
-        glv, guv = put(glv), put(guv)
-        glc, guc = put(glc, torch.int64), put(guc, torch.int64)
-        # M r = G^T (G r): two sparse products, no substitution
-        return lambda r: ell_spmv_batched(guv, guc,
-                                          ell_spmv_batched(glv, glc, r))
+        return apply_block_jacobi, None
+    if s.precond == Precond.ilu:
+        sweeps = s.ilu_sweeps
+        lv, lc, uv, uc, ud = build_ilu0(pv, cols)
+        udinv = put(ilu_udinv=(1.0 / ud).astype(pdtype))["ilu_udinv"]
+        if dia_offsets is None:
+            lv, lc, uv, uc = put(ilu_l_vals=lv.astype(pdtype), ilu_l_cols=lc,
+                                 ilu_u_vals=uv.astype(pdtype),
+                                 ilu_u_cols=uc).values()
+            l_mul = functools.partial(ell_spmv_batched, lv, lc)
+            u_mul = functools.partial(ell_spmv_batched, uv, uc)
+            offsets = None
+        else:
+            (lo, ld), (uo, udia) = ell_to_dia(lv, lc), ell_to_dia(uv, uc)
+            ld, udia = put(ilu_l_dia=ld.astype(pdtype),
+                           ilu_u_dia=udia.astype(pdtype)).values()
+            l_mul = functools.partial(dia_spmv, lo, ld)
+            u_mul = functools.partial(dia_spmv, uo, udia)
+            offsets = (lo, uo)
+        return (lambda r: ilu_apply(l_mul, u_mul, udinv, r, sweeps)), offsets
+    if s.precond == Precond.fsai:
+        with span("fsai"):
+            if dia_offsets is not None:
+                rows = np.arange(pv.shape[1])[None, :, None]
+                on_dia = np.isin(np.asarray(cols, np.int64) - rows,
+                                 np.asarray(dia_offsets))
+                pv = np.where(on_dia, pv, 0.0)
+            glv, glc, guv, guc = build_fsai(pv, cols)
+            if dia_offsets is None:
+                host = dict(fsai_gl_vals=glv.astype(pdtype), fsai_gl_cols=glc,
+                            fsai_gu_vals=guv.astype(pdtype), fsai_gu_cols=guc)
+            else:
+                (go, gd), (uo, ud) = ell_to_dia(glv, glc), ell_to_dia(guv, guc)
+                host = dict(fsai_gl_dia=gd.astype(pdtype),
+                            fsai_gu_dia=ud.astype(pdtype))
+        if dia_offsets is None:
+            gv, gc, uv, uc = put(**host).values()
+            # M r = G^T (G r): two sparse products, no substitution
+            return (lambda r: ell_spmv_batched(
+                uv, uc, ell_spmv_batched(gv, gc, r))), None
+        gd, ud = put(**host).values()
+        # one chained launch of K1 on the card
+        return (lambda r: dia_spmv_chain(go, gd, uo, ud, r)), (go, uo)
     raise ValueError(f"unknown preconditioner {settings.precond}")
+
+
+def make_preconditioner(
+    settings: Settings, vals: torch.Tensor, cols: torch.Tensor
+) -> Optional[Callable[[torch.Tensor], torch.Tensor]]:
+    """The apply function ``z = M^{-1} r`` (batched (S, R) -> (S, R)) of
+    ``settings.precond`` for the ELL operator ``vals``/``cols`` (S, R, W),
+    built on the host and kept on the operator's device."""
+    dev = vals.device
+
+    def put(**entries):
+        return {k: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                for k, a in entries.items()}
+
+    v = vals.cpu().numpy()
+    return preconditioner(settings, v, cols.cpu().numpy(), v.dtype, put)[0]

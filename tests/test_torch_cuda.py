@@ -275,9 +275,9 @@ def flagship_locals():
                  row_pad_multiple=128)
     t = RASolver(decompose(A, generate_rhs(A.n), s, 16))
     p = t._plan
-    go, uo = t._fsai_offsets
-    assert t._use_fused_cg and p["dia_vals_lc"].shape == (16, 5, 21504)
-    return (t._dia_offsets, p["dia_vals_lc"],
+    go, uo = t._local.fsai_offsets
+    assert t._local.use_fused_cg and p["dia_vals_lc"].shape == (16, 5, 21504)
+    return (t._local.dia_offsets, p["dia_vals_lc"],
             (go, p["fsai_gl_dia"], uo, p["fsai_gu_dia"]))
 
 

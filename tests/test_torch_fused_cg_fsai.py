@@ -12,13 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-from schwarz_tpu_torch import Precond, RASolver, Settings, ras
+from schwarz_tpu_torch import Precond, RASolver, Settings
 from schwarz_tpu_torch.core.decompose import decompose
 from schwarz_tpu_torch.models import generate_rhs, laplacian_2d
 from schwarz_tpu_torch.ops.dia_kernel import dia_spmv_chain_plain
 from schwarz_tpu_torch.ops.fused_cg import (fused_cg_solve,
                                             fused_cg_solve_plain,
                                             fused_cg_supported)
+from schwarz_tpu_torch.solvers import local
 from schwarz_tpu_torch.solvers.cg import cg_solve
 
 # the flagship recipe's local solve (FSAI(0)-CG, float32 locals capped at
@@ -47,8 +48,8 @@ def test_plain_modes_equal_the_batched_cg(plan_solver, mode, warm):
     preconditioner over the plain DIA product: the same iterations and the
     same x; the wrapper on CPU tensors takes it.  The last subdomain has a
     zero rhs (from x0 = 0) and never iterates."""
-    t = plan_solver
-    p = t._plan
+    t = plan_solver._local
+    p = t.plan
     dia = p["dia_vals_lc"]
     S, _, R = dia.shape
     rng = np.random.default_rng(3)
@@ -59,19 +60,19 @@ def test_plain_modes_equal_the_batched_cg(plan_solver, mode, warm):
                                 dtype=torch.float32)
     else:
         b[-1] = 0.0
-    go, uo = t._fsai_offsets
+    go, uo = t.fsai_offsets
     gd, ud = p["fsai_gl_dia"], p["fsai_gu_dia"]
-    dinv = 1.0 / dia[:, t._dia_offsets.index(0)]
+    dinv = 1.0 / dia[:, t.dia_offsets.index(0)]
     dinv_arg = dinv if mode == "jacobi" else None
     fsai = (go, gd, uo, ud) if mode == "fsai" else None
     precond = {"none": None, "jacobi": lambda r: dinv * r,
                "fsai": lambda r: dia_spmv_chain_plain(go, gd, uo, ud, r)}[mode]
     ref = cg_solve(None, None, b, x0, 1e-6, 20, precond=precond,
-                   apply_fn=t._apply_local(inner=True))
-    got = fused_cg_solve_plain(t._dia_offsets, dia, b, x0, dinv_arg, 1e-6, 20,
+                   apply_fn=t.operator(inner=True))
+    got = fused_cg_solve_plain(t.dia_offsets, dia, b, x0, dinv_arg, 1e-6, 20,
                                fsai)
     n0 = fused_cg_solve.launches
-    wrapped = fused_cg_solve(t._dia_offsets, dia, b, x0, dinv_arg, 1e-6, 20,
+    wrapped = fused_cg_solve(t.dia_offsets, dia, b, x0, dinv_arg, 1e-6, 20,
                              cluster=8, fsai=fsai)
     assert fused_cg_solve.launches == n0     # the CPU launches nothing
     for r in (got, wrapped):
@@ -84,20 +85,22 @@ def test_plain_modes_equal_the_batched_cg(plan_solver, mode, warm):
 
 
 def test_plain_fsai_mode_is_the_solvers_preconditioner(plan_solver):
-    """The solver's own FSAI apply (``_precond_fn``) is the plain chain."""
-    t = plan_solver
-    go, uo = t._fsai_offsets
-    r = torch.randn(t._plan["fsai_gl_dia"].shape[0::2])
-    assert torch.equal(t._precond_fn()(r), dia_spmv_chain_plain(
-        go, t._plan["fsai_gl_dia"], uo, t._plan["fsai_gu_dia"], r))
+    """The solver's own FSAI apply (``LocalSolve.precond``) is the plain
+    chain."""
+    t = plan_solver._local
+    go, uo = t.fsai_offsets
+    r = torch.randn(t.plan["fsai_gl_dia"].shape[0::2])
+    assert torch.equal(t.precond(r), dia_spmv_chain_plain(
+        go, t.plan["fsai_gl_dia"], uo, t.plan["fsai_gu_dia"], r))
 
 
 def test_plain_refuses_jacobi_and_fsai_at_once(plan_solver):
-    p = plan_solver._plan
+    t = plan_solver._local
+    p = t.plan
     b = torch.zeros(p["dia_vals_lc"].shape[0::2])
-    go, uo = plan_solver._fsai_offsets
+    go, uo = t.fsai_offsets
     with pytest.raises(ValueError, match="Jacobi and FSAI"):
-        fused_cg_solve(plan_solver._dia_offsets, p["dia_vals_lc"], b, b, b,
+        fused_cg_solve(t.dia_offsets, p["dia_vals_lc"], b, b, b,
                        1e-6, 5, fsai=(go, p["fsai_gl_dia"], uo,
                                       p["fsai_gu_dia"]))
 
@@ -131,9 +134,9 @@ def test_cpu_plan_takes_k3_only_when_asked(plan_solver, fused, monkeypatch):
         calls.append(k.get("fsai") is not None)
         return fused_cg_solve(*a, **k)
 
-    monkeypatch.setattr(ras, "fused_cg_solve", counted)
+    monkeypatch.setattr(local, "fused_cg_solve", counted)
     t = _solver(fused_local_cg=True) if fused else plan_solver
-    assert t._use_fused_cg == fused
+    assert t._local.use_fused_cg == fused
     res = t.run()
     assert res.converged and res.relative_residual_norm <= 1e-8
     assert len(calls) == (res.iters if fused else 0) and all(calls)

@@ -249,7 +249,7 @@ def test_dia_only_changes_the_inner_operator():
                     **dict(SOLVES["dia_only"][2], inner_operator="exact"))
     _, cut = both(16, 4, tolerance=1e-6, max_iters=300,
                   **SOLVES["dia_only"][2])
-    assert cut._dia_has_remainder
+    assert cut._local.dia_has_remainder
     re, rc = exact.run(), cut.run()
     assert re.converged and rc.converged
     assert not np.array_equal(re.inner_iters_history, rc.inner_iters_history)
@@ -265,6 +265,8 @@ def test_dia_only_changes_the_inner_operator():
      "solution-based"),
     (dict(inner_operator="dia_only", spmv_format="dia"), "residual-based"),
     (dict(local_solver="gmres", fused_local_cg=True), "local_solver='cg'"),
+    # the CPU keeps the ELL operator under spmv_format='auto'
+    (dict(fused_local_cg=True), "requires the DIA operator"),
 ])
 def test_gates_raise_like_jax(kw, match):
     A = tmodels.laplacian_2d(8)

@@ -167,8 +167,8 @@ def test_plan_entries_bit_for_bit(case):
             want, got = want.astype(np.int64), got.astype(np.int64)
         assert got.dtype == want.dtype, k
         np.testing.assert_array_equal(got, want, err_msg=k)
-    for attr in ("_fsai_offsets", "_ilu_offsets"):
-        assert getattr(ts, attr, None) == getattr(js, attr, None)
+    for attr in ("fsai_offsets", "ilu_offsets"):
+        assert getattr(ts._local, attr) == getattr(js, "_" + attr, None)
 
 
 # solves through each preconditioner: the configurations of

@@ -62,8 +62,9 @@ def test_f32_kernel_slice_matches(n, S, overlap, kw):
                       spmv_format="dia", use_pallas="on", halo_fused="on",
                       fused_local_cg=True, precond="jacobi", **kw)
     assert js._use_pallas and js._halo_fused and js._use_fused_cg
-    assert ts._use_fused_cg and ts._dia_offsets == js._dia_offsets
-    assert not ts._dia_has_remainder
+    assert ts._local.use_fused_cg
+    assert ts._local.dia_offsets == js._dia_offsets
+    assert not ts._local.dia_has_remainder
     rj, rt = js.run(), ts.run()
     assert rt.iters == rj.iters
     np.testing.assert_allclose(rt.global_resnorm_history,

@@ -162,9 +162,9 @@ def test_f32_locals_solve_matches(case, monkeypatch):
     n, S, kw, rtol, floor = F32_CASES[case]
     js, ts = _solvers(n, S, **kw)
     if kw.get("fused_local_cg"):
-        assert js._use_fused_cg and ts._use_fused_cg
+        assert js._use_fused_cg and ts._local.use_fused_cg
     if kw.get("spmv_format") == "dia" and kw.get("precond") == "fsai":
-        assert ts._fsai_offsets == js._fsai_offsets
+        assert ts._local.fsai_offsets == js._fsai_offsets
     rj, rt = js.run(), ts.run()
     _check(rj, rt, rtol, floor)
     if kw.get("tolerance") == 1e-8:
@@ -177,7 +177,7 @@ def test_f32_locals_solve_matches(case, monkeypatch):
 def test_oras_weight_resolution(weight, two_level, want):
     js, ts = _solvers(16, 4, oras_weight=weight, two_level=two_level)
     assert ts._oras_c == js._oras_c == want
-    assert ts._oras == js._oras == (want != 0)
+    assert ts._local.oras == js._oras == (want != 0)
     assert ("oras_diag" in ts._plan) == ("oras_diag" in js._plan)
 
 

@@ -296,13 +296,13 @@ def k3_readings(reps=20):
                  row_pad_multiple=128)
     t = RASolver(decompose(A, generate_rhs(A.n), s, 16))
     p = t._plan
-    go, uo = t._fsai_offsets
+    go, uo = t._local.fsai_offsets
     fsai = (go, p["fsai_gl_dia"], uo, p["fsai_gu_dia"])
     dia = p["dia_vals_lc"]
     S, K, R = dia.shape
     gen = torch.Generator(device="cuda").manual_seed(0)
     b = torch.rand((S, R), generator=gen, device="cuda")
-    args = (t._dia_offsets, dia, b, torch.zeros_like(b), None, 1e-6, 20)
+    args = (t._local.dia_offsets, dia, b, torch.zeros_like(b), None, 1e-6, 20)
     sm = Smoke(torch)
     got = k3.fused_cg_solve(*args, fsai=fsai)
     C0, variant = k3.fused_cg_solve.cluster, k3.fused_cg_solve.variant
@@ -328,8 +328,8 @@ def k3_readings(reps=20):
     def unfused():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cg_solve(None, None, b, args[3], 1e-6, 20, precond=t._precond_fn(),
-                 apply_fn=t._apply_local(inner=True))
+        cg_solve(None, None, b, args[3], 1e-6, 20, precond=t._local.precond,
+                 apply_fn=t._local.operator(inner=True))
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0)
 

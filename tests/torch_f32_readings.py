@@ -64,7 +64,12 @@ def main():
     for fault, change in FAULTS.items():
         ts = t._solvers(n, S, **kw)[1]
         for key, fn in change.items():
-            ts._plan[key] = fn(ts._plan[key])
+            new = fn(ts._plan[key])
+            if new.dtype == ts._plan[key].dtype:
+                # in place: the local solve holds the plan's tensors
+                ts._plan[key].copy_(new)
+            else:
+                ts._plan[key] = new
         ij, it, first, top = _gaps(hj, ts)
         print(f"flagship-analog-dia, {fault}: {ij} / {it}, {first:.3e}, "
               f"{top:.3e}", flush=True)
