@@ -20,6 +20,10 @@ with all S subdomains batched on one device:
                           once at set-up                    (solvers/local.py)
   - local_to_global    -> interior-window write                (communicate.cpp:64-94)
 
+The loop reads the host once an iteration, for its converged count and
+divergence flag; on the card, where that is its only host read, the work
+on each side of the read replays as a CUDA graph (``step_graphs.py``).
+
 Optimized Schwarz (``oras_weight``) adds a Robin term to the local solve
 operator's boundary rows and the matching trace term to its rhs.
 ``comm.overlap_split`` hoists the loop-invariant half of the local solve,
@@ -59,6 +63,7 @@ package's file, and each process reads back its block.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import sys
@@ -105,6 +110,7 @@ from schwarz_tpu_torch.solvers.direct import inverse_apply
 from schwarz_tpu_torch.solvers.global_krylov import fgmres
 from schwarz_tpu_torch.solvers.local import (ITERATIVE, LocalSolve,
                                              inner_dtype, plan_from_numpy)
+from schwarz_tpu_torch.step_graphs import StepGraphs, capturable
 from schwarz_tpu_torch.utils.backend import resolve_device
 from schwarz_tpu_torch.utils.timing import (HOST_READS, StageTimer, count,
                                             new_request, span, spanned)
@@ -161,6 +167,14 @@ def _request_span(name: str, entry: bool):
                 return fn(self, *args, **kwargs)
         return inner
     return wrap
+
+
+def _put_row(hist: torch.Tensor, it_dev: torch.Tensor,
+             row: torch.Tensor) -> None:
+    """``hist[it] = row`` at the device-resident row index ``it_dev``
+    (1,): the same write at every iteration, so a graph can hold it."""
+    hist.index_copy_(0, it_dev,
+                     row.to(hist.dtype).reshape(1, *hist.shape[1:]))
 
 
 def _interface_contrib(plan, x_ext: torch.Tensor) -> torch.Tensor:
@@ -249,6 +263,14 @@ class RASolver:
         # FGMRES's operator
         self._apply_a = self._local.operator(inner=False)
         self._stages = self._build_stage_fns()
+        # the outer iteration as two CUDA graphs wherever its only host
+        # read is its flags (step_graphs.py), else op by op
+        self._graphs = (StepGraphs(self.device)
+                        if capturable(s, self.device, self._mesh,
+                                      self._local.reads_host) else None)
+        # the state's buffers, which every run writes in place, and
+        # init_state's values (made at the first run)
+        self._state = self._state0 = None
 
     def _check_supported(self) -> None:
         """Fail loudly on the JAX package's own invalid combinations, on
@@ -653,15 +675,16 @@ class RASolver:
             return 0
         return nconv
 
-    @spanned("step")
-    def _step(self, st: Dict[str, Any]) -> Dict[str, Any]:
-        """One outer iteration (the body of the JAX package's run loop)."""
+    def _check(self, st: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """An outer iteration up to its host read: the exchange, the
+        interface update and the convergence check.  Writes the state's
+        ``conv``, ``local_rn0``, ``grn`` and the rows ``it_dev`` of
+        ``hist_local`` and ``hist_global`` in place; returns what the rest
+        of the iteration reads, and ``flags``, the values the host reads
+        (the converged count, the divergence flag, K4's error words)."""
         s = self.settings
-        S = self.meta.num_subdomains
-        R_rows = self.meta.max_rows
         stage = self._stages
-        it = st["it"]
-        x_own = st["x_own"]
+        x_own, it_dev = st["x_own"], st["it_dev"]
         # --- exchange_boundary -------------------------------------------
         # stale-halo modes: enable_overlap computes with last iteration's
         # halo and carries the fresh one (restricted_schwarz.cpp:855-973);
@@ -669,55 +692,109 @@ class RASolver:
         # iterations, the asynchronous algorithm's aged neighbour data
         stale_period = max(1, s.comm.staleness) if s.comm.onesided else 1
         if s.comm.overlap_comm and stale_period == 1:
-            x_ext, x_ext_carry = st["x_ext"], stage["boundary_exchange"](x_own)
-        elif stale_period > 1 and it % stale_period != 0:
-            x_ext = x_ext_carry = st["x_ext"]
+            x_ext, carry = st["x_ext"], stage["boundary_exchange"](x_own)
+        elif stale_period > 1 and st["it"] % stale_period != 0:
+            x_ext = carry = st["x_ext"]
         else:
-            x_ext = x_ext_carry = stage["boundary_exchange"](x_own)
+            x_ext = carry = stage["boundary_exchange"](x_own)
         # --- update_boundary: rhs_eff = b_loc - A_interface x_ext --------
         rhs_eff, g = stage["boundary_update"](x_ext)
         # --- local residual + global convergence protocol ----------------
         r, local_rn, rn0, conv_state, nconv, grn = stage["convergence_check"](
             st["conv"], x_ext, rhs_eff, st["local_rn0"])
         diverged = torch.isnan(grn) | (grn > DIVERGENCE_LIMIT)
-        st["hist_local"][it] = local_rn
-        st["hist_global"][it] = grn
-        flags = [nconv, diverged, *self._status.flags]
-        count(HOST_READS, "step.flags")
-        nconv_h, div_h, *err = torch.stack(
-            [f.to(torch.float64) for f in flags]).tolist()
-        div_h = bool(div_h)
-        self._status.settle(err)
-        nconv_h = self._gate_nconv(int(nconv_h), it)
-        # --- local_solve + local_to_global (skipped on the exit pass) ----
-        z_prev = st["z"]
-        if nconv_h < S and not div_h:
-            detected = conv_state.detected[self._sub]
-            x_trace = x_ext[:, :R_rows]     # Robin data under O-RAS
-            if s.two_level:
-                # coarse-correct, exchange again, and let the local solves
-                # act on the corrected boundary data; the pre-coarse
-                # residual stays the one reported and checked
-                x_own = stage["coarse_correction"](x_own, r, detected)
-                x_ext2 = stage["boundary_exchange"](x_own)
-                rhs_eff, g = stage["boundary_update"](x_ext2)
-                x_trace = x_ext2[:, :R_rows]
-                r = stage["residual_recompute"](x_ext2, rhs_eff)
-            z, sol_field, inner, inner_rel = stage["local_solve"](
-                rhs_eff, g, r, z_prev, detected, x_trace, it)
-            x_own = stage["expand_local_vec"](z, sol_field, x_own, detected)
-        else:
-            # exit pass: leave the iterate exactly as it was detected
-            z = z_prev
-            inner = torch.zeros(self.S_local, dtype=torch.int32,
-                                device=self.device)
-            inner_rel = torch.zeros(self.S_local, dtype=s.value_dtype,
-                                    device=self.device)
-        st["hist_inner"][it] = inner
-        st["hist_inner_rel"][it] = inner_rel
-        st.update(x_own=x_own, x_ext=x_ext_carry, z=z, local_rn0=rn0,
-                  conv=conv_state,
-                  nconv=nconv_h, grn=grn, diverged=div_h, it=it + 1)
+        _put_row(st["hist_local"], it_dev, local_rn)
+        _put_row(st["hist_global"], it_dev, grn)
+        st["local_rn0"].copy_(rn0)
+        st["grn"].copy_(grn)
+        for old, new in zip(st["conv"], conv_state):
+            if new is not old:
+                old.copy_(new)
+        flags = torch.stack([f.to(torch.float64) for f in
+                             (nconv, diverged, *self._status.flags)])
+        return dict(x_ext=x_ext, carry=carry, rhs_eff=rhs_eff, g=g, r=r,
+                    flags=flags)
+
+    def _advance(self, st: Dict[str, Any],
+                 chk: Dict[str, torch.Tensor]) -> None:
+        """The rest of an outer iteration on a pass that solves: under
+        ``two_level`` the coarse correction, a second exchange and update
+        and the residual again, then the local solve and the interior
+        write.  Writes ``x_own``, ``z`` and the rest of the row ``it_dev``
+        in place (:meth:`_finish`)."""
+        s = self.settings
+        stage = self._stages
+        R_rows = self.meta.max_rows
+        x_own, z_prev = st["x_own"], st["z"]
+        detected = st["conv"].detected[self._sub]
+        rhs_eff, g, r = chk["rhs_eff"], chk["g"], chk["r"]
+        x_trace = chk["x_ext"][:, :R_rows]     # Robin data under O-RAS
+        if s.two_level:
+            # coarse-correct, exchange again, and let the local solves
+            # act on the corrected boundary data; the pre-coarse
+            # residual stays the one reported and checked
+            x_own = stage["coarse_correction"](x_own, r, detected)
+            x_ext2 = stage["boundary_exchange"](x_own)
+            rhs_eff, g = stage["boundary_update"](x_ext2)
+            x_trace = x_ext2[:, :R_rows]
+            r = stage["residual_recompute"](x_ext2, rhs_eff)
+        z, sol_field, inner, inner_rel = stage["local_solve"](
+            rhs_eff, g, r, z_prev, detected, x_trace, st["it"])
+        x_own = stage["expand_local_vec"](z, sol_field, x_own, detected)
+        st["x_own"].copy_(x_own)
+        st["z"].copy_(z)
+        self._finish(st, chk, inner, inner_rel)
+
+    def _finish(self, st: Dict[str, Any], chk: Dict[str, torch.Tensor],
+                inner: Optional[torch.Tensor] = None,
+                inner_rel: Optional[torch.Tensor] = None) -> None:
+        """The end of every pass: the carried halo into the state, the row
+        ``it_dev`` of the inner histories (zero on the exit pass, which
+        solves nothing), and ``it_dev`` one on."""
+        if chk["carry"] is not st["x_ext"]:
+            st["x_ext"].copy_(chk["carry"])
+        it_dev = st["it_dev"]
+        for h, row in ((st["hist_inner"], inner),
+                       (st["hist_inner_rel"], inner_rel)):
+            if row is None:
+                h.index_fill_(0, it_dev, 0)
+            else:
+                _put_row(h, it_dev, row)
+        it_dev.add_(1)
+
+    @spanned("step")
+    def _step(self, st: Dict[str, Any]) -> Dict[str, Any]:
+        """One outer iteration (the body of the JAX package's run loop):
+        :meth:`_check`, the one host read of its flags, then
+        :meth:`_advance`, or the exit pass.  Where the gate holds
+        (``self._graphs``) the two halves are replays of CUDA graphs, once
+        a pass that solved has run eagerly as their warm-up and been
+        captured; the state's buffers are the same either way."""
+        S = self.meta.num_subdomains
+        it = st["it"]
+        graphs = self._graphs
+        replay = graphs is not None and graphs.ready
+        warm = graphs is not None and not replay
+        with graphs.warming() if warm else contextlib.nullcontext():
+            chk = graphs.check() if replay else self._check(st)
+            count(HOST_READS, "step.flags")
+            nconv_h, div_h, *err = chk["flags"].tolist()
+            div_h = bool(div_h)
+            self._status.settle(err)
+            nconv_h = self._gate_nconv(int(nconv_h), it)
+            # --- local_solve + local_to_global (skipped on the exit pass)
+            solves = nconv_h < S and not div_h
+            if not solves:
+                # exit pass: leave the iterate exactly as it was detected
+                self._finish(st, chk)
+            elif replay:
+                graphs.advance()
+            else:
+                self._advance(st, chk)
+        if warm and solves:
+            graphs.capture(lambda: self._check(st),
+                           lambda out: self._advance(st, out))
+        st.update(nconv=nconv_h, diverged=div_h, it=it + 1)
         return st
 
     def init_state(self, x0=None) -> Dict[str, Any]:
@@ -772,26 +849,26 @@ class RASolver:
         """Re-target the solver at a new right-hand side of the same
         operator (``schwarz_tpu/ras.py:433-464``).  The decomposition, the
         factors, the preconditioner, the coarse space and the plan stay;
-        the device's permuted global rhs and ``local_rhs`` are replaced by
-        one copy of ``rhs`` to the device and two gathers there.  The
+        the device's permuted global rhs and ``local_rhs`` are overwritten,
+        in place, by one copy of ``rhs`` to the device and two gathers
+        there, so that the step's graphs read the new values.  The
         ``Decomposition``'s host ``local_rhs`` and ``global_rhs`` keep the
         rhs it was built with: set-up reads them, nothing after.  Under
         ``comm.overlap_split`` the hoisted ``z_base`` is recomputed from
-        the new rhs (the JAX package keeps the old one, and its split
-        solve then iterates towards the old system)."""
+        the new rhs, in place too (the JAX package keeps the old one, and
+        its split solve then iterates towards the old system)."""
         N = self.meta.global_size
         rhs = np.asarray(rhs).reshape(-1)
         if rhs.shape[0] != N:
             raise ValueError(
                 f"rhs has {rhs.shape[0]} entries, operator has {N} rows")
-        io = self._io
+        io, plan = self._io, self._plan
         b = io["rhs_in"]
         b[:N].copy_(torch.from_numpy(np.ascontiguousarray(rhs, np.float64)))
-        dtype = self.settings.value_dtype
-        io["global_rhs"] = b[io["rhs_perm"]].to(dtype)
-        self._plan["local_rhs"] = b[io["rhs_local"]].to(dtype)
+        io["global_rhs"].copy_(b[io["rhs_perm"]])
+        plan["local_rhs"].copy_(b[io["rhs_local"]])
         if self._overlap_split:
-            self._plan["z_base"] = self._local.z_base(self._plan["local_rhs"])
+            plan["z_base"].copy_(self._local.z_base(plan["local_rhs"]))
 
     # ------------------------------------------------------------ checkpoints --
     def save_checkpoint(self, state: Dict[str, Any], path: str) -> None:
@@ -880,16 +957,7 @@ class RASolver:
         S = self.meta.num_subdomains
         max_iters = self.settings.max_iters
         with span("prepare"):
-            if resume_state is not None:
-                # the steps write into the state's tensors: work on a copy
-                st = {k: (ConvState(*(t.clone() for t in v)) if k == "conv"
-                          else v.clone() if isinstance(v, torch.Tensor)
-                          else v)
-                      for k, v in resume_state.items()}
-            else:
-                st = self.init_state(x0)
-        # a resumed state carries the previous run's stop marker
-        st["it_stop"] = max_iters
+            st = self._prepare(x0, resume_state)
         t0 = time.perf_counter()
         while True:
             if chunk_iters is not None:
@@ -940,6 +1008,34 @@ class RASolver:
             self.save_checkpoint(st, "schwarz_debug_out.npz")
         return result
 
+    def _prepare(self, x0, resume_state) -> Dict[str, Any]:
+        """The solver's state buffers set to ``resume_state``, or to
+        :meth:`init_state`'s values with ``x0``: copied in place, so that a
+        run's steps (and their graphs) write the same tensors every run;
+        ``resume_state`` itself is left as it was.  ``it_dev`` is the
+        device's copy of the iteration count, the row the histories'
+        writes take."""
+        if self._state is None:
+            self._state, self._state0 = self.init_state(), self.init_state()
+            self._state["it_dev"] = torch.zeros(1, dtype=torch.int64,
+                                                device=self.device)
+        st = self._state
+        src = self._state0 if resume_state is None else resume_state
+        for k in STATE_KEYS:
+            if k == "conv":
+                for t, v in zip(st[k], src[k]):
+                    t.copy_(v)
+            elif isinstance(st[k], torch.Tensor):
+                st[k].copy_(src[k])
+            else:
+                st[k] = src[k]
+        if resume_state is None and x0 is not None:
+            st["x_own"].copy_(torch.as_tensor(np.asarray(x0)[self._sub]))
+        st["it_dev"].fill_(st["it"])
+        # a resumed state carries the previous run's stop marker
+        st["it_stop"] = self.settings.max_iters
+        return st
+
     def _synchronize(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -974,12 +1070,15 @@ class RASolver:
                 return out
             return stage
 
-        stages = self._stages
+        # op by op: the timers synchronize each stage, which no graph
+        # replay can
+        stages, graphs = self._stages, self._graphs
         self._stages = {k: timed(k, f) for k, f in stages.items()}
+        self._graphs = None
         try:
             result = self.run(x0)
         finally:
-            self._stages = stages
+            self._stages, self._graphs = stages, graphs
         result.stage_timings = timer.summary()
         return result
 

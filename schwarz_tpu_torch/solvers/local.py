@@ -156,6 +156,9 @@ class LocalSolve:
                 "precond in (none, jacobi, fsai)")
         self.use_fused_cg = gate and (s.fused_local_cg
                                       or device.type == "cuda")
+        # the unfused CG and GMRES test their residuals on the host
+        self.reads_host = (s.local_solver in ITERATIVE
+                           and not self.use_fused_cg)
         # the inner budget (solve.cpp:729-742)
         self._cap = s.local_max_iters if s.local_max_iters > 0 else R
         self._reset = (s.reset_local_crit_iter

@@ -52,6 +52,7 @@ from schwarz_tpu_torch.ops.rdma_kernel import exchange_rounds_plain
 from schwarz_tpu_torch.parallel.exchange import segments_of
 from schwarz_tpu_torch.parallel.neighbor_exchange import (build_neighbor_plan,
                                                           exchange_rounds)
+from schwarz_tpu_torch.step_graphs import step_graph_replay
 
 pytestmark = pytest.mark.cuda
 
@@ -1007,6 +1008,123 @@ def test_two_level_and_oras_solve_on_card_like_cpu(dev, case, monkeypatch):
     np.testing.assert_allclose(r_c.global_resnorm_history,
                                r_h.global_resnorm_history, rtol=1e-4,
                                atol=1e-8 * r_h.global_resnorm_history.max())
+
+
+def _graphed_and_eager(dev, monkeypatch, **over):
+    """The flagship recipe at 64^2 (S = 4, spectral q = 8, FSAI(0)-CG
+    locals through K3) twice from one decomposition: a solver whose step
+    replays its CUDA graphs, and one held to the eager step."""
+    monkeypatch.delenv("SCHWARZ_TPU_COARSE_CACHE", raising=False)
+    A = laplacian_2d(64)
+    s = Settings(spmv_format="dia",
+                 **{**_TWO_LEVEL["flagship-analog"], **over})
+    dec = decompose(A, generate_rhs(A.n), s, 4)
+    graphed, eager = RASolver(dec, device=dev), RASolver(dec, device=dev)
+    assert graphed._local.use_fused_cg and graphed._graphs is not None
+    eager._graphs = None
+    return A, graphed, eager
+
+
+def _assert_same_solve(ra, rb, sa, sb):
+    """Two results and the solvers' states equal bit for bit: the
+    iterations, the solution, the three histories of the result and
+    ``hist_inner_rel``, every state tensor."""
+    assert ra.converged and rb.converged and ra.iters == rb.iters
+    for f in ("solution", "local_resnorm_history", "global_resnorm_history",
+              "inner_iters_history"):
+        np.testing.assert_array_equal(getattr(ra, f), getattr(rb, f))
+    for k, v in sa._state.items():
+        if k == "conv":
+            assert all(torch.equal(a, b) for a, b in zip(v, sb._state[k]))
+        elif isinstance(v, torch.Tensor):
+            assert torch.equal(v, sb._state[k]), k
+        else:
+            assert v == sb._state[k], k
+
+
+def _rhs_k(n, k):
+    return np.random.default_rng(10 + k).uniform(0, 1, n)
+
+
+def test_step_graphs_replay_the_eager_step_bit_for_bit(dev, monkeypatch):
+    """Three right-hand sides through ``set_rhs``: the graphed ``run()``
+    equals the eager step bit for bit; the first solve's first pass runs
+    eagerly and is captured, every later half is a replay."""
+    A, graphed, eager = _graphed_and_eager(dev, monkeypatch)
+    before = dict(step_graph_replay.launches_by)
+    steps = passes = 0
+    for k in range(3):
+        rhs = _rhs_k(A.n, k)
+        graphed.set_rhs(rhs)
+        eager.set_rhs(rhs)
+        rg, re = graphed.run(), eager.run()
+        _assert_same_solve(rg, re, graphed, eager)
+        steps, passes = steps + rg.iters + 1, passes + rg.iters
+    assert graphed._graphs.ready
+    by = step_graph_replay.launches_by
+    assert by["check"] - before.get("check", 0) == steps - 1
+    assert by["advance"] - before.get("advance", 0) == passes - 1
+
+
+def test_step_graphs_bit_for_bit_under_chunks_and_resume(dev, monkeypatch,
+                                                         tmp_path):
+    """``chunk_iters`` and ``resume_state`` (a checkpoint of 6 iterations)
+    through the graphs equal the eager step bit for bit, and the resumed
+    solve the uninterrupted one."""
+    A, graphed, eager = _graphed_and_eager(dev, monkeypatch)
+    _assert_same_solve(graphed.run(chunk_iters=4), eager.run(chunk_iters=4),
+                       graphed, eager)
+    whole = graphed.run()
+    short = RASolver(decompose(A, generate_rhs(A.n),
+                               graphed.settings.replace(max_iters=6), 4),
+                     device=dev)
+    p = str(tmp_path / "st.npz")
+    short.run(checkpoint_path=p)
+    rg = graphed.run(resume_state=graphed.load_checkpoint(p))
+    re = eager.run(resume_state=eager.load_checkpoint(p))
+    _assert_same_solve(rg, re, graphed, eager)
+    np.testing.assert_array_equal(rg.solution, whole.solution)
+    np.testing.assert_array_equal(rg.global_resnorm_history,
+                                  whole.global_resnorm_history)
+
+
+def test_step_graphs_keep_the_launch_counters(dev, monkeypatch):
+    """The kernel wrappers' counters after three solves read the same
+    launches, by operand, on the graphed and the eager solver."""
+    A, graphed, eager = _graphed_and_eager(dev, monkeypatch)
+    counted = (dia_spmv, assemble_x_ext, fused_cg_solve)
+
+    def counts():
+        return [(f.launches, dict(getattr(f, "launches_by", {})))
+                for f in counted]
+
+    def delta(before, after):
+        return [(a - b, {k: v - bb.get(k, 0) for k, v in ab.items()})
+                for (b, bb), (a, ab) in zip(before, after)]
+
+    got = []
+    for solver in (graphed, eager):
+        c0 = counts()
+        for k in range(3):
+            solver.set_rhs(_rhs_k(A.n, k))
+            solver.run()
+        got.append(delta(c0, counts()))
+    assert got[0] == got[1]
+    assert got[0][0][0] > 0 and got[0][1][0] > 0 and got[0][2][0] > 0
+
+
+def test_step_graphs_refused_configuration_replays_nothing(dev, monkeypatch):
+    """The coarse CG reads the host each CG iteration: its solver keeps
+    the eager step and replays no graph."""
+    monkeypatch.delenv("SCHWARZ_TPU_COARSE_CACHE", raising=False)
+    A = laplacian_2d(64)
+    s = Settings(spmv_format="dia", **{**_TWO_LEVEL["flagship-analog"],
+                                       "coarse_solver": "cg"})
+    solver = RASolver(decompose(A, generate_rhs(A.n), s, 4), device=dev)
+    assert solver._graphs is None
+    n = step_graph_replay.launches
+    assert solver.run().converged
+    assert step_graph_replay.launches == n
 
 
 def test_two_level_refinement_on_card_like_cpu(dev):

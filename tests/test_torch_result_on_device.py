@@ -152,3 +152,39 @@ def test_global_operator_is_the_permuted_matrix():
     y = torch.mv(M, torch.from_numpy(x)).numpy()
     bound = 8 * np.finfo(np.float64).eps * (abs(A_p) @ np.abs(x))
     assert np.all(np.abs(y - A_p @ x) <= bound)
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_set_rhs_writes_in_place(split):
+    """Two ``set_rhs`` calls with different right-hand sides keep the
+    storage of ``local_rhs``, the permuted global rhs and, under
+    ``overlap_split``, ``z_base`` (a captured step reads them by address),
+    and leave in them the host formula's values for the latest rhs."""
+    kw = dict(partition=cfg.Partition.metis, overlap=2, row_pad_multiple=8,
+              tolerance=1e-6, max_iters=200)
+    if split:
+        kw.update(local_solver=cfg.LocalSolver.direct_cholesky,
+                  direct_apply="inverse",
+                  comm=cfg.CommSettings(overlap_split=True))
+    A = models.laplacian_2d(N_SIDE)
+    dec = decompose(A, models.generate_rhs(A.n), cfg.Settings(**kw), S)
+    solver = RASolver(dec, device="cpu")
+    plan, io = solver._plan, solver._io
+    keys = ["local_rhs"] + (["z_base"] if split else [])
+    ptrs = [plan[k].data_ptr() for k in keys] + [io["global_rhs"].data_ptr()]
+    for k in (5, 6):
+        rhs = _rhs(A.n, k)
+        solver.set_rhs(rhs)
+        assert [plan[k].data_ptr() for k in keys] + [
+            io["global_rhs"].data_ptr()] == ptrs
+        rhs_p = rhs[dec.perm]
+        local = np.zeros(dec.local_rhs.shape)
+        for p in range(S):
+            rc = int(dec.rows_count[p])
+            local[p, :rc] = rhs_p[dec.local_to_global[p, :rc]]
+        np.testing.assert_array_equal(plan["local_rhs"].numpy(), local)
+        np.testing.assert_array_equal(io["global_rhs"][:-1].numpy(), rhs_p)
+        if split:
+            want = solver._local.z_base(torch.from_numpy(local))
+            np.testing.assert_array_equal(plan["z_base"].numpy(),
+                                          want.numpy())
